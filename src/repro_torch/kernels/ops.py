@@ -1,0 +1,114 @@
+"""Kernel wrappers + tunable config spaces + the Hopper resource model.
+
+Port of ``repro/kernels/ops.py`` for the two kernels of the tuning loop. Each
+kernel exposes a SearchSpace whose invalid region is the card's resource
+model — threads per block, shared memory per block, registers — in place of
+the reference's TPU VMEM budget: the structure the paper tunes on GPUs. An
+invalid config is the paper's invalid configuration: journaled as NaN and
+never fitted to the surrogate.
+
+Cut from this port: the flash-attention and flash-decode wrappers and
+spaces (later slices).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+from repro_torch.core.searchspace import Param, SearchSpace
+from repro_torch.kernels import gemm as _gemm
+from repro_torch.kernels import matern_gp as _mgp
+from repro_torch.launch.roofline import (MAX_REGS_PER_THREAD,
+                                         MAX_THREADS_PER_BLOCK, REGS_PER_SM,
+                                         SMEM_PER_BLOCK)
+
+#: Registers per thread the GEMM kernel is modelled with: 64 fp32
+#: accumulators, 16 operand registers and addressing. The build's real
+#: count (``_build.lib().gemm_attrs``) is printed by the chip smoke; a
+#: config the model passes but the card refuses is a runtime invalid.
+GEMM_REGS_PER_THREAD = 128
+
+
+# -- GEMM ---------------------------------------------------------------
+
+def gemm(a, b, block_m=128, block_n=128, block_k=64):
+    return _gemm.gemm(a, b, block_m=block_m, block_n=block_n,
+                      block_k=block_k)
+
+
+def gemm_config_space(M: int = 1024, N: int = 1024, K: int = 1024) -> SearchSpace:
+    """BO target: thread-block tile shapes. The grid and constraints are the
+    reference's, so the space and its fingerprint match; invalid = over the
+    card's resources (checked by the objective, not the constraints)."""
+    vals = (64, 128, 256, 512, 1024)
+    params = [Param("block_m", vals), Param("block_n", vals),
+              Param("block_k", vals)]
+    cons = [lambda c: M % c["block_m"] == 0,
+            lambda c: N % c["block_n"] == 0,
+            lambda c: K % c["block_k"] == 0]
+    return SearchSpace(params, cons, name="cuda_gemm")
+
+
+def gemm_valid(cfg: Dict, dtype_bytes: int = 4,
+               regs_per_thread: int = GEMM_REGS_PER_THREAD) -> bool:
+    """Hopper resource model of one GEMM block: 32..1024 threads, the A and
+    B tiles within 227 KB of shared memory, and the block's registers within
+    the SM's 65,536 (each thread within 255)."""
+    threads = _gemm.gemm_threads(cfg["block_m"], cfg["block_n"])
+    smem = _gemm.gemm_smem_bytes(cfg["block_m"], cfg["block_n"],
+                                 cfg["block_k"], dtype_bytes)
+    return (32 <= threads <= MAX_THREADS_PER_BLOCK
+            and smem <= SMEM_PER_BLOCK
+            and regs_per_thread <= MAX_REGS_PER_THREAD
+            and threads * regs_per_thread <= REGS_PER_SM)
+
+
+# -- Matérn GP posterior ---------------------------------------------------
+
+def gp_posterior(x_cand, x_obs, vinv_rows, w, mask, ell=2.0, nu="matern32",
+                 block_n=512):
+    return _mgp.gp_posterior(x_cand, x_obs, vinv_rows, w, mask, ell=ell,
+                             nu=nu, block_n=block_n)
+
+
+def gp_inputs_from_incremental(gp, pad_T: Optional[int] = None):
+    """Package an IncrementalGP state as padded kernel inputs (numpy)."""
+    from repro_torch.core.gp_fast import forward_substitute
+
+    t = gp.t
+    T = pad_T or max(128, 1 << (t - 1).bit_length())
+    d = gp.dim
+    x_obs = np.zeros((T, d), np.float32)
+    x_obs[:t] = gp.X[:t]
+    # invert the Cholesky factor in float64 — GP kernel matrices are
+    # ill-conditioned and an fp32 inverse loses ~1% of the posterior mean.
+    # Triangular solve against identity (O(t²) per rhs column), NOT
+    # np.linalg.inv of the full padded factor: the generic inverse is O(T³)
+    # on every packaging call and ignores the triangular structure.
+    vinv = np.zeros((T, T), np.float32)
+    vinv[:t, :t] = forward_substitute(
+        gp.L[:t, :t], np.eye(t, dtype=np.float64)).astype(np.float32)
+    yv = gp.y[:t]
+    y_mean, y_std = float(yv.mean()), max(float(yv.std()), 1e-12)
+    w = np.zeros(T, np.float32)
+    w[:t] = forward_substitute(gp.L[:t, :t], (yv - y_mean) / y_std)
+    mask = np.zeros(T, np.float32)
+    mask[:t] = 1.0
+    return x_obs, vinv, w, mask, y_mean, y_std
+
+
+def gp_config_space(N: int = 16384) -> SearchSpace:
+    vals = (128, 256, 512, 1024, 2048, 4096)
+    params = [Param("block_n", vals)]
+    return SearchSpace(params, [lambda c: N % c["block_n"] == 0],
+                       name="cuda_matern_gp")
+
+
+def gp_valid(cfg: Dict, T: int = 256, d: int = 16) -> bool:
+    """Hopper resource model of one GP block: ``block_n`` a multiple of the
+    32-candidate sub-tile, T a multiple of the 64-row granularity, and the
+    shared memory for T observations of dimension d (which ``block_n`` does
+    not change: a block streams its candidates) within 227 KB."""
+    return (cfg["block_n"] % _mgp.TILE == 0 and T % _mgp.T_MULTIPLE == 0
+            and _mgp.gp_smem_bytes(T, d) <= SMEM_PER_BLOCK)

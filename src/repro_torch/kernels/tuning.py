@@ -1,0 +1,315 @@
+"""In-process CUDA kernel autotuning cells (DESIGN.md §14).
+
+Port of ``repro/kernels/tuning.py`` for the gemm and gp cells. This is the
+source paper's literal problem — tune GPU kernel parameters (thread-block
+tile shapes) with BO against measured runtimes — run for real on the card:
+the tunable cells are the port's own hand-written CUDA kernels (gemm
+``block_m/n/k``, matern_gp ``block_n``), the objective is the kernel's time
+measured with CUDA events, and a config the Hopper resource model rejects,
+or that the card refuses to launch, is the paper's invalid configuration:
+journaled as NaN, never fed to the surrogate.
+
+Runs journal into the ``TuningRecordStore`` under ``kernel[name×shape×
+device]`` fingerprints, where the device is a normalized card name, so a
+CPU record or a TPU record never resolves on the H100. The gp cell closes
+the self-hosting loop: its tuned ``block_n`` feeds the tuner's own §III-G
+exhaustive-prediction loop (``IncrementalGP(backend="cuda")``).
+
+Entry points run on the card unless the caller passes ``device="cpu"``
+(the plain kernel versions, for tests); left at the default with no CUDA
+device present they raise. Cut from this port: the flash and decode cells
+and the serve-side config resolvers (later slices).
+"""
+from __future__ import annotations
+
+import math
+import os
+import re
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.objectives import Objective
+from repro_torch.core.searchspace import SearchSpace
+from repro_torch.kernels import _build, ops
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch device; None means the card, and raises when
+    no CUDA device is present rather than running on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the card unless the caller "
+                "passes device='cpu'")
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           "available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {device!r}")
+    return dev
+
+
+def device_kind(device=None) -> str:
+    """Device context kernel timings are keyed under: ``"cpu"`` or the
+    normalized card name (``cuda-NVIDIA_H100_80GB_HBM3``), free of ``:``,
+    ``×``, ``]`` and spaces so it embeds in a ``kernel[...]`` key. With no
+    argument: the card when one is present, else ``"cpu"``."""
+    if device is None:
+        dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    else:
+        dev = torch.device(device)
+    if dev.type == "cpu":
+        return "cpu"
+    name = torch.cuda.get_device_name(dev)
+    return "cuda-" + re.sub(r"[^A-Za-z0-9_.-]", "_", name)
+
+
+def kernel_cell_objective(kernel: str, shape_sig: str,
+                          device: Optional[str] = None) -> str:
+    """Objective id of one kernel-tuning cell, mirroring the sharding cells'
+    ``dryrun[arch×shape×mesh]`` convention: ``kernel[name×shape×device]``."""
+    return f"kernel[{kernel}×{shape_sig}×{device or device_kind()}]"
+
+
+@dataclass
+class KernelCell:
+    """One tunable kernel at one problem shape on one device.
+
+    ``run(cfg)`` launches the kernel under a block config and returns its
+    output; ``valid(cfg)`` is the static Hopper resource model (threads,
+    shared memory, registers, tiling). ``default`` is the block config the
+    kernel uses untuned — the thing tuning must beat.
+    """
+
+    kernel: str
+    shape_sig: str
+    space: SearchSpace
+    run: Callable[[Dict[str, Any]], Any]
+    valid: Callable[[Dict[str, Any]], bool]
+    default: Dict[str, Any]
+    device: torch.device
+    meta: Dict[str, Any] = field(default_factory=dict)
+
+    def objective_id(self) -> str:
+        return kernel_cell_objective(self.kernel, self.shape_sig,
+                                     device_kind(self.device))
+
+
+# -- cell factories ----------------------------------------------------------
+
+
+def gemm_cell(M: int = 512, N: int = 512, K: int = 512,
+              dtype=torch.float32, device=None, seed: int = 0) -> KernelCell:
+    """The paper's GEMM target at one problem shape. The default block
+    config is {128, 128, 64}: the reference's 256³ default needs 512 KiB of
+    fp32 tiles, over Hopper's 227 KB of shared memory per block."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.normal(size=(M, K))).to(dev, dtype)
+    b = torch.from_numpy(rng.normal(size=(K, N))).to(dev, dtype)
+    dtype_bytes = torch.empty((), dtype=dtype).element_size()
+
+    def run(cfg):
+        return ops.gemm(a, b, block_m=cfg["block_m"], block_n=cfg["block_n"],
+                        block_k=cfg["block_k"])
+
+    def valid(cfg):
+        aligned = (M % cfg["block_m"] == 0 and N % cfg["block_n"] == 0
+                   and K % cfg["block_k"] == 0)
+        return aligned and ops.gemm_valid(cfg, dtype_bytes)
+
+    return KernelCell(
+        kernel="gemm", shape_sig=f"{M}x{N}x{K}",
+        space=ops.gemm_config_space(M, N, K), run=run, valid=valid,
+        default={"block_m": 128, "block_n": 128, "block_k": 64}, device=dev,
+        meta={"M": M, "N": N, "K": K, "dtype_bytes": dtype_bytes,
+              "inputs": (a, b)})
+
+
+def gp_cell(N: int = 4096, T: int = 128, d: int = 15, t_obs: int = 37,
+            nu: str = "matern32", ell: float = 2.0, device=None,
+            seed: int = 0) -> KernelCell:
+    """The self-hosting cell: the tuner's own §III-G exhaustive-prediction
+    loop, as a tuning target. Inputs are a real packaged IncrementalGP
+    state (t_obs observations over an N-candidate panel)."""
+    from repro_torch.core.gp_fast import IncrementalGP
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    Xc = rng.random((N, d)).astype(np.float32)
+    g = IncrementalGP(Xc, max_obs=max(t_obs, 1), kernel=nu, ell=ell)
+    for _ in range(t_obs):
+        g.add(Xc[rng.integers(N)], float(rng.normal(10, 2)))
+    x_obs, vinv, w, mask, _, _ = ops.gp_inputs_from_incremental(g, pad_T=T)
+    args = tuple(torch.from_numpy(x).to(dev)
+                 for x in (Xc, x_obs, vinv, w, mask))
+
+    def run(cfg):
+        return ops.gp_posterior(*args, ell=ell, nu=nu,
+                                block_n=cfg["block_n"])
+
+    def valid(cfg):
+        return N % cfg["block_n"] == 0 and ops.gp_valid(cfg, T, d)
+
+    return KernelCell(
+        kernel="gp", shape_sig=f"N{N}_T{T}_d{d}",
+        space=ops.gp_config_space(N), run=run, valid=valid,
+        default={"block_n": 512}, device=dev,
+        meta={"N": N, "T": T, "d": d, "t_obs": t_obs, "nu": nu, "ell": ell,
+              "inputs": args})
+
+
+# -- the measured objective --------------------------------------------------
+
+
+class KernelObjective(Objective):
+    """Measured kernel time (seconds, lower better).
+
+    The Hopper resource model is checked FIRST: a config over the card's
+    threads, shared memory or registers, or that mis-tiles the problem,
+    returns NaN without running — the paper's invalid configuration,
+    journaled by the runner, skipped by the surrogate. A config the model
+    passes but the card refuses to launch (``cudaErrorLaunchOutOfResources``
+    or ``cudaErrorInvalidConfiguration``) is likewise NaN. Any other CUDA
+    error is raised, never journaled: a fault such as an illegal address
+    poisons the context.
+
+    On the card each rep is timed with CUDA events after ``warmup`` runs,
+    best of ``reps``; on the CPU (``device="cpu"``, tests) the plain
+    version is timed with the host clock.
+    """
+
+    def __init__(self, cell: KernelCell, *, reps: int = 3, warmup: int = 1,
+                 device=None, verbose: bool = False):
+        dev = resolve_device(device)
+        if dev.type != cell.device.type:
+            raise ValueError(f"objective on {dev}, cell tensors on "
+                             f"{cell.device}")
+        self.cell = cell
+        self.space = cell.space
+        self.device = dev
+        self.name = cell.objective_id()
+        self.reps = max(int(reps), 1)
+        self.warmup = max(int(warmup), 1)
+        self.verbose = verbose
+        #: a CUDA context must not be shipped to a worker process, and
+        #: concurrent launches would share the card's time
+        self.in_process_only = dev.type == "cuda"
+
+    def _time_once(self, cfg) -> float:
+        if self.device.type == "cuda":
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            self.cell.run(cfg)
+            t1.record()
+            t1.synchronize()
+            return t0.elapsed_time(t1) * 1e-3
+        t0 = time.perf_counter()
+        self.cell.run(cfg)
+        return time.perf_counter() - t0
+
+    def __call__(self, idx: int) -> float:
+        cfg = self.space.config(int(idx))
+        if not self.cell.valid(cfg):
+            if self.verbose:
+                print(f"  [kernel-tune] {cfg} -> INVALID (resource model)")
+            return math.nan
+        try:
+            for _ in range(self.warmup):
+                self.cell.run(cfg)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            best = min(self._time_once(cfg) for _ in range(self.reps))
+        except _build.LaunchRefused as e:         # runtime-discovered invalid
+            if self.verbose:
+                print(f"  [kernel-tune] {cfg} -> INVALID ({e})")
+            return math.nan
+        if self.verbose:
+            print(f"  [kernel-tune] {cfg} -> {best*1e3:.3f} ms")
+        return best
+
+
+# -- store integration -------------------------------------------------------
+
+
+def run_kernel_tuning(cell: KernelCell, store=None, *, budget: int = 12,
+                      init: int = 4, seed: int = 0, reps: int = 3,
+                      warm_start: bool = True, device=None,
+                      gp_backend: Optional[str] = None, gp_block_n: int = 512,
+                      verbose: bool = False):
+    """Tune one kernel cell with the standard BO engine, journaling into the
+    shared store under the cell's ``kernel[...]`` fingerprint. The BO
+    surrogate runs on the card's GP kernel (``gp_backend="cuda"``) when the
+    cell does, on numpy otherwise. Returns the engine's TuneResult."""
+    from repro_torch.core.runner import run_strategy
+    from repro_torch.core.strategies.bo import BOConfig, BOStrategy
+    obj = KernelObjective(cell, reps=reps, device=device, verbose=verbose)
+    if gp_backend is None:
+        gp_backend = "cuda" if obj.device.type == "cuda" else "numpy"
+    n_init = min(init, budget)
+    strat = BOStrategy(BOConfig(initial_samples=n_init, gp_backend=gp_backend,
+                                gp_block_n=gp_block_n,
+                                gp_device=str(obj.device)))
+    run_id = f"kernel_{cell.kernel}_{cell.shape_sig}-s{seed}"
+    return run_strategy(strat, obj, budget=budget, seed=seed, store=store,
+                        run_id=run_id, warm_start=warm_start)
+
+
+def best_kernel_config(store, kernel: str, shape_sig: Optional[str] = None,
+                       device: Optional[str] = None
+                       ) -> Optional[Tuple[Dict[str, Any], float]]:
+    """Best stored (block config, measured time) for a kernel cell.
+
+    ``device`` is a device-kind key (``device_kind()``), defaulting to this
+    host's. ``shape_sig=None`` relaxes to any tuned shape of this kernel on
+    this device (minimum over cells). Returns None on a cold store."""
+    from repro_torch.store.records import TuningRecordStore
+    if isinstance(store, str):
+        if not os.path.exists(store):
+            return None
+        store = TuningRecordStore(store, lazy=True)
+    device = device or device_kind()
+    want = (kernel_cell_objective(kernel, shape_sig, device)
+            if shape_sig is not None else None)
+    prefix = f"kernel[{kernel}×"
+    suffix = f"×{device}]"
+    best: Optional[Tuple[Dict[str, Any], float]] = None
+    for digest, desc in store.fingerprints().items():
+        obj = desc.objective
+        if want is not None:
+            if obj != want:
+                continue
+        elif not (obj.startswith(prefix) and obj.endswith(suffix)):
+            continue
+        hit = store.best_config(digest)
+        if hit is not None and (best is None or hit[1] < best[1]):
+            best = hit
+    return best
+
+
+def tuned_gp_block_n(store, N: Optional[int] = None, T: Optional[int] = None,
+                     d: Optional[int] = None, device: Optional[str] = None,
+                     default: int = 512) -> int:
+    """Tuned matern_gp ``block_n`` for the self-hosted GP backend; the
+    kernel default on a cold store. ``N`` (candidate count) filters to
+    blocks that could tile it; ``T``/``d`` (padded observations, dimension)
+    to blocks the resource model says this problem can run. Raises when
+    not even the default can run at that ``T``."""
+    hit = best_kernel_config(store, "gp", None, device)
+    bn = default if hit is None else int(hit[0]["block_n"])
+    if N is not None and bn > N:
+        bn = default
+    if T is not None:
+        dim = 16 if d is None else d
+        if not ops.gp_valid({"block_n": bn}, T, dim):
+            bn = default
+        if not ops.gp_valid({"block_n": bn}, T, dim):
+            raise ValueError(f"no block_n runs the GP kernel at T={T}, "
+                             f"d={dim} on this card's resources")
+    return bn
