@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's tuning loop on one NVIDIA card, and check it.
+"""Drive the PyTorch/CUDA port on one NVIDIA card, and check it.
 
     python3 chip_smoke.py            # every phase, on cuda:0
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
@@ -11,18 +11,40 @@ Phases, in order; any failure exits non-zero and prints no result:
      fp32 and bf16 at 128³, 256x384x512 and 4096³ under several block
      configs; the Matérn-GP posterior for all four ν at (t,N,d) = (13,512,6),
      (37,1024,15) and the paper's panel (220,18432,15) padded to T = 256;
+     flash attention in fp32 and bf16 at small shapes and gemma-2b's
+     prefill (B 4, S 1,024, H 8, KV 1, hd 256) under several blocks,
+     block_q != block_kv among them; flash decode (split + either combine)
+     in fp32 and bf16 at gemma-2b's decode (B 4, capacity 1,088, H 8, KV 1,
+     hd 256), at G = 1 and 2, and on a mostly empty cache, a capacity that
+     does not tile, and windows with and without wrap-around;
   3. the self-hosting cell: BO tunes the GP kernel's block_n at the paper's
      panel, journaled into a temporary store, and tuned_gp_block_n reads
      the stored best back;
-  4. the main path: BO, its surrogate on the GP kernel with that block_n,
-     tunes the 4096³ fp32 GEMM kernel, journaled into the same store;
+  4. slice 1's main path: BO, its surrogate on the GP kernel with that
+     block_n, tunes the 4096³ fp32 GEMM kernel, journaled into the store;
   5. the paper-scale surrogate: advanced_multi BO over the paper's CLBlast
      GEMM space (17,956 configs) for 220 evaluations with gp_backend="cuda",
      beside a gp_backend="numpy" run of the same seed;
-  6. yardsticks at the main-path shapes: kernel, plain-version and library
-     times beside each kernel's bound.
-The line before the last holds the kernels' JSON summary, the one before it
-the card's name and power limit; the last line is the device JSON.
+  7. BO, its surrogate on the GP kernel, tunes the serve kernels at
+     gemma-2b's shapes in bf16: the decode cell, then the flash cell,
+     journaled into the same store;
+  8. slice 2's main path: launch/serve.py's DecodeServer serves gemma-2b
+     at full width and depth (random bf16 weights from a seed): prefill of
+     4 x 1,024 tokens, 64 greedy decode steps, blocks resolved from the
+     store; its logits are held against the plain attention path, teacher-
+     forced on the same tokens; the combine kernel runs on the path or in
+     an extra decode run of 8 steps;
+  6. yardsticks at the blocks phases 4 and 8 ran: kernel, plain-version
+     and library times (CUDA events around one call) beside each kernel's
+     bound;
+  9. torch.profiler, last (a profiler session leaves host overhead behind
+     it): the device's busy share over a prefill and over 4 decode steps of
+     the phase-8 server, the kernels that took its time, and each phase-6
+     call's device time (kernels only, no host launch time).
+The line before the last holds the kernels' JSON summary (times are the
+phase-9 device times, the phase-6 event times where the profiler saw none),
+the one before it the card's name and power limit; the last line is the
+device JSON.
 """
 from __future__ import annotations
 
@@ -47,6 +69,30 @@ GP_SHAPES = ((13, 512, 6), (37, 1024, 15), (220, 18432, 15))
 MAIN_GEMM = (4096, 4096, 4096)
 MAIN_GP = (220, 18432, 15)          # 17,956 candidates padded to a tile multiple
 MAIN_T = 256
+# flash attention: (B, S, H, KV, hd) and (block_q, block_kv)
+FLASH_SHAPES = ((1, 256, 4, 4, 64), (2, 512, 4, 2, 128), (4, 1024, 8, 1, 256))
+FLASH_BLOCKS = ((128, 128), (128, 64), (64, 128), (256, 128), (128, 256),
+                (512, 256))
+GEMMA_FLASH = (4, 1024, 8, 1, 256)
+# flash decode: (name, B, S, H, KV, hd, cur, window, rolling)
+DECODE_CASES = (
+    ("gemma-2b decode", 4, 1088, 8, 1, 256, 1054, None, False),
+    ("G=1", 2, 512, 4, 4, 128, 400, None, False),
+    ("G=2", 2, 512, 4, 2, 64, 300, None, False),
+    ("mostly empty", 2, 1024, 8, 1, 256, 5, None, False),
+    ("capacity 1000 does not tile", 1, 1000, 4, 2, 64, 999, None, False),
+    ("rolling window", 2, 512, 4, 2, 64, 1500, 200, True),
+    ("window, no wrap", 2, 768, 4, 1, 128, 400, 128, False),
+)
+DECODE_CONFIGS = ((128, 8, "kernel"), (256, 4, "torch"), (512, 2, "kernel"),
+                  (1024, 1, "torch"), (512, 1, "kernel"), (128, 1, "torch"))
+GEMMA_DECODE = (4, 1088, 8, 1, 256)
+# the serving run: batch, prompt, decode steps; logits held for PARITY_STEPS
+SERVE_B, SERVE_PROMPT, SERVE_STEPS, PARITY_STEPS = 4, 1024, 64, 8
+# decode steps the profile window covers (phase 9)
+PROFILE_STEPS = 4
+# a cache 97% full: the middle of the 64 decode steps (1,024..1,087 of 1,088)
+DECODE_FILL = 0.97
 # about 1 config in 6 of the 4096³ space passes the resource model, and the
 # paper's init repairs invalid draws until ``init`` are valid, so the budget
 # leaves room for both the repairs and the BO iterations
@@ -179,7 +225,123 @@ def check_gp(dev) -> dict:
                 fail(f"gp_posterior t={t} N={N} d={d} {nu} disagrees with "
                      "its plain version")
             if (t, N, d) == MAIN_GP:
-                worst["gp"] = max(worst.get("gp", 0.0), m_err, v_err)
+                worst["matern_gp"] = max(worst.get("matern_gp", 0.0), m_err,
+                                         v_err)
+    return worst
+
+
+def _agree(got, want, dtype, what: str) -> float:
+    """Max |err| of ``got`` against the plain ``want`` (both fp32 views),
+    failing past the stated tolerance: fp32 at the reference's 2e-4 (rtol
+    and atol; the kernels sum in another order than the plain versions).
+    bf16 at 2^-7 x max|ref|, the least bound that holds one bf16 ulp of
+    every output (an output x has an ulp of at most 2^-7 |x|): each version
+    rounds its output to bf16 once, from fp32 sums taken in another order,
+    so an output next to a rounding boundary lands one ulp apart. The
+    reference's 5e-3 x max|ref| (test_kernels.py:386-387) is below one ulp
+    of max|ref| when max|ref| lies in [2^e, 1.5625 x 2^e); a kernel off by
+    more than one ulp of the largest output fails."""
+    import torch
+    err = (got - want).abs()
+    mx = float(err.max())
+    if dtype == torch.float32:
+        bad = int((err > 2e-4 + 2e-4 * want.abs()).sum())
+        tol = "2e-4 + 2e-4|ref|"
+    else:
+        lim = 2.0 ** -7 * float(want.abs().max())
+        bad = int((err > lim).sum())
+        tol = f"2^-7 max|ref| = {lim:.2e}"
+    log(f"  {what}: max|err| {mx:.3e} ({tol}) -> "
+        f"{'ok' if bad == 0 else f'{bad} BAD'}")
+    if bad:
+        fail(f"{what} disagrees with its plain version in {bad} entries")
+    return mx
+
+
+def check_flash(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as kfa, ops, ref
+    worst = 0.0
+    for (B, S, H, KV, hd) in FLASH_SHAPES:
+        rng = np.random.default_rng(0)
+        q64 = torch.from_numpy(rng.normal(size=(B, S, H, hd)))
+        k64, v64 = (torch.from_numpy(rng.normal(size=(B, S, KV, hd)))
+                    for _ in range(2))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dev, dtype) for t in (q64, k64, v64))
+            want = ref.attention(q, k, v).float()
+            for bq, bkv in FLASH_BLOCKS:
+                cfg = {"block_q": bq, "block_kv": bkv}
+                if S % bq or S % bkv or not ops.flash_valid(cfg, hd):
+                    continue
+                got = kfa.flash_attention(q, k, v, block_q=bq,
+                                          block_kv=bkv).float()
+                torch.cuda.synchronize()
+                err = _agree(got, want, dtype,
+                             f"flash B{B} S{S} H{H} KV{KV} hd{hd} "
+                             f"{str(dtype)[6:]} blocks ({bq},{bkv})")
+                if (B, S, H, KV, hd) == GEMMA_FLASH and dtype == torch.bfloat16:
+                    worst = max(worst, err)
+    return {"flash_attention": worst}
+
+
+def _cache_positions(S: int, cur: int, rolling: bool):
+    """Slot positions of a live cache: contiguous fill to ``cur``, or a
+    rolling window's wrapped layout (tests/test_kernels.py's cases)."""
+    import numpy as np
+    if rolling:
+        pos = cur - ((cur - np.arange(S)) % S)
+        return np.where(pos >= 0, pos, -1)
+    return np.where(np.arange(S) <= cur, np.arange(S), -1)
+
+
+def check_decode(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_decode as kfd, ops, ref
+    worst = {"flash_decode_split": 0.0, "flash_decode_combine": 0.0}
+    for name, B, S, H, KV, hd, cur, window, rolling in DECODE_CASES:
+        rng = np.random.default_rng(1)
+        q64 = torch.from_numpy(rng.normal(size=(B, 1, H, hd)))
+        k64, v64 = (torch.from_numpy(rng.normal(size=(B, S, KV, hd)))
+                    for _ in range(2))
+        pos = _cache_positions(S, cur, rolling)
+        cp = torch.from_numpy(np.broadcast_to(pos, (B, S)).copy()).to(dev)
+        cu = torch.full((B,), cur, dtype=torch.long, device=dev)
+        serving = (B, S, H, KV, hd) == GEMMA_DECODE and cur == 1054
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dev, dtype) for t in (q64, k64, v64))
+            for bkv, ns, comb in DECODE_CONFIGS:
+                if (bkv * (ns - 1) >= S
+                        or not ops.decode_valid({"block_kv": bkv}, H // KV,
+                                                hd)):
+                    continue
+                bias = ops.decode_bias(cp, cu, window, ns * bkv)
+                o_r, m_r, l_r = ref.decode_split(q[:, 0], k, v, bias, ns)
+                want = ref.combine_partials(o_r, m_r, l_r).reshape(
+                    B, 1, H, hd).to(dtype).float()
+                got = ops.decode_attention(q, k, v, cp, cu, window=window,
+                                           block_kv=bkv, num_splits=ns,
+                                           combine=comb).float()
+                torch.cuda.synchronize()
+                err = _agree(got, want, dtype,
+                             f"decode {name} B{B} S{S} H{H} KV{KV} hd{hd} "
+                             f"{str(dtype)[6:]} ({bkv},{ns},{comb})")
+                if not (serving and dtype == torch.bfloat16):
+                    continue
+                worst["flash_decode_split"] = max(
+                    worst["flash_decode_split"], err)
+                # the combine kernel alone, on the split kernel's partials
+                parts = kfd.decode_split(q[:, 0], k, v, bias, block_kv=bkv,
+                                         num_splits=ns)
+                c_k = kfd.decode_combine(*parts, dtype).float()
+                c_r = ref.combine_partials(*parts).reshape(
+                    B, H, hd).to(dtype).float()
+                torch.cuda.synchronize()
+                worst["flash_decode_combine"] = max(
+                    worst["flash_decode_combine"],
+                    _agree(c_k, c_r, dtype, f"  combine alone ({bkv},{ns})"))
     return worst
 
 
@@ -202,6 +364,284 @@ def invalid_split(result, cell):
             else:
                 static += 1
     return static, runtime
+
+
+def tune_serve_kernels(sdir: str, gp_block_n: int) -> None:
+    """Phase 7: BO tunes the decode cell, then the flash cell, at gemma-2b's
+    serving shapes in bf16, the surrogate on the GP kernel."""
+    import torch
+    from repro_torch.kernels import tuning
+    B, S, H, KV, hd = GEMMA_DECODE
+    fB, fS, fH, fKV, fhd = GEMMA_FLASH
+    cells = (
+        (tuning.decode_cell(B, S, H, KV, hd, fill=DECODE_FILL,
+                            dtype=torch.bfloat16), 12, 4, 5),
+        (tuning.flash_cell(fB, fS, fH, fhd, KV=fKV, dtype=torch.bfloat16),
+         8, 3, 3))
+    for cell, budget, init, reps in cells:
+        t0 = time.perf_counter()
+        res = tuning.run_kernel_tuning(cell, sdir, budget=budget, init=init,
+                                       reps=reps, gp_backend="cuda",
+                                       gp_block_n=gp_block_n)
+        n_static, n_runtime = invalid_split(res, cell)
+        if not math.isfinite(res.best_value):
+            fail(f"{cell.objective_id()}: no valid config in {budget}")
+        log(f"[7] {cell.objective_id()}: best "
+            f"{cell.space.config(res.best_idx)} {res.best_value * 1e3:.4f} "
+            f"ms after {evals_to_best(res)} of {res.unique_evals} evals; "
+            f"invalid {n_static} static, {n_runtime} runtime "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+
+def profile_window(fn, what: str, top: int = 8) -> None:
+    """Run ``fn`` under torch.profiler and print the device's busy share of
+    the window (kernel time over wall time) and the kernels that took the
+    most device time. Prints "not measured" when the profiler sees no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.__enter__()
+    except RuntimeError as e:             # no CUPTI on this host
+        log(f"[9] profile of {what}: profiler unavailable ({e}); device "
+            "busy share not measured")
+        fn()
+        return
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        prof.__exit__(None, None, None)
+    rows = [(a.self_device_time_total / 1e3, a.count, a.key)
+            for a in prof.key_averages()
+            if a.device_type != DeviceType.CPU and a.self_device_time_total > 0]
+    busy = sum(r[0] for r in rows)
+    if busy <= 0:
+        log(f"[9] profile of {what}: wall {wall_ms:.3f} ms; the profiler saw "
+            "no device time (device busy share not measured)")
+        return
+    rows.sort(reverse=True)
+    log(f"[9] profile of {what} (torch.profiler on): wall {wall_ms:.3f} ms, "
+        f"device kernel time {busy:.3f} ms, busy {100 * busy / wall_ms:.1f}%"
+        f", idle {100 * (1 - busy / wall_ms):.1f}%; "
+        f"{sum(r[1] for r in rows)} device events")
+    for ms, n, name in rows[:top]:
+        log(f"[9]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<5d} {name[:90]}")
+
+
+def serve_gemma(sdir: str, dev) -> dict:
+    """Phase 8: DecodeServer serves gemma-2b at full width with blocks from
+    the store; parity against the plain attention path on the card."""
+    import statistics as st
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models.params import leaves
+    from repro_torch.models.stepfn import make_decode_step, make_prefill_step
+    from repro_torch.parallel.sharding import ParallelConfig
+    cfg = get_arch("gemma-2b")
+    cap = SERVE_PROMPT + SERVE_STEPS
+    kc = serve.serving_kernel_config(cfg, device=dev, prompt_len=SERVE_PROMPT,
+                                     cache_cap=cap, store=sdir, log=log)
+    if not (kc.use_flash and kc.use_decode):
+        fail(f"serving config {kc} leaves a kernel off")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    server = serve.DecodeServer(
+        cfg, ParallelConfig(kernel=kc),
+        batch=SERVE_B, prompt_len=SERVE_PROMPT, decode_steps=SERVE_STEPS,
+        seed=0, device=dev, keep_logits=PARITY_STEPS)
+    torch.cuda.synchronize(dev)
+    n_params = sum(t.numel() for _, t in leaves(server.params))
+    init_s = time.perf_counter() - t0
+    batch = server.input_batch()
+    serve.reset_kernel_launches()
+    # the first prefill also pays one-time costs (cuBLAS workspaces and
+    # heuristics for new shapes); the second, on a fresh cache, is the
+    # steady one and leaves the cache the decode steps run on
+    cold_s = server.prefill_batch(batch)
+    prefill_s = server.prefill_batch(batch)
+    steps = [server.decode_step() for _ in range(SERVE_STEPS)]
+    launches = serve.kernel_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    med = st.median(steps)
+    log(f"[8] {cfg.name}: {n_params:,} parameters (bf16) initialised in "
+        f"{init_s:.3f} s; blocks {kc}")
+    log(f"[8] prefill {SERVE_B} x {SERVE_PROMPT}: {prefill_s * 1e3:.3f} ms "
+        f"(first call {cold_s * 1e3:.3f} ms; {server.prefill_dispatch}); "
+        f"decode {SERVE_STEPS} steps: median "
+        f"{med * 1e3:.4f} ms/step (min {min(steps) * 1e3:.4f}, max "
+        f"{max(steps) * 1e3:.4f}), {SERVE_B / med:.1f} tokens/s "
+        f"({server.decode_dispatch}); peak memory "
+        f"{peak / 2 ** 30:.3f} GiB; launches {launches}")
+    if launches["flash_attention"] < 2 * cfg.num_layers:
+        fail(f"flash launched {launches['flash_attention']} times in two "
+             f"prefills, want >= {2 * cfg.num_layers}")
+    if launches["flash_decode_split"] < cfg.num_layers * SERVE_STEPS:
+        fail(f"split launched {launches['flash_decode_split']} times, want "
+             f">= {cfg.num_layers * SERVE_STEPS}")
+    toks = torch.stack(server.out, 1)
+    if toks.shape != (SERVE_B, SERVE_STEPS + 1) or not all(
+            bool(torch.isfinite(x).all()) for x in server.kept):
+        fail("served tokens or logits malformed")
+
+    # the plain attention path on the same weights and tokens
+    plain_pcfg = ParallelConfig(kernel=None)
+    prefill = make_prefill_step(cfg, plain_pcfg, cache_cap=cap)
+    decode = make_decode_step(cfg, plain_pcfg)
+    logits, cache = prefill(server.params, batch)
+    plain = [logits.float().cpu()]
+    for i in range(PARITY_STEPS):
+        logits, cache = decode(server.params, cache,
+                               {"tokens": server.out[i][:, None]},
+                               SERVE_PROMPT + i)
+        plain.append(logits.float().cpu())
+    del cache
+
+    def parity(kept, what):
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(kept, plain)):
+            err, top = float((a - b).abs().max()), float(b.abs().max())
+            worst = max(worst, err / top)
+            if err > 2e-2 * top:
+                fail(f"{what} logits step {i}: max|err| {err:.4e} over "
+                     f"2e-2 x max|logits| = {2e-2 * top:.4e}")
+        log(f"[8] {what} vs plain attention path, prefill + {PARITY_STEPS} "
+            f"teacher-forced decode steps: max|err| / max|logits| = "
+            f"{worst:.3e} (limit 2e-2); greedy tokens equal at "
+            f"{sum(int(torch.equal(a.argmax(-1), b.argmax(-1))) for a, b in zip(kept, plain))}"
+            f" of {len(plain)} steps")
+        return worst
+
+    rel = parity(server.kept, "served")
+    combine = launches["flash_decode_combine"]
+    if kc.decode_combine != "kernel":
+        # the combine kernel on the same path: an extra decode run at the
+        # serving shape, teacher-forced on the served tokens
+        extra = serve.DecodeServer(
+            cfg, ParallelConfig(kernel=kc.replace(decode_combine="kernel")),
+            batch=SERVE_B, prompt_len=SERVE_PROMPT, decode_steps=SERVE_STEPS,
+            device=dev, params=server.params, keep_logits=PARITY_STEPS)
+        serve.reset_kernel_launches()
+        extra.prefill_batch(batch)
+        for i in range(PARITY_STEPS):
+            extra.toks = server.out[i]
+            extra.decode_step()
+        combine = serve.kernel_launches()["flash_decode_combine"]
+        log(f"[8] extra run with decode_combine='kernel': {combine} combine "
+            f"launches")
+        rel = max(rel, parity(extra.kept, "combine-kernel run"))
+    if combine < cfg.num_layers:
+        fail(f"combine kernel launched {combine} times")
+    launches["flash_decode_combine"] = combine
+    return {"kc": kc, "launches": launches, "prefill_ms": prefill_s * 1e3,
+            "prefill_cold_ms": cold_s * 1e3,
+            "step_ms": med * 1e3, "tokens_s": SERVE_B / med, "peak": peak,
+            "parity": rel, "server": server, "batch": batch}
+
+
+def serve_cases(kc, dev, card: str) -> dict:
+    """The serve kernels at gemma-2b's shapes with the blocks phase 8 ran:
+    name -> (label, kernel fn, plain fn, library fn or None, bound ms,
+    bound_by). The decode library call (SDPA with the additive bias mask
+    and enable_gqa) computes split + combine together: it is timed beside
+    them as ``decode (split + combine)`` and given to neither."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.roofline import bound_ms
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(2)
+    B, S, H, KV, hd = GEMMA_FLASH
+    q = torch.from_numpy(rng.normal(size=(B, S, H, hd))).to(dev, bf16)
+    k, v = (torch.from_numpy(rng.normal(size=(B, S, KV, hd))).to(dev, bf16)
+            for _ in range(2))
+    bq, bkv = kc.flash_block_q, kc.flash_block_kv
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    cases = {"flash_attention": (
+        f"flash B{B} S{S} H{H} KV{KV} hd{hd} bf16 ({bq},{bkv}); library "
+        "SDPA(is_causal, enable_gqa)",
+        lambda: kfa.flash_attention(q, k, v, block_q=bq, block_kv=bkv),
+        lambda: ref.attention(q, k, v),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True),
+        *bound_ms(4.0 * B * H * hd * S * (S + 1) / 2,
+                  2.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd), card,
+                  "bfloat16"))}
+
+    B, S, H, KV, hd = GEMMA_DECODE
+    G = H // KV
+    ns, dbkv = kc.decode_num_splits, kc.decode_block_kv
+    cur = int(S * DECODE_FILL) - 1
+    qd = torch.from_numpy(rng.normal(size=(B, H, hd))).to(dev, bf16)
+    kd, vd = (torch.from_numpy(rng.normal(size=(B, S, KV, hd))).to(dev, bf16)
+              for _ in range(2))
+    cp = torch.from_numpy(np.broadcast_to(_cache_positions(S, cur, False),
+                                          (B, S)).copy()).to(dev)
+    cu = torch.full((B,), cur, dtype=torch.long, device=dev)
+    bias = ops.decode_bias(cp, cu, None, ns * dbkv)
+    n_valid = int((bias == 0).sum())            # slots the data needs read
+    part_bytes = 4.0 * B * KV * ns * G * (hd + 2)
+    parts = kfd.decode_split(qd, kd, vd, bias, block_kv=dbkv, num_splits=ns)
+    mask = bias[:, :S].to(bf16)[:, None, None, :]
+    split_b = bound_ms(4.0 * hd * G * KV * n_valid,
+                       2.0 * 2 * n_valid * KV * hd + 2.0 * B * H * hd
+                       + 4.0 * B * bias.shape[1] + part_bytes, card,
+                       "bfloat16")
+    cases["flash_decode_split"] = (
+        f"decode split B{B} S{S} ({n_valid} valid slots) H{H} KV{KV} hd{hd} "
+        f"bf16 ({dbkv},{ns}); library none",
+        lambda: kfd.decode_split(qd, kd, vd, bias, block_kv=dbkv,
+                                 num_splits=ns),
+        lambda: ref.decode_split(qd, kd, vd, bias, ns), None, *split_b)
+    cases["flash_decode_combine"] = (
+        f"decode combine ({ns} splits) bf16; library none",
+        lambda: kfd.decode_combine(*parts, bf16),
+        lambda: ref.combine_partials(*parts).reshape(B, H, hd).to(bf16),
+        None, *bound_ms(2.0 * ns * B * H * hd, part_bytes + 2.0 * B * H * hd,
+                        card))
+    cases["decode (split + combine)"] = (
+        "decode as a whole; library SDPA(additive bias mask, enable_gqa)",
+        lambda: ops.decode_attention(qd[:, None], kd, vd, cp, cu,
+                                     block_kv=dbkv, num_splits=ns,
+                                     combine="kernel"),
+        lambda: ref.combine_partials(*ref.decode_split(
+            qd, kd, vd, bias, ns)).reshape(B, H, hd).to(bf16),
+        lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True),
+        *split_b)
+    return cases
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3):
+    """Device time of one call of ``fn``: the kernels (and copies) the
+    profiler saw over ``reps`` calls, divided by ``reps``. Host launch time
+    is not in it, where CUDA events around one call include it whenever
+    the kernel is shorter than its launch. None where the profiler sees no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(a.self_device_time_total for a in prof.key_averages()
+             if a.device_type != DeviceType.CPU)
+    return us / 1e3 / reps if us > 0 else None
 
 
 def main() -> int:
@@ -237,9 +677,18 @@ def main() -> int:
     lib = _build.lib()
     log(f"[1] build: {_build.build_seconds:.1f} s")
     regs, local = ctypes.c_int(), ctypes.c_int()
-    for name, attrs in (("gemm fp32", lambda: lib.gemm_attrs(0, regs, local)),
-                        ("gemm bf16", lambda: lib.gemm_attrs(1, regs, local)),
-                        ("gp", lambda: lib.gp_attrs(regs, local))):
+    for name, attrs in (
+            ("gemm fp32", lambda: lib.gemm_attrs(0, regs, local)),
+            ("gemm bf16", lambda: lib.gemm_attrs(1, regs, local)),
+            ("gp", lambda: lib.gp_attrs(regs, local)),
+            ("flash hd256 fp32",
+             lambda: lib.flash_attention_attrs(0, 256, regs, local)),
+            ("flash hd256 bf16",
+             lambda: lib.flash_attention_attrs(1, 256, regs, local)),
+            ("decode split hd256 bf16",
+             lambda: lib.decode_attrs(0, 1, 256, regs, local)),
+            ("decode combine bf16",
+             lambda: lib.decode_attrs(1, 1, 0, regs, local))):
         _build.check(attrs(), f"{name} attributes")
         log(f"[1] {name}: {regs.value} registers/thread, "
             f"{local.value} B local memory")
@@ -248,6 +697,8 @@ def main() -> int:
     t0 = time.perf_counter()
     errs = check_gemm(dev)
     errs.update(check_gp(dev))
+    errs.update(check_flash(dev))
+    errs.update(check_decode(dev))
     log(f"[2] kernel-vs-plain checks passed in "
         f"{time.perf_counter() - t0:.1f} s")
     if args.quick:
@@ -258,57 +709,60 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as sdir:
-        # 3. the self-hosting cell
-        t0 = time.perf_counter()
-        t_obs, N_gp, d_gp = MAIN_GP
-        gcell = tuning.gp_cell(N=N_gp, T=MAIN_T, d=d_gp, t_obs=t_obs)
-        kg.launches = kgp.launches = 0
-        gres = tuning.run_kernel_tuning(gcell, sdir, budget=5, init=3,
-                                        reps=5)
-        gp_tune_launches = kgp.launches
-        store = TuningRecordStore(sdir)
-        best_bn = tuning.tuned_gp_block_n(store, N=N_gp, T=MAIN_T, d=d_gp)
-        want_bn = gcell.space.config(gres.best_idx)["block_n"]
-        log(f"[3] gp cell {gcell.objective_id()}: best block_n {want_bn} at "
-            f"{gres.best_value * 1e3:.4f} ms over {gres.unique_evals} "
-            f"evals ({gp_tune_launches} gp launches); tuned_gp_block_n -> "
-            f"{best_bn} ({time.perf_counter() - t0:.1f} s)")
-        if best_bn != want_bn:
-            fail(f"tuned_gp_block_n returned {best_bn}, store best {want_bn}")
+    # the store phases 3, 4 and 7 journal into and phase 8 resolves from;
+    # removed at exit whatever happens
+    store_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
+    sdir = store_tmp.name
+    # 3. the self-hosting cell
+    t0 = time.perf_counter()
+    t_obs, N_gp, d_gp = MAIN_GP
+    gcell = tuning.gp_cell(N=N_gp, T=MAIN_T, d=d_gp, t_obs=t_obs)
+    kg.launches = kgp.launches = 0
+    gres = tuning.run_kernel_tuning(gcell, sdir, budget=5, init=3,
+                                    reps=5)
+    gp_tune_launches = kgp.launches
+    store = TuningRecordStore(sdir)
+    best_bn = tuning.tuned_gp_block_n(store, N=N_gp, T=MAIN_T, d=d_gp)
+    want_bn = gcell.space.config(gres.best_idx)["block_n"]
+    log(f"[3] gp cell {gcell.objective_id()}: best block_n {want_bn} at "
+        f"{gres.best_value * 1e3:.4f} ms over {gres.unique_evals} "
+        f"evals ({gp_tune_launches} gp launches); tuned_gp_block_n -> "
+        f"{best_bn} ({time.perf_counter() - t0:.1f} s)")
+    if best_bn != want_bn:
+        fail(f"tuned_gp_block_n returned {best_bn}, store best {want_bn}")
 
-        # 4. the main path
-        t0 = time.perf_counter()
-        cell = tuning.gemm_cell(*MAIN_GEMM, dtype=torch.float32)
-        kg.launches = kgp.launches = 0
-        res = tuning.run_kernel_tuning(
-            cell, sdir, budget=GEMM_BUDGET, init=3, reps=3,
-            gp_backend="cuda", gp_block_n=best_bn)
-        launches = {"gemm": kg.launches, "gp": kgp.launches}
-        main_s = time.perf_counter() - t0
-        best_cfg = cell.space.config(res.best_idx)
-        n_static, n_runtime = invalid_split(res, cell)
-        default_idx = cell.space.index_of(cell.default)
-        default_s = tuning.KernelObjective(cell, reps=5)(default_idx)
-        log(f"[4] gemm cell {cell.objective_id()}: {res.unique_evals} evals "
-            f"in {main_s:.1f} s; best {best_cfg} "
-            f"{res.best_value * 1e3:.4f} ms after {evals_to_best(res)} "
-            f"evals; default {cell.default} "
-            f"{default_s * 1e3:.4f} ms; invalid {n_static} static, "
-            f"{n_runtime} runtime; launches gemm {launches['gemm']}, "
-            f"gp {launches['gp']}")
-        if launches["gemm"] <= 0 or launches["gp"] <= 0:
-            fail(f"main path launch counts {launches}: a kernel of the path "
-                 "never ran")
-        if not math.isfinite(res.best_value) or res.best_value <= 0:
-            fail(f"main path best value {res.best_value}")
-        got = kg.gemm(*cell.meta["inputs"], **best_cfg)
-        want = ref.gemm(*cell.meta["inputs"])
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()) or bool(
-                ((got - want).abs() > 1e-3 + 1e-4 * want.abs()).any()):
-            fail("tuned gemm output is not finite or disagrees with its "
-                 "plain version (rtol 1e-4, atol 1e-3)")
+    # 4. the main path
+    t0 = time.perf_counter()
+    cell = tuning.gemm_cell(*MAIN_GEMM, dtype=torch.float32)
+    kg.launches = kgp.launches = 0
+    res = tuning.run_kernel_tuning(
+        cell, sdir, budget=GEMM_BUDGET, init=3, reps=3,
+        gp_backend="cuda", gp_block_n=best_bn)
+    launches = {"gemm": kg.launches, "matern_gp": kgp.launches}
+    main_s = time.perf_counter() - t0
+    best_cfg = cell.space.config(res.best_idx)
+    n_static, n_runtime = invalid_split(res, cell)
+    default_idx = cell.space.index_of(cell.default)
+    default_s = tuning.KernelObjective(cell, reps=5)(default_idx)
+    log(f"[4] gemm cell {cell.objective_id()}: {res.unique_evals} evals "
+        f"in {main_s:.1f} s; best {best_cfg} "
+        f"{res.best_value * 1e3:.4f} ms after {evals_to_best(res)} "
+        f"evals; default {cell.default} "
+        f"{default_s * 1e3:.4f} ms; invalid {n_static} static, "
+        f"{n_runtime} runtime; launches gemm {launches['gemm']}, "
+        f"gp {launches['matern_gp']}")
+    if launches["gemm"] <= 0 or launches["matern_gp"] <= 0:
+        fail(f"main path launch counts {launches}: a kernel of the path "
+             "never ran")
+    if not math.isfinite(res.best_value) or res.best_value <= 0:
+        fail(f"main path best value {res.best_value}")
+    got = kg.gemm(*cell.meta["inputs"], **best_cfg)
+    want = ref.gemm(*cell.meta["inputs"])
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()) or bool(
+            ((got - want).abs() > 1e-3 + 1e-4 * want.abs()).any()):
+        fail("tuned gemm output is not finite or disagrees with its "
+             "plain version (rtol 1e-4, atol 1e-3)")
 
     # 5. paper-scale surrogate
     obj = make_objective("gemm", "a100")
@@ -360,44 +814,81 @@ def main() -> int:
     if not (math.isfinite(cres.best_value) and cres.unique_evals == 220):
         fail("paper-scale cuda run did not finish its budget with a valid best")
 
-    # 6. yardsticks at the main-path shapes
+    # 7. BO tunes the serve kernels into the store
+    t0 = time.perf_counter()
+    tune_serve_kernels(sdir, best_bn)
+    log(f"[7] done in {time.perf_counter() - t0:.1f} s")
+
+    # 8. slice 2's main path: serve gemma-2b at full width
+    t0 = time.perf_counter()
+    served = serve_gemma(sdir, dev)
+    log(f"[8] done in {time.perf_counter() - t0:.1f} s")
+    store_tmp.cleanup()
+
+    # 6. yardsticks at the main-path shapes: CUDA events around one call
     a, b = cell.meta["inputs"]
     M, N, K = MAIN_GEMM
-    g_ms = event_ms(lambda: kg.gemm(a, b, **best_cfg))
-    g_plain = event_ms(lambda: ref.gemm(a, b))
-    g_lib = event_ms(lambda: torch.matmul(a, b))
-    g_bound, g_by = bound_ms(2.0 * M * N * K, 4.0 * (M * K + K * N + M * N),
-                             card)
     Xc, x_obs, vinv, w, mask = gp_problem(*MAIN_GP, "matern32", MAIN_T)
     gargs = [torch.from_numpy(x).to(dev) for x in (Xc, x_obs, vinv, w, mask)]
     N_, T_, d_ = Xc.shape[0], MAIN_T, Xc.shape[1]
-    p_ms = event_ms(lambda: kgp.gp_posterior(*gargs, ell=2.0, nu="matern32",
-                                             block_n=best_bn))
-    p_plain = event_ms(lambda: ref.gp_posterior(*gargs[:4], 2.0, "matern32",
-                                                mask=gargs[4]))
-    p_bound, p_by = bound_ms(
-        N_ * (3.0 * T_ * d_ + T_ * T_),
-        4.0 * (N_ * d_ + T_ * d_ + T_ * T_ + 2 * T_ + 2 * N_), card)
-    log(f"[6] gemm {M}x{N}x{K} fp32 {best_cfg}: kernel {g_ms:.4f} ms, plain "
-        f"{g_plain:.4f} ms, torch.matmul {g_lib:.4f} ms, bound {g_bound:.4f} "
-        f"ms ({g_by})")
-    log(f"[6] gp N={N_} T={T_} d={d_} block_n={best_bn}: kernel {p_ms:.4f} "
-        f"ms, plain {p_plain:.4f} ms, bound {p_bound:.4f} ms ({p_by}); no "
-        "single PyTorch call computes it (library: none)")
+    cases = {
+        "gemm": (f"gemm {M}x{N}x{K} fp32 {best_cfg}; library torch.matmul",
+                 lambda: kg.gemm(a, b, **best_cfg), lambda: ref.gemm(a, b),
+                 lambda: torch.matmul(a, b),
+                 *bound_ms(2.0 * M * N * K, 4.0 * (M * K + K * N + M * N),
+                           card)),
+        "matern_gp": (
+            f"gp N={N_} T={T_} d={d_} block_n={best_bn}; library none",
+            lambda: kgp.gp_posterior(*gargs, ell=2.0, nu="matern32",
+                                     block_n=best_bn),
+            lambda: ref.gp_posterior(*gargs[:4], 2.0, "matern32",
+                                     mask=gargs[4]), None,
+            *bound_ms(N_ * (3.0 * T_ * d_ + T_ * T_),
+                      4.0 * (N_ * d_ + T_ * d_ + T_ * T_ + 2 * T_ + 2 * N_),
+                      card))}
+    cases.update(serve_cases(served["kc"], dev, card))
+    event = {}
+    for name, (label, *fns, bound, by) in cases.items():
+        event[name] = [None if f is None else event_ms(f) for f in fns]
+        k_ms, p_ms, l_ms = event[name]
+        log(f"[6] {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"library {'none' if l_ms is None else f'{l_ms:.4f} ms'}, bound "
+            f"{bound:.6f} ms ({by})")
 
-    summary = {"kernels": [
-        {"name": "gemm", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/gemm.cu",
-         "replaces": "src/repro/kernels/gemm.py:21",
-         "launches": launches["gemm"], "max_abs_err": errs["gemm"],
-         "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
-         "bound_by": g_by, "library_ms": g_lib},
-        {"name": "matern_gp", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/matern_gp.cu",
-         "replaces": "src/repro/kernels/matern_gp.py:44",
-         "launches": launches["gp"], "max_abs_err": errs["gp"],
-         "ms": p_ms, "plain_ms": p_plain, "bound_ms": p_bound,
-         "bound_by": p_by, "library_ms": None}]}
+    # 9. device time and the device's busy share, from torch.profiler; run
+    # last, since a profiler session leaves host overhead behind it
+    server, batch = served["server"], served["batch"]
+    profile_window(lambda: server.prefill_batch(batch), "a prefill")
+    profile_window(lambda: [server.decode_step()
+                            for _ in range(PROFILE_STEPS)],
+                   f"{PROFILE_STEPS} decode steps after it")
+    device = {}
+    for name, (label, *fns, bound, by) in cases.items():
+        device[name] = [None if f is None else device_ms(f) for f in fns]
+        k_ms, p_ms, l_ms = (("not measured" if x is None else f"{x:.4f} ms")
+                            if f is not None else "none"
+                            for x, f in zip(device[name], fns))
+        log(f"[9] {label}: device time kernel {k_ms}, plain {p_ms}, library "
+            f"{l_ms}, bound {bound:.6f} ms ({by})")
+
+    summary = {"kernels": []}
+    for name, src, line in (
+            ("gemm", "gemm.cu", "gemm.py:21"),
+            ("matern_gp", "matern_gp.cu", "matern_gp.py:44"),
+            ("flash_attention", "flash_attention.cu", "flash_attention.py:22"),
+            ("flash_decode_split", "flash_decode.cu", "flash_decode.py:37"),
+            ("flash_decode_combine", "flash_decode.cu", "flash_decode.py:94")):
+        n = launches[name] if name in launches else served["launches"][name]
+        # device time where the profiler gave one, else the event time
+        k_ms, p_ms, l_ms = (e if d is None else d
+                            for d, e in zip(device[name], event[name]))
+        summary["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{line}", "launches": n,
+            "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": cases[name][-2], "bound_by": cases[name][-1],
+            "library_ms": l_ms})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
     log(smi)

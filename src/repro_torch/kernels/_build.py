@@ -125,6 +125,24 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gp_posterior_f32.restype = i
     lib.gp_attrs.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.gp_attrs.restype = i
+    for name in ("flash_attention_f32", "flash_attention_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.restype = i
+    lib.flash_attention_attrs.argtypes = [i, i, ctypes.POINTER(i),
+                                          ctypes.POINTER(i)]
+    lib.flash_attention_attrs.restype = i
+    for name in ("decode_split_f32", "decode_split_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.restype = i
+    for name in ("decode_combine_f32", "decode_combine_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        fn.restype = i
+    lib.decode_attrs.argtypes = [i, i, i, ctypes.POINTER(i),
+                                 ctypes.POINTER(i)]
+    lib.decode_attrs.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

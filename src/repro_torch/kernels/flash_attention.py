@@ -1,0 +1,85 @@
+"""Causal flash attention (prefill), as a hand-written CUDA kernel.
+
+Port of ``repro/kernels/flash_attention.py``. The kernel is
+``csrc/flash_attention.cu`` (its header gives the bound and the design);
+this module is its wrapper. The tunables are the reference's ``block_q``
+(query rows per thread block: the grid) and ``block_kv`` (keys per online
+softmax update: the width of the score tile in shared memory); the resource
+model is ``kernels.ops.flash_valid``.
+
+A CPU tensor takes the plain version (``kernels.ref.attention``); a CUDA
+tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+#: Kernel launches by :func:`flash_attention` (never by the plain version).
+launches = 0
+
+_ENTRY = {torch.float32: "flash_attention_f32",
+          torch.bfloat16: "flash_attention_bf16"}
+
+#: Head dims the kernel is built for, and the granularity of its blocks
+#: (query rows per sub-tile, keys per staged chunk).
+HEAD_DIMS = (64, 128, 256)
+SUB_TILE = 64
+THREADS = 256
+
+
+def flash_smem_bytes(block_kv: int, hd: int) -> int:
+    """Shared memory one block needs (``smem_floats`` in the source): the
+    q sub-tile and one staged K or V chunk (fp32), the score tile, and the
+    per-row (m, l, corr)."""
+    return 4 * (hd * SUB_TILE + SUB_TILE * hd + SUB_TILE * block_kv
+                + 3 * SUB_TILE)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    block_q: int = 128, block_kv: int = 128) -> torch.Tensor:
+    """Causal attention. q (B,S,H,hd); k, v (B,S,KV,hd) with KV dividing H
+    (KV == H is the reference's MHA core). fp32 or bf16, all three alike;
+    fp32 softmax; result (B,S,H,hd) in q's dtype. The reference's
+    ``causal=False`` is cut: every caller of prefill attention is causal."""
+    global launches
+    B, S, H, hd = q.shape
+    if k.shape != v.shape or k.shape[:2] != (B, S) or k.shape[3] != hd:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not fit (B,S,H,hd) / "
+                         "(B,S,KV,hd)")
+    KV = k.shape[2]
+    if H % KV:
+        raise ValueError(f"{KV} KV heads do not divide {H} heads")
+    if S % block_q or S % block_kv:
+        raise ValueError(f"S={S} not divisible by blocks "
+                         f"({block_q},{block_kv})")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _ENTRY:
+        raise TypeError(f"flash_attention takes fp32 or bf16, got {q.dtype},"
+                        f" {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention operands on different devices")
+    if q.device.type == "cpu":
+        return ref.attention(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if hd not in HEAD_DIMS or block_q % SUB_TILE or block_kv % SUB_TILE:
+        raise ValueError(f"kernel takes hd in {HEAD_DIMS} and blocks that "
+                         f"are multiples of {SUB_TILE}, got hd={hd}, "
+                         f"blocks ({block_q},{block_kv})")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    if any(t.data_ptr() % 16 for t in (q, k, v, o)):
+        raise ValueError("flash_attention needs 16-byte aligned operands")
+    lib = _build.lib()
+    with torch.cuda.device(q.device):
+        code = getattr(lib, _ENTRY[q.dtype])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, S, H, KV, hd, block_q, block_kv,
+            _build.stream_of(q))
+    _build.check(code, f"flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
+                       f"blocks ({block_q},{block_kv})")
+    launches += 1
+    return o

@@ -1,22 +1,25 @@
 """Kernel wrappers + tunable config spaces + the Hopper resource model.
 
-Port of ``repro/kernels/ops.py`` for the two kernels of the tuning loop. Each
-kernel exposes a SearchSpace whose invalid region is the card's resource
-model — threads per block, shared memory per block, registers — in place of
-the reference's TPU VMEM budget: the structure the paper tunes on GPUs. An
+Port of ``repro/kernels/ops.py`` for all five kernels: GEMM, Matérn-GP
+posterior, flash attention and split-KV flash decode. Each kernel exposes a
+SearchSpace (the reference's grid and constraints) whose invalid
+region is the card's resource model — threads per block, shared memory per
+block, registers, the block sizes the kernel is built for — in place of the
+reference's TPU VMEM budget: the structure the paper tunes on GPUs. An
 invalid config is the paper's invalid configuration: journaled as NaN and
 never fitted to the surrogate.
-
-Cut from this port: the flash-attention and flash-decode wrappers and
-spaces (later slices).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.searchspace import Param, SearchSpace
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import matern_gp as _mgp
 from repro_torch.launch.roofline import (MAX_REGS_PER_THREAD,
@@ -62,6 +65,91 @@ def gemm_valid(cfg: Dict, dtype_bytes: int = 4,
             and smem <= SMEM_PER_BLOCK
             and regs_per_thread <= MAX_REGS_PER_THREAD
             and threads * regs_per_thread <= REGS_PER_SM)
+
+
+# -- flash attention -----------------------------------------------------
+
+def flash_attention(q, k, v, block_q=128, block_kv=128):
+    return _fa.flash_attention(q, k, v, block_q=block_q, block_kv=block_kv)
+
+
+def flash_config_space(S: int = 4096) -> SearchSpace:
+    """The reference's grid and constraints."""
+    vals = (128, 256, 512, 1024, 2048)
+    params = [Param("block_q", vals), Param("block_kv", vals)]
+    cons = [lambda c: S % c["block_q"] == 0, lambda c: S % c["block_kv"] == 0]
+    return SearchSpace(params, cons, name="cuda_flash")
+
+
+def flash_valid(cfg: Dict, hd: int = 128) -> bool:
+    """Hopper resource model of one flash block: a head dim the kernel is
+    built for, blocks in whole 64-row sub-tiles, and the q sub-tile, one
+    staged K/V chunk and the 64 x block_kv score tile within 227 KB of
+    shared memory (at hd 256: block_kv 128 and 256 fit, 512 does not).
+    ``block_q`` sets the grid only; the kernel streams it."""
+    bq, bkv = cfg["block_q"], cfg["block_kv"]
+    return (hd in _fa.HEAD_DIMS and bq % _fa.SUB_TILE == 0
+            and bkv % _fa.SUB_TILE == 0
+            and _fa.flash_smem_bytes(bkv, hd) <= SMEM_PER_BLOCK)
+
+
+# -- flash decode (single-token cache attention) --------------------------
+
+def decode_attention(q, k_cache, v_cache, cache_pos, cur_pos, window=None,
+                     block_kv=512, num_splits=1, combine="kernel"):
+    """Split-KV flash decode over the cache, semantics-matched to
+    ``models.layers._decode_attention``: q (B, 1, H, hd), caches
+    (B, S, KV, hd), ``cache_pos`` (B, S) absolute positions (-1 = empty
+    slot), ``cur_pos`` (B,) the position being decoded. Slot validity —
+    empty, future, or evicted by a rolling ``window`` — becomes an additive
+    fp32 bias row (0 / -inf). A capacity that does not tile into
+    ``num_splits × block_kv`` is padded with masked slots: the reference
+    pads K and V too; here only the bias is padded, and the kernel reads no
+    slot past the cache. Returns (B, 1, H, hd)."""
+    bias = decode_bias(cache_pos, cur_pos, window, num_splits * block_kv)
+    out = _fd.flash_decode(q[:, 0], k_cache, v_cache, bias,
+                           block_kv=block_kv, num_splits=num_splits,
+                           combine=combine)
+    return out[:, None]
+
+
+def decode_bias(cache_pos, cur_pos, window, tile: int):
+    """The (B, Sp) fp32 validity bias of a cache: 0 where a slot holds a
+    position in ``(cur_pos - window, cur_pos]``, -inf where it is empty,
+    in the future or evicted, and -inf padding up to a multiple of
+    ``tile``."""
+    valid = (cache_pos >= 0) & (cache_pos <= cur_pos[:, None])
+    if window is not None:
+        valid &= cache_pos > cur_pos[:, None] - window
+    bias = torch.zeros(valid.shape, dtype=torch.float32,
+                       device=cache_pos.device)
+    bias.masked_fill_(~valid, -math.inf)
+    pad = (-valid.shape[1]) % tile
+    if pad:
+        bias = torch.nn.functional.pad(bias, (0, pad), value=-math.inf)
+    return bias
+
+
+def decode_config_space(S: int = 2048) -> SearchSpace:
+    """BO target for the decode cell: KV tile length, split count, and the
+    cross-split combine. ``S`` is the cache capacity; splits whose leading
+    tiles already cover the whole cache are pure overhead and constrained
+    out. The reference's grid."""
+    params = [Param("block_kv", (128, 256, 512, 1024)),
+              Param("num_splits", (1, 2, 4, 8)),
+              Param("combine", _fd.COMBINE_STRATEGIES)]
+    cons = [lambda c: c["block_kv"] * (c["num_splits"] - 1) < S]
+    return SearchSpace(params, cons, name="cuda_flash_decode")
+
+
+def decode_valid(cfg: Dict, G: int = 1, hd: int = 128) -> bool:
+    """Hopper resource model of one split block: a head dim the kernel is
+    built for, at most 8 query heads per KV head (the rows one block holds
+    in registers), and its shared memory within 227 KB (under 48 KB for the
+    whole grid at G <= 8)."""
+    return (hd in _fd.HEAD_DIMS and 1 <= G <= _fd.MAX_GROUP
+            and _fd.decode_smem_bytes(cfg["block_kv"], G, hd)
+            <= SMEM_PER_BLOCK)
 
 
 # -- Matérn GP posterior ---------------------------------------------------

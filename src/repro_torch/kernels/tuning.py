@@ -1,10 +1,11 @@
 """In-process CUDA kernel autotuning cells (DESIGN.md §14).
 
-Port of ``repro/kernels/tuning.py`` for the gemm and gp cells. This is the
-source paper's literal problem — tune GPU kernel parameters (thread-block
-tile shapes) with BO against measured runtimes — run for real on the card:
-the tunable cells are the port's own hand-written CUDA kernels (gemm
-``block_m/n/k``, matern_gp ``block_n``), the objective is the kernel's time
+Port of ``repro/kernels/tuning.py``. This is the source paper's literal
+problem — tune GPU kernel parameters (thread-block tile shapes) with BO
+against measured runtimes — run for real on the card: the tunable cells are
+the port's own hand-written CUDA kernels (gemm ``block_m/n/k``, matern_gp
+``block_n``, flash attention ``block_q/kv``, flash decode ``block_kv``,
+``num_splits`` and the combine), the objective is the kernel's time
 measured with CUDA events, and a config the Hopper resource model rejects,
 or that the card refuses to launch, is the paper's invalid configuration:
 journaled as NaN, never fed to the surrogate.
@@ -17,8 +18,10 @@ exhaustive-prediction loop (``IncrementalGP(backend="cuda")``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (the plain kernel versions, for tests); left at the default with no CUDA
-device present they raise. Cut from this port: the flash and decode cells
-and the serve-side config resolvers (later slices).
+device present they raise. The serve path reads tuned flash and decode
+blocks back with ``kernel_config_from_store`` and
+``decode_kernel_config_from_store``. Cut from this port: ``default_cells``
+(the reference benchmark's matrix; no benchmark is ported yet).
 """
 from __future__ import annotations
 
@@ -130,6 +133,80 @@ def gemm_cell(M: int = 512, N: int = 512, K: int = 512,
         default={"block_m": 128, "block_n": 128, "block_k": 64}, device=dev,
         meta={"M": M, "N": N, "K": K, "dtype_bytes": dtype_bytes,
               "inputs": (a, b)})
+
+
+def flash_cell(B: int = 1, S: int = 1024, H: int = 4, hd: int = 64,
+               KV: Optional[int] = None, dtype=torch.float32,
+               device=None, seed: int = 0) -> KernelCell:
+    """Causal prefill attention at one shape. ``KV`` (default H) is the
+    number of KV heads the kernel reads; the shape key is the reference's, plus
+    ``_KV{KV}`` when KV < H. The default {128, 128} fits every head dim the
+    kernel takes (the reference's 512 / 512 needs 256 KB at hd 256)."""
+    dev = resolve_device(device)
+    KV = H if KV is None else KV
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(B, S, H, hd))).to(dev, dtype)
+    k, v = (torch.from_numpy(rng.normal(size=(B, S, KV, hd))).to(dev, dtype)
+            for _ in range(2))
+    dtype_bytes = torch.empty((), dtype=dtype).element_size()
+
+    def run(cfg):
+        return ops.flash_attention(q, k, v, block_q=cfg["block_q"],
+                                   block_kv=cfg["block_kv"])
+
+    def valid(cfg):
+        aligned = S % cfg["block_q"] == 0 and S % cfg["block_kv"] == 0
+        return aligned and ops.flash_valid(cfg, hd)
+
+    sig = f"B{B}_S{S}_H{H}_hd{hd}" + (f"_KV{KV}" if KV != H else "")
+    return KernelCell(
+        kernel="flash", shape_sig=sig,
+        space=ops.flash_config_space(S), run=run, valid=valid,
+        default={"block_q": 128, "block_kv": 128}, device=dev,
+        meta={"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
+              "dtype_bytes": dtype_bytes, "inputs": (q, k, v)})
+
+
+def decode_cell(B: int = 4, S: int = 2048, H: int = 8, KV: int = 2,
+                hd: int = 64, fill: float = 0.95,
+                window: Optional[int] = None, dtype=torch.float32,
+                device=None, seed: int = 0) -> KernelCell:
+    """The per-token serve hot path: split-KV flash decode over a KV cache
+    of capacity ``S`` at ``fill`` occupancy (empty slots carry
+    ``cache_pos = -1`` exactly like a live server's cache). Shape key =
+    batch × capacity × heads × KV heads × head dim, as the reference's."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(B, 1, H, hd))).to(dev, dtype)
+    k = torch.from_numpy(rng.normal(size=(B, S, KV, hd))).to(dev, dtype)
+    v = torch.from_numpy(rng.normal(size=(B, S, KV, hd))).to(dev, dtype)
+    cur = max(int(S * fill) - 1, 0)
+    pos = np.where(np.arange(S) <= cur, np.arange(S), -1)
+    cache_pos = torch.from_numpy(np.broadcast_to(pos, (B, S)).copy()).to(dev)
+    cur_pos = torch.full((B,), cur, dtype=torch.long, device=dev)
+    dtype_bytes = torch.empty((), dtype=dtype).element_size()
+    G = H // max(KV, 1)
+
+    def run(cfg):
+        return ops.decode_attention(q, k, v, cache_pos, cur_pos,
+                                    window=window, block_kv=cfg["block_kv"],
+                                    num_splits=cfg["num_splits"],
+                                    combine=cfg["combine"])
+
+    def valid(cfg):
+        # padding tiles any capacity, but splits past the cache are pure
+        # combine overhead — the alignment face of the resource model
+        covered = cfg["block_kv"] * (cfg["num_splits"] - 1) < S
+        return covered and ops.decode_valid(cfg, G, hd)
+
+    return KernelCell(
+        kernel="decode", shape_sig=f"B{B}_S{S}_H{H}_KV{KV}_hd{hd}",
+        space=ops.decode_config_space(S), run=run, valid=valid,
+        default={"block_kv": 512, "num_splits": 1, "combine": "kernel"},
+        device=dev,
+        meta={"B": B, "S": S, "H": H, "KV": KV, "hd": hd, "fill": fill,
+              "window": window, "dtype_bytes": dtype_bytes,
+              "inputs": (q, k, v, cache_pos, cur_pos)})
 
 
 def gp_cell(N: int = 4096, T: int = 128, d: int = 15, t_obs: int = 37,
@@ -313,3 +390,44 @@ def tuned_gp_block_n(store, N: Optional[int] = None, T: Optional[int] = None,
             raise ValueError(f"no block_n runs the GP kernel at T={T}, "
                              f"d={dim} on this card's resources")
     return bn
+
+
+def kernel_config_from_store(store, *, S: int, hd: int,
+                             device: Optional[str] = None, base=None):
+    """A ``KernelConfig`` with the best stored flash (prefill) blocks for a
+    server's prompt length ``S`` and head dim ``hd``, overlaid on ``base``.
+    None when the store has no record whose blocks tile ``S`` and pass the
+    resource model on this device (the caller keeps its defaults)."""
+    from repro_torch.parallel.sharding import KernelConfig
+    hit = best_kernel_config(store, "flash", None, device)
+    if hit is None:
+        return None
+    bq, bkv = int(hit[0]["block_q"]), int(hit[0]["block_kv"])
+    if S % bq or S % bkv:
+        return None             # tuned blocks don't tile this server's S
+    if not ops.flash_valid({"block_q": bq, "block_kv": bkv}, hd):
+        return None
+    base = base if base is not None else KernelConfig()
+    return base.replace(use_flash=True, flash_block_q=bq, flash_block_kv=bkv)
+
+
+def decode_kernel_config_from_store(store, *, cache_cap: int, H: int, KV: int,
+                                    hd: int, device: Optional[str] = None,
+                                    base=None):
+    """Tuned decode blocks for a server's cache shape, overlaid on ``base``
+    (so one ``KernelConfig`` carries tuned flash AND decode blocks). None
+    when no stored record is usable for this cache."""
+    from repro_torch.parallel.sharding import KernelConfig
+    hit = best_kernel_config(store, "decode", None, device)
+    if hit is None:
+        return None
+    cfg = hit[0]
+    bkv, ns = int(cfg["block_kv"]), int(cfg["num_splits"])
+    if bkv * (ns - 1) >= cache_cap:
+        return None             # tuned splits overhang this server's cache
+    if not ops.decode_valid({"block_kv": bkv}, H // max(KV, 1), hd):
+        return None
+    base = base if base is not None else KernelConfig()
+    return base.replace(use_decode=True, decode_block_kv=bkv,
+                        decode_num_splits=ns,
+                        decode_combine=str(cfg["combine"]))

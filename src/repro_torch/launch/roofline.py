@@ -1,6 +1,6 @@
 """Hopper (NVIDIA H100) resource limits and peak rates for the port.
 
-The kernels' resource models (``kernels.ops.gemm_valid``/``gp_valid``) check
+The kernels' resource models (``kernels.ops.*_valid``) check
 configs against the per-block limits below, in place of the reference
 package's TPU VMEM budget, which has no counterpart here. The peak rates
 give a kernel's bound: the least time the card could take for its work.
@@ -26,6 +26,11 @@ MAX_REGS_PER_THREAD = 255
 #: 67 TFLOP/s at the 700 W limit).
 FP32_PEAK_FLOPS = 67e12
 
+#: bf16 dense peak of the tensor cores, H100 SXM (NVIDIA H100 data sheet:
+#: 989 TFLOP/s without sparsity at the 700 W limit). A bf16 product's least
+#: time is taken against it, whether or not the kernel uses the tensor cores.
+BF16_TC_PEAK_FLOPS = 989e12
+
 #: HBM3 bandwidth, H100 SXM 80 GB (NVIDIA H100 data sheet: 3.35 TB/s).
 HBM_BW = 3.35e12
 
@@ -43,10 +48,16 @@ def peaks_for(card_name: str) -> Tuple[float, float]:
     return FP32_PEAK_FLOPS, HBM_BW
 
 
-def bound_ms(flops: float, nbytes: float, card_name: str) -> Tuple[float, str]:
-    """Least time (ms) for ``flops`` fp32 operations moving ``nbytes`` of
-    device memory on the named card, and which of the two bounds it."""
+def bound_ms(flops: float, nbytes: float, card_name: str,
+             dtype: str = "float32") -> Tuple[float, str]:
+    """Least time (ms) for ``flops`` operations of type ``dtype`` (fp32 on
+    the CUDA cores, or bf16 on the tensor cores) moving ``nbytes`` of device
+    memory on the named card, and which of the two bounds it."""
     peak_flops, bw = peaks_for(card_name)
+    if dtype == "bfloat16":
+        peak_flops = BF16_TC_PEAK_FLOPS
+    elif dtype != "float32":
+        raise ValueError(f"no peak recorded for {dtype!r} operations")
     t_ops, t_bytes = flops / peak_flops, nbytes / bw
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")

@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.core.gp_fast import IncrementalGP
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import flash_decode as kfd
 from repro_torch.kernels import gemm as kgemm
 from repro_torch.kernels import matern_gp as kgp
 
@@ -101,3 +103,133 @@ def test_gp_kernel_takes_t_512(card):
     torch.testing.assert_close(var_k, var_r, rtol=3e-3, atol=1e-4)
     rng_m = float(mean_r.max() - mean_r.min())
     assert float((mean_k - mean_r).abs().max()) < 0.03 * rng_m
+
+
+# -- the serve path's kernels -----------------------------------------------------
+
+def _bf16_close(got, want):
+    """bf16: within 2^-7 x max|ref|, which holds one bf16 ulp of every
+    output. Each version rounds its output to bf16 once from fp32 sums
+    taken in another order, so an output next to a rounding boundary lands
+    one ulp apart; that ulp can exceed the reference's 5e-3 x max|ref|
+    (test_kernels.py:386)."""
+    lim = 2.0 ** -7 * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= lim
+
+
+def _check(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,bq,bkv", [
+    (1, 256, 4, 2, 64, 128, 64),          # small, block_q != block_kv
+    (4, 1024, 8, 1, 256, 128, 256),       # gemma-2b prefill: MQA, hd 256
+])
+def test_flash_kernel_matches_plain(card, dtype, B, S, H, KV, hd, bq, bkv):
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.normal(size=(B, S, H, hd))).to(card, dtype)
+    k, v = (torch.from_numpy(rng.normal(size=(B, S, KV, hd))).to(card, dtype)
+            for _ in range(2))
+    assert ops.flash_valid({"block_q": bq, "block_kv": bkv}, hd)
+    kfa.launches = 0
+    got = kfa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+    want = ref.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kfa.launches == 1 and got.dtype == dtype
+    _check(got, want, dtype)
+
+
+def test_flash_refused_config_raises_launch_refused(card):
+    """block_kv 512 at hd 256 needs 256 KB of shared memory: the resource
+    model marks it invalid and the card refuses it."""
+    assert not ops.flash_valid({"block_q": 128, "block_kv": 512}, 256)
+    q = torch.zeros((1, 512, 1, 256), device=card, dtype=torch.bfloat16)
+    kfa.launches = 0
+    with pytest.raises(_build.LaunchRefused):
+        kfa.flash_attention(q, q, q, block_q=128, block_kv=512)
+    assert kfa.launches == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,cur,bkv,ns", [
+    (2, 200, 4, 2, 64, 97, 64, 4),        # small, capacity does not tile
+    (4, 1088, 8, 1, 256, 1054, 256, 4),   # gemma-2b decode at 64 steps
+])
+def test_decode_kernels_match_plain(card, dtype, B, S, H, KV, hd, cur, bkv,
+                                    ns):
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.normal(size=(B, 1, H, hd))).to(card, dtype)
+    k, v = (torch.from_numpy(rng.normal(size=(B, S, KV, hd))).to(card, dtype)
+            for _ in range(2))
+    pos = np.where(np.arange(S) <= cur, np.arange(S), -1)
+    cp = torch.from_numpy(np.broadcast_to(pos, (B, S)).copy()).to(card)
+    cu = torch.full((B,), cur, device=card)
+    kfd.split_launches = kfd.combine_launches = 0
+    got = ops.decode_attention(q, k, v, cp, cu, block_kv=bkv, num_splits=ns,
+                               combine="kernel")
+    torch.cuda.synchronize()
+    assert kfd.split_launches == 1 and kfd.combine_launches == 1
+    bias = ops.decode_bias(cp, cu, None, ns * bkv)
+    o, m, l = ref.decode_split(q[:, 0], k, v, bias, ns)
+    want = ref.combine_partials(o, m, l).reshape(B, 1, H, hd).to(dtype)
+    _check(got, want, dtype)
+    ko, km, kl = kfd.decode_split(q[:, 0], k, v, bias, block_kv=bkv,
+                                  num_splits=ns)
+    torch.testing.assert_close(km, m, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(kl, l, rtol=1e-3, atol=1e-4)
+
+
+def test_decode_server_on_the_card_launches_the_kernels(card):
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.parallel.sharding import KernelConfig, ParallelConfig
+    cfg = smoke_config("gemma-2b").replace(head_dim=64, dtype="float32")
+    kc = KernelConfig(use_flash=True, flash_block_q=128, flash_block_kv=64,
+                      use_decode=True, decode_block_kv=128,
+                      decode_num_splits=2, decode_combine="kernel")
+    runs = {}
+    for name, k in (("kernels", kc), ("plain", None)):
+        srv = serve.DecodeServer(cfg, ParallelConfig(kernel=k), batch=2,
+                                 prompt_len=128, decode_steps=4, device=card,
+                                 keep_logits=4)
+        serve.reset_kernel_launches()
+        srv.prefill_batch(srv.input_batch())
+        for _ in range(4):
+            srv.decode_step()
+        runs[name] = (srv, serve.kernel_launches())
+    launches = runs["kernels"][1]
+    assert launches == {"flash_attention": 2, "flash_decode_split": 8,
+                        "flash_decode_combine": 8}
+    assert runs["plain"][1] == {"flash_attention": 0,
+                                "flash_decode_split": 0,
+                                "flash_decode_combine": 0}
+    for a, b in zip(runs["kernels"][0].kept, runs["plain"][0].kept):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+
+
+def test_decode_server_on_the_card_refuses_what_the_kernels_do_not_take(card):
+    """On the card an opted-in server runs the kernels or raises: a prompt
+    the flash blocks do not tile launches nothing and serves nothing."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.parallel.sharding import KernelConfig, ParallelConfig
+    cfg = smoke_config("gemma-2b").replace(head_dim=64, dtype="float32")
+    srv = serve.DecodeServer(
+        cfg, ParallelConfig(kernel=KernelConfig(use_flash=True,
+                                                use_decode=True)),
+        batch=1, prompt_len=96, decode_steps=2, device=card)
+    serve.reset_kernel_launches()
+    with pytest.raises(ValueError, match="do not tile a prefill of 96"):
+        srv.prefill_batch(srv.input_batch())
+    assert serve.kernel_launches()["flash_attention"] == 0
+    with pytest.raises(ValueError, match="not a multiple of 64"):
+        serve.serving_kernel_config(cfg, device=card, prompt_len=32,
+                                    cache_cap=40)
+    kc = serve.serving_kernel_config(cfg, device=card, prompt_len=192,
+                                     cache_cap=194)
+    assert (kc.flash_block_q, kc.flash_block_kv) == (64, 64)

@@ -1,0 +1,263 @@
+"""The serve path's kernel wrappers against the JAX package, on the CPU.
+
+Port wrappers run their plain versions for CPU tensors; the JAX Pallas
+kernels run in interpret mode, as ``tests/test_kernels.py`` runs them. Both
+get the same numpy inputs from a seed. fp32 at the reference's 2e-4.
+"""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import torch
+
+from repro.kernels import flash_decode as jax_fd
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref as jax_ref
+from repro.models.layers import _decode_attention as jax_decode_attention
+
+from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import flash_decode as kfd
+from repro_torch.kernels import ops, ref, tuning
+from repro_torch.launch.roofline import SMEM_PER_BLOCK
+from repro_torch.parallel.sharding import KernelConfig
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+# -- flash attention (prefill) -------------------------------------------------
+
+@pytest.mark.parametrize("B,S,H,KV,hd,bq,bkv", [
+    (1, 64, 2, 2, 16, 32, 16),        # block_q != block_kv, both ways
+    (2, 64, 4, 4, 32, 16, 32),
+    (1, 128, 4, 1, 16, 64, 64),       # MQA: K/V read unexpanded
+    (2, 64, 4, 2, 16, 64, 32),        # GQA, G = 2
+])
+def test_flash_attention_matches_jax(B, S, H, KV, hd, bq, bkv):
+    rng = np.random.default_rng(B * S + H + KV + hd)
+    q = rng.normal(size=(B, S, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, S, KV, hd)).astype(np.float32)
+    v = rng.normal(size=(B, S, KV, hd)).astype(np.float32)
+    G = H // KV
+    kx, vx = np.repeat(k, G, axis=2), np.repeat(v, G, axis=2)
+    want = np.asarray(jax_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(kx), jnp.asarray(vx), block_q=bq,
+        block_kv=bkv, causal=True, interpret=True))
+    oracle = np.asarray(jax_ref.attention(jnp.asarray(q), jnp.asarray(kx),
+                                          jnp.asarray(vx)))
+    kfa.launches = 0
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), block_q=bq, block_kv=bkv)
+    assert kfa.launches == 0                      # plain version on the CPU
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(got.numpy(), oracle, **TOL)
+
+
+def test_flash_attention_rejects_what_the_kernel_cannot_tile():
+    q = torch.zeros((1, 96, 2, 16))
+    with pytest.raises(ValueError, match="not divisible"):
+        ops.flash_attention(q, q, q, block_q=64, block_kv=32)
+    with pytest.raises(ValueError, match="do not divide"):
+        ops.flash_attention(torch.zeros((1, 64, 3, 16)), q[:, :64],
+                            q[:, :64], block_q=32, block_kv=32)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.double(), q.double(), q.double(), block_q=32,
+                            block_kv=32)
+
+
+def test_flash_resource_model_agrees_with_the_kernel_shared_memory():
+    # hd 256: the 64 x block_kv fp32 score tile plus q and one K/V chunk
+    assert ops.flash_valid({"block_q": 128, "block_kv": 128}, 256)
+    assert ops.flash_valid({"block_q": 1024, "block_kv": 256}, 256)
+    assert not ops.flash_valid({"block_q": 128, "block_kv": 512}, 256)
+    assert kfa.flash_smem_bytes(512, 256) > SMEM_PER_BLOCK
+    assert ops.flash_valid({"block_q": 128, "block_kv": 512}, 128)
+    assert not ops.flash_valid({"block_q": 128, "block_kv": 1024}, 128)
+    assert not ops.flash_valid({"block_q": 128, "block_kv": 128}, 16)  # hd
+    assert not ops.flash_valid({"block_q": 96, "block_kv": 128}, 64)   # tile
+    space = ops.flash_config_space(1024)
+    n_valid = sum(ops.flash_valid(space.config(i), 256)
+                  for i in range(space.size))
+    assert space.size == 16 and n_valid == 8      # block_kv in {128, 256}
+
+
+# -- flash decode ----------------------------------------------------------------
+
+def _decode_case(B, S, H, KV, hd, cur, *, window=None, rolling=False,
+                 seed=0):
+    """test_kernels.py's cache states: contiguous fill to ``cur`` or a
+    rolling window's wrapped layout, as numpy."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, 1, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, S, KV, hd)).astype(np.float32)
+    v = rng.normal(size=(B, S, KV, hd)).astype(np.float32)
+    if rolling:
+        slots = np.arange(S)
+        pos = cur - ((cur - slots) % S)
+        pos = np.where(pos >= 0, pos, -1)
+    else:
+        pos = np.where(np.arange(S) <= cur, np.arange(S), -1)
+    cache_pos = np.broadcast_to(pos, (B, S)).copy()
+    cur_pos = np.full((B,), cur)
+    return q, k, v, cache_pos, cur_pos
+
+
+def _both(case, window, block_kv, num_splits, combine):
+    """The port's decode against the reference's; the port's tensor-op
+    combine "torch" is the reference's "jax"."""
+    q, k, v, cp, cu = case
+    want = np.asarray(jax_ops.decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(cp, jnp.int32), jnp.asarray(cu, jnp.int32),
+        window=window, block_kv=block_kv, num_splits=num_splits,
+        combine="jax" if combine == "torch" else combine, interpret=True))
+    got = ops.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(cp), torch.from_numpy(cu), window=window,
+        block_kv=block_kv, num_splits=num_splits, combine=combine)
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("H,KV", [(4, 4), (4, 2), (4, 1)])
+@pytest.mark.parametrize("num_splits,block_kv,combine",
+                         [(1, 64, "torch"), (2, 32, "torch"),
+                          (4, 16, "kernel")])
+def test_decode_matches_jax_gqa_and_splits(H, KV, num_splits, block_kv,
+                                           combine):
+    case = _decode_case(2, 128, H, KV, 16, cur=97)
+    got, want = _both(case, None, block_kv, num_splits, combine)
+    np.testing.assert_allclose(got, want, **TOL)
+    q, k, v, cp, cu = case
+    plain = np.asarray(jax_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        cache_pos=jnp.asarray(cp), cur_pos=jnp.asarray(cu), window=None,
+        scale=1.0 / np.sqrt(16)))
+    np.testing.assert_allclose(got, plain, **TOL)
+
+
+@pytest.mark.parametrize("case", [
+    dict(B=2, S=128, H=4, KV=2, hd=16, cur=5),              # mostly empty
+    dict(B=1, S=100, H=4, KV=2, hd=16, cur=99),             # S % block != 0
+    dict(B=2, S=64, H=4, KV=2, hd=16, cur=150, window=24,
+         rolling=True),                                     # rolling window
+    dict(B=2, S=96, H=4, KV=1, hd=16, cur=40, window=16),   # window, no wrap
+])
+@pytest.mark.parametrize("num_splits,block_kv,combine",
+                         [(1, 64, "torch"), (4, 16, "torch"), (2, 32, "kernel"),
+                          (8, 32, "kernel")])
+def test_decode_matches_jax_occupancy_window_capacity(case, num_splits,
+                                                      block_kv, combine):
+    case = dict(case)
+    window = case.pop("window", None)
+    rolling = case.pop("rolling", False)
+    arrays = _decode_case(**case, window=window, rolling=rolling)
+    got, want = _both(arrays, window, block_kv, num_splits, combine)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_combine_matches_jax_including_empty_splits():
+    rng = np.random.default_rng(3)
+    B, KV, ns, G, hd = 2, 2, 4, 3, 8
+    o = rng.normal(size=(B, KV, ns, G, hd)).astype(np.float32)
+    m = rng.normal(size=(B, KV, ns, G)).astype(np.float32)
+    l = rng.random((B, KV, ns, G)).astype(np.float32) + 0.5
+    m[0, 0, 1] = -np.inf                  # one empty split
+    m[1, 1, :] = -np.inf                  # a whole head group empty
+    o[0, 0, 1] = 0.0
+    o[1, 1] = 0.0
+    l[0, 0, 1] = 0.0
+    l[1, 1] = 0.0
+    want = np.asarray(jax_fd._combine_partials_jnp(
+        jnp.asarray(o), jnp.asarray(m), jnp.asarray(l)))
+    args = [torch.from_numpy(x) for x in (o, m, l)]
+    got = ref.combine_partials(*args)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    assert np.all(got.numpy()[1, 1] == 0.0)
+    kfd.combine_launches = 0
+    wrapped = kfd.decode_combine(*args, torch.float32)
+    assert kfd.combine_launches == 0
+    np.testing.assert_allclose(wrapped.numpy(),
+                               want.reshape(B, KV * G, hd), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_plain_split_partials_fold_to_the_decode_reference():
+    """The plain split pass: an all-masked split gives m = -inf, l = 0,
+    o = 0, and the folded partials equal the whole-cache softmax."""
+    q, k, v, cp, cu = _decode_case(1, 64, 4, 2, 16, cur=20)
+    valid = (cp >= 0) & (cp <= cu[:, None])
+    bias = torch.from_numpy(np.where(valid, 0.0, -np.inf).astype(np.float32))
+    o, m, l = kfd.decode_split(torch.from_numpy(q[:, 0]), torch.from_numpy(k),
+                               torch.from_numpy(v), bias, block_kv=16,
+                               num_splits=4)
+    assert o.shape == (1, 2, 4, 2, 16) and m.shape == (1, 2, 4, 2)
+    assert torch.all(torch.isinf(m[:, :, 2:])) and torch.all(l[:, :, 2:] == 0)
+    assert torch.all(o[:, :, 2:] == 0)
+    folded = ref.combine_partials(o, m, l).reshape(1, 1, 4, 16)
+    want = np.asarray(jax_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        cache_pos=jnp.asarray(cp), cur_pos=jnp.asarray(cu), window=None,
+        scale=1.0 / np.sqrt(16)))
+    np.testing.assert_allclose(folded.numpy(), want, **TOL)
+
+
+def test_decode_resource_model():
+    for bkv in (128, 256, 512, 1024):
+        assert ops.decode_valid({"block_kv": bkv}, 8, 256)
+        assert kfd.decode_smem_bytes(bkv, 8, 256) <= 48 * 1024
+    assert not ops.decode_valid({"block_kv": 512}, 16, 256)   # G > 8
+    assert not ops.decode_valid({"block_kv": 512}, 8, 16)     # head dim
+    # splits that overhang a 1,088-slot cache are constrained out:
+    # (block_kv, splits) in 128 x {1,2,4,8}, 256 x {1,2,4}, 512 x {1,2},
+    # 1024 x {1,2}, times two combines
+    assert ops.decode_config_space(1088).size == 22
+
+
+# -- tuning cells and the serve-side resolvers -----------------------------------
+
+def test_flash_and_decode_cells_tune_and_resolve_on_cpu(tmp_path):
+    store = str(tmp_path / "store")
+    fcell = tuning.flash_cell(1, 256, 2, 64, device="cpu")
+    assert fcell.objective_id() == "kernel[flash×B1_S256_H2_hd64×cpu]"
+    fres = tuning.run_kernel_tuning(fcell, store, budget=3, init=2, reps=1,
+                                    device="cpu")
+    assert fres.unique_evals == 3 and math.isfinite(fres.best_value)
+    dcell = tuning.decode_cell(2, 160, 4, 1, 64, device="cpu")
+    assert dcell.objective_id() == "kernel[decode×B2_S160_H4_KV1_hd64×cpu]"
+    dres = tuning.run_kernel_tuning(dcell, store, budget=4, init=2, reps=1,
+                                    device="cpu")
+    assert dres.unique_evals == 4 and math.isfinite(dres.best_value)
+
+    fbest = fcell.space.config(fres.best_idx)
+    kc = tuning.kernel_config_from_store(store, S=256, hd=64, device="cpu")
+    assert kc == KernelConfig(use_flash=True,
+                              flash_block_q=fbest["block_q"],
+                              flash_block_kv=fbest["block_kv"])
+    dbest = dcell.space.config(dres.best_idx)
+    both = tuning.decode_kernel_config_from_store(
+        store, cache_cap=160, H=4, KV=1, hd=64, device="cpu", base=kc)
+    assert both.use_flash and both.flash_block_q == kc.flash_block_q
+    assert (both.use_decode, both.decode_block_kv, both.decode_num_splits,
+            both.decode_combine) == (True, dbest["block_kv"],
+                                     dbest["num_splits"], dbest["combine"])
+    # a prompt the tuned blocks cannot tile, or a card, resolves nothing
+    assert tuning.kernel_config_from_store(store, S=100, hd=64,
+                                           device="cpu") is None
+    assert tuning.decode_kernel_config_from_store(
+        store, cache_cap=160, H=4, KV=1, hd=64,
+        device="cuda-NVIDIA_H100_80GB_HBM3") is None
+    # the cell's kernel output is the plain reference's
+    q, k, v, cp, cu = dcell.meta["inputs"]
+    out = dcell.run(dbest)
+    want = ops.decode_attention(q, k, v, cp, cu, block_kv=1024,
+                                num_splits=1)
+    torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
+
+
+def test_flash_cell_statically_invalid_configs_are_nan():
+    cell = tuning.flash_cell(1, 1024, 2, 256, device="cpu")
+    obj = tuning.KernelObjective(cell, reps=1, device="cpu")
+    bad = cell.space.index_of({"block_q": 128, "block_kv": 512})
+    assert math.isnan(obj(bad))
+    assert cell.valid(cell.default)
