@@ -6,17 +6,22 @@
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. device and build: the card's name and power limit, the nvcc build of
-     every kernel under src/repro_torch/kernels/csrc, registers per thread;
+     every kernel under src/repro_torch/kernels/csrc, registers per thread
+     and spills of every instance;
   2. each CUDA kernel against its plain PyTorch version on the card: GEMM in
      fp32 and bf16 at 128³, 256x384x512 and 4096³ under several block
      configs; the Matérn-GP posterior for all four ν at (t,N,d) = (13,512,6),
      (37,1024,15) and the paper's panel (220,18432,15) padded to T = 256;
-     flash attention in fp32 and bf16 at small shapes and gemma-2b's
-     prefill (B 4, S 1,024, H 8, KV 1, hd 256) under several blocks,
-     block_q != block_kv among them; flash decode (split + either combine)
-     in fp32 and bf16 at gemma-2b's decode (B 4, capacity 1,088, H 8, KV 1,
-     hd 256), at G = 1 and 2, and on a mostly empty cache, a capacity that
-     does not tile, and windows with and without wrap-around;
+     flash attention in fp32 (CUDA cores) and bf16 (tensor cores) at small
+     shapes, S 192, and gemma-2b's prefill (B 4, S 1,024, H 8, KV 1, hd
+     256) under several blocks: block_q != block_kv, one and two
+     warpgroups, block_kv > 64 (successive 64-key updates); flash decode
+     (split + either combine) in fp32 and bf16 at gemma-2b's decode (B 4,
+     capacity 1,088, H 8, KV 1, hd 256) and at its widths with B 1, at
+     G = 1 and 2, and on a mostly empty cache, a capacity that does not
+     tile, and windows with and without wrap-around, the split kernel's
+     per-split partials held against the plain version's too (splits of
+     padding only exactly m = -inf, l = 0, o = 0);
   3. the self-hosting cell: BO tunes the GP kernel's block_n at the paper's
      panel, journaled into a temporary store, and tuned_gp_block_n reads
      the stored best back;
@@ -70,13 +75,17 @@ MAIN_GEMM = (4096, 4096, 4096)
 MAIN_GP = (220, 18432, 15)          # 17,956 candidates padded to a tile multiple
 MAIN_T = 256
 # flash attention: (B, S, H, KV, hd) and (block_q, block_kv)
-FLASH_SHAPES = ((1, 256, 4, 4, 64), (2, 512, 4, 2, 128), (4, 1024, 8, 1, 256))
+FLASH_SHAPES = ((1, 256, 4, 4, 64), (2, 512, 4, 2, 128), (4, 1024, 8, 1, 256),
+                (2, 192, 4, 2, 128))
+# bf16: block_kv > 64 is successive 64-key updates, block_q a multiple of
+# 128 puts two warpgroups in a block, block_q 64 one
 FLASH_BLOCKS = ((128, 128), (128, 64), (64, 128), (256, 128), (128, 256),
-                (512, 256))
+                (512, 256), (64, 64), (128, 512))
 GEMMA_FLASH = (4, 1024, 8, 1, 256)
 # flash decode: (name, B, S, H, KV, hd, cur, window, rolling)
 DECODE_CASES = (
     ("gemma-2b decode", 4, 1088, 8, 1, 256, 1054, None, False),
+    ("gemma-2b widths, B 1", 1, 1088, 8, 1, 256, 1054, None, False),
     ("G=1", 2, 512, 4, 4, 128, 400, None, False),
     ("G=2", 2, 512, 4, 2, 64, 300, None, False),
     ("mostly empty", 2, 1024, 8, 1, 256, 5, None, False),
@@ -273,7 +282,7 @@ def check_flash(dev) -> dict:
             want = ref.attention(q, k, v).float()
             for bq, bkv in FLASH_BLOCKS:
                 cfg = {"block_q": bq, "block_kv": bkv}
-                if S % bq or S % bkv or not ops.flash_valid(cfg, hd):
+                if S % bq or S % bkv or not ops.flash_valid(cfg, hd, dtype):
                     continue
                 got = kfa.flash_attention(q, k, v, block_q=bq,
                                           block_kv=bkv).float()
@@ -294,6 +303,35 @@ def _cache_positions(S: int, cur: int, rolling: bool):
         pos = cur - ((cur - np.arange(S)) % S)
         return np.where(pos >= 0, pos, -1)
     return np.where(np.arange(S) <= cur, np.arange(S), -1)
+
+
+def _agree_partials(got, want, what: str) -> None:
+    """The split kernel's per-split partials against the plain version's:
+    the same splits with no valid slot (m = -inf) and, there, exactly
+    l = 0 and o = 0 (splits of padding only among them); m within 1e-4
+    and l within 1e-3 relative elsewhere (fp32 sums in another order; the
+    kernel folds its chunks with the combine's weights)."""
+    import torch
+    (ko, km, kl), (o_r, m_r, l_r) = got, want
+    empty = torch.isinf(m_r)
+    n_empty = int(empty.sum())
+    ok = (torch.equal(torch.isinf(km), empty)
+          and bool((km[empty] == -math.inf).all())
+          and bool((kl[empty] == 0).all()) and bool((ko[empty] == 0).all()))
+    full = ~empty
+    m_err = l_rel = top = 0.0
+    if n_empty < m_r.numel():
+        m_err = float((km[full] - m_r[full]).abs().max())
+        l_rel = float(((kl[full] - l_r[full]).abs() / l_r[full]).max())
+        top = float(m_r[full].abs().max())
+    ok = ok and m_err <= 1e-4 * (1 + top) and l_rel <= 1e-3
+    splits_empty = int(empty.all(dim=-1).sum())
+    log(f"    partials: {splits_empty} empty (split, head) of "
+        f"{m_r.shape[0] * m_r.shape[1] * m_r.shape[2]} exactly -inf/0/0; "
+        f"max|dm| {m_err:.2e}, max rel dl {l_rel:.2e} -> "
+        f"{'ok' if ok else 'BAD'}")
+    if not ok:
+        fail(f"{what}: split partials disagree with the plain version's")
 
 
 def check_decode(dev) -> dict:
@@ -325,9 +363,12 @@ def check_decode(dev) -> dict:
                                            block_kv=bkv, num_splits=ns,
                                            combine=comb).float()
                 torch.cuda.synchronize()
-                err = _agree(got, want, dtype,
-                             f"decode {name} B{B} S{S} H{H} KV{KV} hd{hd} "
-                             f"{str(dtype)[6:]} ({bkv},{ns},{comb})")
+                label = (f"decode {name} B{B} S{S} H{H} KV{KV} hd{hd} "
+                         f"{str(dtype)[6:]} ({bkv},{ns},{comb})")
+                err = _agree(got, want, dtype, label)
+                _agree_partials(kfd.decode_split(q[:, 0], k, v, bias,
+                                                 block_kv=bkv, num_splits=ns),
+                                (o_r, m_r, l_r), label)
                 if not (serving and dtype == torch.bfloat16):
                     continue
                 worst["flash_decode_split"] = max(
@@ -479,12 +520,14 @@ def serve_gemma(sdir: str, dev) -> dict:
         f"{max(steps) * 1e3:.4f}), {SERVE_B / med:.1f} tokens/s "
         f"({server.decode_dispatch}); peak memory "
         f"{peak / 2 ** 30:.3f} GiB; launches {launches}")
-    if launches["flash_attention"] < 2 * cfg.num_layers:
-        fail(f"flash launched {launches['flash_attention']} times in two "
-             f"prefills, want >= {2 * cfg.num_layers}")
-    if launches["flash_decode_split"] < cfg.num_layers * SERVE_STEPS:
-        fail(f"split launched {launches['flash_decode_split']} times, want "
-             f">= {cfg.num_layers * SERVE_STEPS}")
+    want = {"flash_attention": 2 * cfg.num_layers,
+            "flash_decode_split": cfg.num_layers * SERVE_STEPS}
+    if kc.decode_combine == "kernel":
+        want["flash_decode_combine"] = cfg.num_layers * SERVE_STEPS
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{name} launched {launches[name]} times in two prefills "
+                 f"and {SERVE_STEPS} decode steps, want {n} (one a layer)")
     toks = torch.stack(server.out, 1)
     if toks.shape != (SERVE_B, SERVE_STEPS + 1) or not all(
             bool(torch.isfinite(x).all()) for x in server.kept):
@@ -550,7 +593,10 @@ def serve_cases(kc, dev, card: str) -> dict:
     name -> (label, kernel fn, plain fn, library fn or None, bound ms,
     bound_by). The decode library call (SDPA with the additive bias mask
     and enable_gqa) computes split + combine together: it is timed beside
-    them as ``decode (split + combine)`` and given to neither."""
+    them as ``decode (split + combine)`` and given to neither. Both sides
+    take the validity bias built beforehand, as SDPA takes its mask. The
+    row ``decode as served`` times it as the serve path runs it, the bias
+    built from the cache positions on every side."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -609,16 +655,36 @@ def serve_cases(kc, dev, card: str) -> dict:
         None, *bound_ms(2.0 * ns * B * H * hd, part_bytes + 2.0 * B * H * hd,
                         card))
     cases["decode (split + combine)"] = (
-        "decode as a whole; library SDPA(additive bias mask, enable_gqa)",
-        lambda: ops.decode_attention(qd[:, None], kd, vd, cp, cu,
-                                     block_kv=dbkv, num_splits=ns,
-                                     combine="kernel"),
+        "decode as a whole (split + combine on the bias); library SDPA"
+        "(the bias as its additive mask, enable_gqa)",
+        lambda: kfd.flash_decode(qd, kd, vd, bias, block_kv=dbkv,
+                                 num_splits=ns, combine="kernel"),
         lambda: ref.combine_partials(*ref.decode_split(
             qd, kd, vd, bias, ns)).reshape(B, H, hd).to(bf16),
         lambda: F.scaled_dot_product_attention(
             qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
             attn_mask=mask, enable_gqa=True),
         *split_b)
+    # as a layer of the serve path runs it: the bias built from the cache
+    # positions, then split + combine; the plain and library sides build
+    # their bias too
+    cases["decode as served (bias + split + combine)"] = (
+        "decode as served (the bias built, then split + combine); library "
+        "SDPA(the bias built as its additive mask, enable_gqa)",
+        lambda: ops.decode_attention(qd[:, None], kd, vd, cp, cu,
+                                     block_kv=dbkv, num_splits=ns,
+                                     combine="kernel"),
+        lambda: ref.combine_partials(*ref.decode_split(
+            qd, kd, vd, ops.decode_bias(cp, cu, None, ns * dbkv), ns)
+        ).reshape(B, H, hd).to(bf16),
+        lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
+            attn_mask=ops.decode_bias(cp, cu, None, 1).to(bf16)[:, None,
+                                                                 None],
+            enable_gqa=True),
+        *bound_ms(4.0 * hd * G * KV * n_valid,
+                  2.0 * 2 * n_valid * KV * hd + 2.0 * 2 * B * H * hd
+                  + 8.0 * B * S, card, "bfloat16"))
     return cases
 
 
@@ -677,19 +743,26 @@ def main() -> int:
     lib = _build.lib()
     log(f"[1] build: {_build.build_seconds:.1f} s")
     regs, local = ctypes.c_int(), ctypes.c_int()
-    for name, attrs in (
-            ("gemm fp32", lambda: lib.gemm_attrs(0, regs, local)),
-            ("gemm bf16", lambda: lib.gemm_attrs(1, regs, local)),
-            ("gp", lambda: lib.gp_attrs(regs, local)),
-            ("flash hd256 fp32",
-             lambda: lib.flash_attention_attrs(0, 256, regs, local)),
-            ("flash hd256 bf16",
-             lambda: lib.flash_attention_attrs(1, 256, regs, local)),
-            ("decode split hd256 bf16",
-             lambda: lib.decode_attrs(0, 1, 256, regs, local)),
-            ("decode combine bf16",
-             lambda: lib.decode_attrs(1, 1, 0, regs, local))):
-        _build.check(attrs(), f"{name} attributes")
+    attrs = [("gemm fp32", lambda: lib.gemm_attrs(0, regs, local)),
+             ("gemm bf16", lambda: lib.gemm_attrs(1, regs, local)),
+             ("gp", lambda: lib.gp_attrs(regs, local))]
+    for hd in (64, 128, 256):
+        attrs.append((f"flash hd{hd} fp32 (CUDA cores)",
+                      lambda hd=hd: lib.flash_attention_attrs(0, hd, 1, regs,
+                                                              local)))
+        for nwg in (1, 2):
+            attrs.append((f"flash hd{hd} bf16 (wgmma, {nwg} warpgroup"
+                          f"{'s' if nwg > 1 else ''})",
+                          lambda hd=hd, nwg=nwg: lib.flash_attention_attrs(
+                              1, hd, nwg, regs, local)))
+        for dt, dname in ((0, "fp32"), (1, "bf16")):
+            attrs.append((f"decode split hd{hd} {dname}",
+                          lambda hd=hd, dt=dt: lib.decode_attrs(0, dt, hd, regs,
+                                                                local)))
+    attrs.append(("decode combine bf16",
+                  lambda: lib.decode_attrs(1, 1, 0, regs, local)))
+    for name, get in attrs:
+        _build.check(get(), f"{name} attributes")
         log(f"[1] {name}: {regs.value} registers/thread, "
             f"{local.value} B local memory")
 
@@ -868,8 +941,12 @@ def main() -> int:
         k_ms, p_ms, l_ms = (("not measured" if x is None else f"{x:.4f} ms")
                             if f is not None else "none"
                             for x, f in zip(device[name], fns))
+        k_d, p_d, l_d = device[name]
+        ratio = "".join(f"; kernel / {what} {k_d / x:.3f}"
+                        for what, x in (("plain", p_d), ("library", l_d))
+                        if k_d is not None and x is not None)
         log(f"[9] {label}: device time kernel {k_ms}, plain {p_ms}, library "
-            f"{l_ms}, bound {bound:.6f} ms ({by})")
+            f"{l_ms}, bound {bound:.6f} ms ({by}){ratio}")
 
     summary = {"kernels": []}
     for name, src, line in (

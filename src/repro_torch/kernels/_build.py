@@ -129,12 +129,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = i
-    lib.flash_attention_attrs.argtypes = [i, i, ctypes.POINTER(i),
+    lib.flash_attention_attrs.argtypes = [i, i, i, ctypes.POINTER(i),
                                           ctypes.POINTER(i)]
     lib.flash_attention_attrs.restype = i
     for name in ("decode_split_f32", "decode_split_bf16"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p] * 11 + [i] * 10 + [p]
         fn.restype = i
     for name in ("decode_combine_f32", "decode_combine_bf16"):
         fn = getattr(lib, name)

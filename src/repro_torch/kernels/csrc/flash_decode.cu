@@ -7,12 +7,10 @@
 // Split: q (B,H,hd), K/V caches (B,S,KV,hd) in fp32 or bf16, and an fp32
 // validity bias (B,Sp), 0 or -inf, Sp >= S a multiple of splits*block_kv
 // (slots past S are padding; the reference pads K and V too, this kernel
-// never reads them). One block per (split, KV head, b) holds that head's
-// G = H/KV query rows, so each K/V row is read once for the group, and runs
-// an online softmax over its split's tiles of block_kv slots with the
-// reference's isfinite guards: an all-masked split leaves m = -inf, l = 0,
-// o = 0. Out: unnormalized o (B,KV,splits,G,hd), m and l (B,KV,splits,G),
-// fp32.
+// never reads them). Split i covers slots [i*L, (i+1)*L), L = Sp/splits,
+// and the kernel returns, per split, the reference's unnormalized partials
+// with its isfinite guards: an all-masked split gives m = -inf, l = 0,
+// o = 0. Out: o (B,KV,splits,G,hd), m and l (B,KV,splits,G), fp32.
 // Combine: one block per (KV head, b) folds the splits, weights
 // exp(m_i - max m) (0 where m_i = -inf), and writes o / max(l, 1e-30) in
 // q's dtype, (B,H,hd).
@@ -21,19 +19,37 @@
 // KV 1, hd 256, bf16): the bytes, K and V of the slots that are valid (a
 // masked slot is not read) plus q, bias and partials; at 1,024..1,087 valid
 // slots about 4.3 MB, 1.3 us at 3.35 TB/s. The operations (4*H*hd per slot,
-// 9 MFLOP) take less. Design:
-//   * scores: a warp per slot, each lane holding hd/32 dims of all G query
-//     rows in registers, reducing the G dot products by shuffles; a slot
-//     whose bias is -inf is not read (its score is -inf);
-//   * p.v: thread t owns dim t % hd for all G rows (THREADS/hd groups of
-//     threads take alternate slots and are summed at the end), reading V
-//     rows coalesced; a masked slot is skipped (its p is exactly 0);
-//   * shared memory: the G x block_kv score tile plus the end reduction,
-//     4*(G*block_kv + 24 + (256/hd)*G*hd) bytes, under 48 KB for every
-//     block_kv of the reference's grid at G <= 8 (kernels/ops.py
-//     decode_valid mirrors it).
-// At B 4 and one KV head the grid is 4 x splits blocks on 132 SMs: the
-// card is mostly idle at this shape; recorded, not addressed here.
+// 9 MFLOP) take less: at about 8 flop a byte the CUDA cores keep up, so the
+// design is about blocks on SMs and bytes in flight.
+//   * The grid fills the card: each split's slots below S are cut into C
+//     chunks of `chunk` slots (a multiple of the 64-slot tile), one block
+//     each, grid (C, splits, B*KV). The wrapper's plan
+//     (kernels/flash_decode.py decode_plan) picks C so that B*KV*splits*C
+//     reaches 132 blocks where the split has the tiles. A chunk's block
+//     writes its (o, m, l) to a scratch, fences, and counts itself in its
+//     split's arrival counter; the last to arrive folds the chunk partials
+//     into the split's (the combine's weights, unnormalized) and resets the
+//     counter for the next launch. A split with one live chunk writes its
+//     partials directly. Splits of padding only write m = -inf, l = 0,
+//     o = 0 from one block; chunks past S exit at once.
+//   * K and V tiles of 64 slots are staged by cp.async in 16-byte vectors,
+//     16-byte chunks XOR-swizzled by slot % 8, through a ring of two stages
+//     (one where two do not fit: fp32 at hd 256); a masked slot is neither
+//     loaded nor read, and a thread reads the bias of all its slots before
+//     it issues any copy.
+//   * 256 threads. Scores: a thread owns one slot of the tile and 2 of the
+//     G <= 8 query rows, over the whole head dim: its dot products need no
+//     shuffle, K is read once from shared memory, q (fp32 in shared
+//     memory) is a broadcast. The online softmax reduces each query row
+//     once per tile (a warp per row). p.v: a thread owns 2 dims of all G
+//     rows, reading V from the staged tile and p as two 16-byte loads;
+//     512/hd slot groups are summed at the end.
+//   * The fold reads each (chunk, row)'s m and l once into shared memory,
+//     computes the weights there, and each thread sums its 2 dims of its
+//     rows over the chunks with the loads unrolled.
+//   * Shared memory: the ring, q, the 64 x 8 score tile, the slot groups'
+//     end reduction and the per-row (m, l, corr): at most 158 KB (hd 256,
+//     G 8); kernels/flash_decode.py decode_smem_bytes mirrors it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,12 +59,23 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;         // split kernel
 constexpr int WARPS = THREADS / 32;
+constexpr int COMBINE_THREADS = 256;
 constexpr int MAXG = 8;              // query rows per KV head a block holds
+constexpr int TILE = 64;             // slots per staged tile
+constexpr int RG = THREADS / TILE;   // row groups of the score pass
+constexpr int RPT = MAXG / RG;       // query rows a thread scores
 
-__host__ __device__ inline size_t split_smem_floats(int G, int hd, int bkv) {
-  return (size_t)G * bkv + 3 * MAXG + (size_t)(THREADS / hd) * G * hd;
+__host__ __device__ inline int split_stages(int hd, int esize) {
+  return 4 * TILE * hd * esize <= 131072 ? 2 : 1;
+}
+
+__host__ __device__ inline size_t split_smem_bytes(int hd, int esize, int G) {
+  const size_t ring = (size_t)split_stages(hd, esize) * 2 * TILE * hd * esize;
+  const size_t floats = (size_t)G * hd + MAXG * TILE + 3 * MAXG +
+                        (size_t)(2 * THREADS / hd) * G * hd;
+  return ring + 4 * floats + 4 * (TILE + 4);
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -62,6 +89,35 @@ __device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+
+// 16 bytes of K or V from shared memory, as fp32
+__device__ __forceinline__ void unpack16(const unsigned char* p, float* out,
+                                         const float*) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  out[0] = u.x; out[1] = u.y; out[2] = u.z; out[3] = u.w;
+}
+
+__device__ __forceinline__ void unpack16(const unsigned char* p, float* out,
+                                         const __nv_bfloat16*) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// two consecutive elements of V from shared memory, as fp32
+__device__ __forceinline__ float2 load2(const unsigned char* p, const float*) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load2(const unsigned char* p,
+                                        const __nv_bfloat16*) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // false for +-inf and NaN, as jnp.isfinite
@@ -79,95 +135,184 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending > 0)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ bias,
                     float* __restrict__ o_part, float* __restrict__ m_part,
-                    float* __restrict__ l_part, int S, int Sp, int KVH, int G,
-                    int bkv, int steps, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  float* Ss = sm;                  // [G][bkv]: scores, then p
-  float* m_s = Ss + G * bkv;       // [MAXG] running max
-  float* l_s = m_s + MAXG;         // [MAXG] running sum
-  float* c_s = l_s + MAXG;         // [MAXG] this tile's correction
-  float* red = c_s + MAXG;         // [THREADS/HD][G][HD] end reduction
-  constexpr int DPT = HD / 32;     // dims per lane in the score product
-  constexpr int KSPLIT = THREADS / HD;
+                    float* __restrict__ l_part, float* o_scr, float* m_scr,
+                    float* l_scr, int* counters, int S, int Sp, int KVH,
+                    int G, int chunk, int stages, float scale) {
+  extern __shared__ __align__(16) unsigned char smraw[];
+  constexpr int ES = sizeof(T);
+  constexpr int EPC = 16 / ES;          // elements per 16-byte chunk
+  constexpr int CH = HD / EPC;          // 16-byte chunks per row
+  constexpr int ROW = HD * ES;          // bytes per staged row
+  constexpr int TILE_BYTES = TILE * ROW;
+  constexpr int NDT = HD / 2;           // p.v: threads over one slot's dims
+  constexpr int SG = THREADS / NDT;     //      slot groups (1, 2 or 4)
+  unsigned char* ring = smraw;                            // [stages][K, V]
+  float* qs = reinterpret_cast<float*>(ring + stages * 2 * TILE_BYTES);
+  float* Ss = qs + G * HD;              // [TILE][MAXG]: scores, then p
+  float* m_s = Ss + MAXG * TILE;        // [MAXG] running max
+  float* l_s = m_s + MAXG;              // [MAXG] running sum
+  float* c_s = l_s + MAXG;              // [MAXG] this tile's correction
+  float* red = c_s + MAXG;              // [SG][G][HD] slot groups' sums
+  int* vld = reinterpret_cast<int*>(red + SG * G * HD);   // [TILE]
+  int* last = vld + TILE;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int split = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int nsplit = gridDim.x;
+  const int c = blockIdx.x;             // chunk
+  const int split = blockIdx.y;
+  const int bk = blockIdx.z;            // b * KVH + kv head
+  const int C = gridDim.x;
+  const int nsplit = gridDim.y;
+  const int b = bk / KVH;
+  const int kvh = bk % KVH;
   const int H = KVH * G;
+  const int L = Sp / nsplit;
+  const int s_lo = split * L;
+  const int s_end = min(s_lo + L, S);   // the split's slots below S
+  const int n_live = s_end > s_lo ? (s_end - s_lo + chunk - 1) / chunk : 0;
+  const size_t part = (size_t)bk * nsplit + split;
+
+  if (n_live == 0) {                    // padding only: the empty result
+    if (c == 0) {
+      for (int e = tid; e < G * HD; e += THREADS) o_part[part * G * HD + e] = 0.f;
+      if (tid < G) {
+        m_part[part * G + tid] = -INFINITY;
+        l_part[part * G + tid] = 0.f;
+      }
+    }
+    return;
+  }
+  if (c >= n_live) return;              // a chunk past S
+  const int lo = s_lo + c * chunk;
+  const int hi = min(lo + chunk, s_end);
+  const int ntiles = (hi - lo + TILE - 1) / TILE;
+
   const size_t step = (size_t)KVH * HD;     // elements between cache slots
   const T* kb = k + (size_t)b * S * step + (size_t)kvh * HD;
   const T* vb = v + (size_t)b * S * step + (size_t)kvh * HD;
   const float* brow = bias + (size_t)b * Sp;
 
-  float qr[MAXG][DPT];
+  // the bias of a thread's slots is read first, all at once: a read
+  // between two copies would wait for its own round trip each time
+  constexpr int PER = TILE * CH / THREADS;   // 16-byte chunks a thread copies
+  auto load = [&](int t, int st) {
+    unsigned char* ks = ring + st * 2 * TILE_BYTES;
+    unsigned char* vs = ks + TILE_BYTES;
+    const int t0 = lo + t * TILE;
+    uint32_t live = 0;
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g)
+    for (int i = 0; i < PER; ++i) {
+      const int slot = t0 + (tid + i * THREADS) / CH;
+      live |= (uint32_t)(slot < hi && __ldg(brow + slot) != -INFINITY) << i;
+    }
 #pragma unroll
-    for (int d = 0; d < DPT; ++d)
-      qr[g][d] = g < G ? to_f(q[((size_t)b * H + kvh * G + g) * HD + lane * DPT + d])
-                       : 0.f;
+    for (int i = 0; i < PER; ++i) {
+      const int e = tid + i * THREADS;
+      const int j = e / CH, cc = e % CH;
+      if (live >> i & 1u) {              // a masked slot is never read
+        const int off = j * ROW + ((cc ^ (j & 7)) << 4);
+        cp_async16(ks + off, kb + (size_t)(t0 + j) * step + cc * EPC);
+        cp_async16(vs + off, vb + (size_t)(t0 + j) * step + cc * EPC);
+      }
+    }
+  };
+
+  load(0, 0);
+  cp_async_commit();
+  for (int e = tid; e < G * HD; e += THREADS)
+    qs[e] = to_f(q[((size_t)b * H + (size_t)kvh * G) * HD + e]);
   if (tid < MAXG) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
   }
-  const int dim = tid % HD;        // p.v: this thread's output dim
-  const int kg = tid / HD;         //      and its slot group
-  float acc[MAXG];
+  const int ja = tid % TILE;            // scores: this thread's slot
+  const int ga = (tid / TILE) * RPT;    //         and its first query row
+  const int dp = (tid % NDT) * 2;       // p.v: dims dp, dp+1
+  const int sg = tid / NDT;             //      and the slot group
+  float acc[MAXG][2];
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
+  for (int g = 0; g < MAXG; ++g) acc[g][0] = acc[g][1] = 0.f;
 
-  const int base = split * steps * bkv;
-  for (int t = 0; t < steps; ++t) {
-    const int j0 = base + t * bkv;
-    __syncthreads();               // last tile's p read; init visible
-    for (int j = warp; j < bkv; j += WARPS) {
-      const int slot = j0 + j;
-      const float bj = brow[slot];
-      if (bj == -INFINITY || slot >= S) {    // masked or padding: not read
-        for (int g = lane; g < G; g += 32) Ss[g * bkv + j] = -INFINITY;
-        continue;
-      }
-      float kr[DPT];
-      const T* krow = kb + (size_t)slot * step + lane * DPT;
+  for (int t = 0; t < ntiles; ++t) {
+    if (stages > 1 && t + 1 < ntiles) load(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    cp_async_wait(stages > 1 ? 1 : 0);  // tile t has landed (this thread's part)
+    __syncthreads();                    // ... everyone's; q and init visible
+    const unsigned char* ks = ring + (stages > 1 ? (t & 1) : 0) * 2 * TILE_BYTES;
+    const unsigned char* vs = ks + TILE_BYTES;
+
+    {
+      const int slot = lo + t * TILE + ja;
+      const bool ok = slot < hi && brow[slot] != -INFINITY;
+      float sc[RPT];
 #pragma unroll
-      for (int d = 0; d < DPT; ++d) kr[d] = to_f(krow[d]);
+      for (int r = 0; r < RPT; ++r) sc[r] = 0.f;
+      if (ok) {
+        const unsigned char* krow = ks + ja * ROW;
+#pragma unroll 4
+        for (int cc = 0; cc < CH; ++cc) {
+          float kf[EPC];
+          unpack16(krow + ((cc ^ (ja & 7)) << 4), kf, k);
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g < G) {
-          float part = 0.f;
+          for (int r = 0; r < RPT; ++r) {
+            if (ga + r < G) {
+              const float* qq = qs + (ga + r) * HD + cc * EPC;
 #pragma unroll
-          for (int d = 0; d < DPT; ++d) part = fmaf(qr[g][d], kr[d], part);
-          part = warp_sum(part);
-          if (lane == 0) Ss[g * bkv + j] = part * scale + bj;
+              for (int e = 0; e < EPC; e += 4) {
+                const float4 q4 = *reinterpret_cast<const float4*>(qq + e);
+                sc[r] = fmaf(q4.x, kf[e], sc[r]);
+                sc[r] = fmaf(q4.y, kf[e + 1], sc[r]);
+                sc[r] = fmaf(q4.z, kf[e + 2], sc[r]);
+                sc[r] = fmaf(q4.w, kf[e + 3], sc[r]);
+              }
+            }
+          }
         }
       }
+      const float bj = ok ? brow[slot] : 0.f;
+      *reinterpret_cast<float2*>(Ss + ja * MAXG + ga) =
+          ok ? make_float2(sc[0] * scale + bj, sc[1] * scale + bj)
+             : make_float2(-INFINITY, -INFINITY);
+      if (ga == 0) vld[ja] = ok;
     }
     __syncthreads();
 
     for (int g = warp; g < G; g += WARPS) {
-      float* row = Ss + g * bkv;
-      float mx = -INFINITY;
-      for (int j = lane; j < bkv; j += 32) mx = fmaxf(mx, row[j]);
-      mx = warp_max(mx);
+      float* ra = Ss + lane * MAXG + g;
+      float* rz = Ss + (lane + 32) * MAXG + g;
+      const float a = *ra, z = *rz;
+      const float mx = warp_max(fmaxf(a, z));
       const float m_prev = m_s[g];
       const float m_new = fmaxf(m_prev, mx);
       const float m_safe = finite(m_new) ? m_new : 0.f;
-      float sum = 0.f;
-      for (int j = lane; j < bkv; j += 32) {
-        const float p = expf(row[j] - m_safe);   // exp(-inf) == 0
-        sum += p;
-        row[j] = round_to(p, q);                 // p in v's dtype for p.v
-      }
-      sum = warp_sum(sum);
+      const float pa = expf(a - m_safe), pz = expf(z - m_safe);  // exp(-inf) == 0
+      const float sum = warp_sum(pa + pz);
+      *ra = round_to(pa, q);                       // p in v's dtype for p.v
+      *rz = round_to(pz, q);
       if (lane == 0) {
         const float corr = finite(m_prev) ? expf(m_prev - m_safe) : 0.f;
         l_s[g] = l_s[g] * corr + sum;
@@ -179,43 +324,143 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int g = 0; g < MAXG; ++g)
-      if (g < G) acc[g] *= c_s[g];
-    for (int j = kg; j < bkv; j += KSPLIT) {
-      const int slot = j0 + j;
-      if (slot >= S || brow[slot] == -INFINITY) continue;   // p == 0
-      const float vj = to_f(vb[(size_t)slot * step + dim]);
+      if (g < G) {
+        acc[g][0] *= c_s[g];
+        acc[g][1] *= c_s[g];
+      }
+    const int boff = dp * ES;           // byte of dim dp in a row
+    for (int j = sg; j < TILE; j += SG) {
+      if (!vld[j]) continue;            // p == 0, V not loaded
+      const float2 vv = load2(vs + j * ROW + ((((boff >> 4) ^ (j & 7))) << 4) +
+                                  (boff & 15), v);
+      const float4 p0 = *reinterpret_cast<const float4*>(Ss + j * MAXG);
+      const float4 p1 = *reinterpret_cast<const float4*>(Ss + j * MAXG + 4);
+      const float p[MAXG] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
       for (int g = 0; g < MAXG; ++g)
-        if (g < G) acc[g] = fmaf(Ss[g * bkv + j], vj, acc[g]);
+        if (g < G) {
+          acc[g][0] = fmaf(p[g], vv.x, acc[g][0]);
+          acc[g][1] = fmaf(p[g], vv.y, acc[g][1]);
+        }
+    }
+    __syncthreads();                    // the stage and Ss are free
+    if (stages == 1 && t + 1 < ntiles) load(t + 1, 0);
+  }
+
+  if (SG > 1) {
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g)
+      if (g < G) {
+        red[(sg * G + g) * HD + dp] = acc[g][0];
+        red[(sg * G + g) * HD + dp + 1] = acc[g][1];
+      }
+    __syncthreads();
+    if (sg == 0) {
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g)
+        if (g < G)
+          for (int r = 1; r < SG; ++r) {
+            acc[g][0] += red[(r * G + g) * HD + dp];
+            acc[g][1] += red[(r * G + g) * HD + dp + 1];
+          }
     }
   }
 
-  const size_t part = ((size_t)b * KVH + kvh) * nsplit + split;
-  if (KSPLIT > 1) {
+  const bool direct = n_live == 1;
+  const size_t cpart = direct ? part : part * C + c;
+  float* od = (direct ? o_part : o_scr) + cpart * G * HD;
+  float* md = (direct ? m_part : m_scr) + cpart * G;
+  float* ld = (direct ? l_part : l_scr) + cpart * G;
+  if (sg == 0) {
 #pragma unroll
     for (int g = 0; g < MAXG; ++g)
-      if (g < G) red[((size_t)kg * G + g) * HD + dim] = acc[g];
-    __syncthreads();
-    if (kg == 0) {
-      for (int g = 0; g < G; ++g) {
-        float s = 0.f;
-        for (int r = 0; r < KSPLIT; ++r) s += red[((size_t)r * G + g) * HD + dim];
-        o_part[(part * G + g) * HD + dim] = s;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g)
-      if (g < G) o_part[(part * G + g) * HD + dim] = acc[g];
+      if (g < G)
+        *reinterpret_cast<float2*>(od + g * HD + dp) =
+            make_float2(acc[g][0], acc[g][1]);
   }
   if (tid < G) {
-    m_part[part * G + tid] = m_s[tid];
-    l_part[part * G + tid] = l_s[tid];
+    md[tid] = m_s[tid];
+    ld[tid] = l_s[tid];
   }
+  if (direct) return;
+
+  // the last of the split's live chunks folds their partials
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *last = atomicAdd(counters + part, 1) == n_live - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  // The fold, 64 chunks at a time: each (chunk, row)'s m and l into shared
+  // memory by one load a thread (kept from the first pass to the second
+  // when there are at most 64 chunks), the rows' max m, the weights
+  // exp(m_i - max m) (0 where m_i = -inf), then each thread's 2 dims of
+  // its rows, the chunks' loads unrolled so that they are in flight
+  // together.
+  const size_t c0 = part * C;
+  float* lc = red;                      // [TILE][MAXG]: the chunks' l
+  auto load_ml = [&](int cb, int nb) {
+    for (int e = tid; e < nb * G; e += THREADS) {
+      Ss[(e / G) * MAXG + e % G] = __ldcg(m_scr + (c0 + cb) * G + e);
+      lc[(e / G) * MAXG + e % G] = __ldcg(l_scr + (c0 + cb) * G + e);
+    }
+  };
+  if (tid < MAXG) m_s[tid] = -INFINITY;
+  for (int cb = 0; cb < n_live; cb += TILE) {
+    const int nb = min(TILE, n_live - cb);
+    __syncthreads();
+    load_ml(cb, nb);
+    __syncthreads();
+    if (tid < G)
+      for (int i = 0; i < nb; ++i) m_s[tid] = fmaxf(m_s[tid], Ss[i * MAXG + tid]);
+  }
+  float of[MAXG][2];
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g) of[g][0] = of[g][1] = 0.f;
+  float lt = 0.f;
+  for (int cb = 0; cb < n_live; cb += TILE) {
+    const int nb = min(TILE, n_live - cb);
+    __syncthreads();
+    if (n_live > TILE) {
+      load_ml(cb, nb);
+      __syncthreads();
+    }
+    for (int e = tid; e < nb * G; e += THREADS) {
+      const int i = e / G, g = e % G;
+      const float m = Ss[i * MAXG + g];
+      const float mt = m_s[g];
+      Ss[i * MAXG + g] = finite(m) ? expf(m - (finite(mt) ? mt : 0.f)) : 0.f;
+    }
+    __syncthreads();
+    if (tid < G)
+      for (int i = 0; i < nb; ++i) lt += Ss[i * MAXG + tid] * lc[i * MAXG + tid];
+#pragma unroll 4
+    for (int i = 0; i < nb; ++i) {
+      const float* oc = o_scr + (c0 + cb + i) * G * HD + dp;
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g)
+        if (g < G && g % SG == sg) {
+          const float w = Ss[i * MAXG + g];
+          const float2 ov = __ldcg(reinterpret_cast<const float2*>(oc + g * HD));
+          of[g][0] = fmaf(w, ov.x, of[g][0]);
+          of[g][1] = fmaf(w, ov.y, of[g][1]);
+        }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g)
+    if (g < G && g % SG == sg)
+      *reinterpret_cast<float2*>(o_part + (part * G + g) * HD + dp) =
+          make_float2(of[g][0], of[g][1]);
+  if (tid < G) {
+    m_part[part * G + tid] = m_s[tid];
+    l_part[part * G + tid] = lt;
+  }
+  if (tid == 0) counters[part] = 0;     // ready for the next launch
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(COMBINE_THREADS)
 decode_combine_kernel(const float* __restrict__ o_part,
                       const float* __restrict__ m_part,
                       const float* __restrict__ l_part, T* __restrict__ out,
@@ -224,7 +469,7 @@ decode_combine_kernel(const float* __restrict__ o_part,
   const int b = blockIdx.y;
   const int KVH = gridDim.x;
   const size_t base = ((size_t)b * KVH + kvh) * nsplit;
-  for (int e = threadIdx.x; e < G * hd; e += THREADS) {
+  for (int e = threadIdx.x; e < G * hd; e += COMBINE_THREADS) {
     const int g = e / hd;
     const int d = e % hd;
     float m_tot = -INFINITY;
@@ -244,10 +489,11 @@ decode_combine_kernel(const float* __restrict__ o_part,
 
 template <typename T, int HD>
 cudaError_t launch_split(const void* q, const void* k, const void* v,
-                         const void* bias, void* o, void* m, void* l, int B,
-                         int S, int Sp, int KVH, int G, int bkv, int nsplit,
-                         cudaStream_t stream) {
-  const size_t smem = split_smem_floats(G, HD, bkv) * sizeof(float);
+                         const void* bias, void* o, void* m, void* l,
+                         void* o_scr, void* m_scr, void* l_scr, void* counters,
+                         int B, int S, int Sp, int KVH, int G, int nsplit,
+                         int C, int chunk, cudaStream_t stream) {
+  const size_t smem = split_smem_bytes(HD, sizeof(T), G);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -259,28 +505,33 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(nsplit, KVH, B);
+  const dim3 grid(C, nsplit, B * KVH);
   decode_split_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<float*>(o), static_cast<float*>(m), static_cast<float*>(l),
-      S, Sp, KVH, G, bkv, Sp / (nsplit * bkv), 1.0f / sqrtf((float)HD));
+      static_cast<float*>(o_scr), static_cast<float*>(m_scr),
+      static_cast<float*>(l_scr), static_cast<int*>(counters), S, Sp, KVH, G,
+      chunk, split_stages(HD, sizeof(T)), 1.0f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
 template <typename T>
 int split_dispatch(const void* q, const void* k, const void* v,
-                   const void* bias, void* o, void* m, void* l, int B, int S,
-                   int Sp, int KVH, int G, int hd, int bkv, int nsplit,
-                   void* stream) {
+                   const void* bias, void* o, void* m, void* l, void* o_scr,
+                   void* m_scr, void* l_scr, void* counters, int B, int S,
+                   int Sp, int KVH, int G, int hd, int bkv, int nsplit, int C,
+                   int chunk, void* stream) {
   if (B <= 0 || S <= 0 || KVH <= 0 || G <= 0 || G > MAXG || bkv <= 0 ||
-      nsplit <= 0 || Sp < S || Sp % (nsplit * bkv))
+      nsplit <= 0 || Sp < S || Sp % (nsplit * bkv) || C <= 0 || chunk <= 0 ||
+      chunk % TILE || (long long)C * chunk < (long long)min(Sp / nsplit, S) ||
+      (C > 1 && (!o_scr || !m_scr || !l_scr || !counters)))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 64: return launch_split<T, 64>(q, k, v, bias, o, m, l, B, S, Sp, KVH, G, bkv, nsplit, s);
-    case 128: return launch_split<T, 128>(q, k, v, bias, o, m, l, B, S, Sp, KVH, G, bkv, nsplit, s);
-    case 256: return launch_split<T, 256>(q, k, v, bias, o, m, l, B, S, Sp, KVH, G, bkv, nsplit, s);
+    case 64: return launch_split<T, 64>(q, k, v, bias, o, m, l, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
+    case 128: return launch_split<T, 128>(q, k, v, bias, o, m, l, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
+    case 256: return launch_split<T, 256>(q, k, v, bias, o, m, l, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -291,7 +542,7 @@ int combine_dispatch(const void* o, const void* m, const void* l, void* out,
   if (B <= 0 || KVH <= 0 || nsplit <= 0 || G <= 0 || hd <= 0)
     return cudaErrorInvalidValue;
   const dim3 grid(KVH, B);
-  decode_combine_kernel<T><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  decode_combine_kernel<T><<<grid, COMBINE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(o), static_cast<const float*>(m),
       static_cast<const float*>(l), static_cast<T*>(out), nsplit, G, hd);
   return cudaGetLastError();
@@ -312,19 +563,23 @@ cudaError_t split_attrs_of(int hd, cudaFuncAttributes* attr) {
 extern "C" {
 
 int decode_split_f32(const void* q, const void* k, const void* v,
-                     const void* bias, void* o, void* m, void* l, int B, int S,
+                     const void* bias, void* o, void* m, void* l, void* o_scr,
+                     void* m_scr, void* l_scr, void* counters, int B, int S,
                      int Sp, int KVH, int G, int hd, int bkv, int nsplit,
-                     void* stream) {
-  return split_dispatch<float>(q, k, v, bias, o, m, l, B, S, Sp, KVH, G, hd,
-                               bkv, nsplit, stream);
+                     int C, int chunk, void* stream) {
+  return split_dispatch<float>(q, k, v, bias, o, m, l, o_scr, m_scr, l_scr,
+                               counters, B, S, Sp, KVH, G, hd, bkv, nsplit, C,
+                               chunk, stream);
 }
 
 int decode_split_bf16(const void* q, const void* k, const void* v,
-                      const void* bias, void* o, void* m, void* l, int B,
-                      int S, int Sp, int KVH, int G, int hd, int bkv,
-                      int nsplit, void* stream) {
-  return split_dispatch<__nv_bfloat16>(q, k, v, bias, o, m, l, B, S, Sp, KVH,
-                                       G, hd, bkv, nsplit, stream);
+                      const void* bias, void* o, void* m, void* l,
+                      void* o_scr, void* m_scr, void* l_scr, void* counters,
+                      int B, int S, int Sp, int KVH, int G, int hd, int bkv,
+                      int nsplit, int C, int chunk, void* stream) {
+  return split_dispatch<__nv_bfloat16>(q, k, v, bias, o, m, l, o_scr, m_scr,
+                                       l_scr, counters, B, S, Sp, KVH, G, hd,
+                                       bkv, nsplit, C, chunk, stream);
 }
 
 int decode_combine_f32(const void* o, const void* m, const void* l, void* out,

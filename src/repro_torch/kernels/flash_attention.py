@@ -1,11 +1,12 @@
 """Causal flash attention (prefill), as a hand-written CUDA kernel.
 
 Port of ``repro/kernels/flash_attention.py``. The kernel is
-``csrc/flash_attention.cu`` (its header gives the bound and the design);
-this module is its wrapper. The tunables are the reference's ``block_q``
-(query rows per thread block: the grid) and ``block_kv`` (keys per online
-softmax update: the width of the score tile in shared memory); the resource
-model is ``kernels.ops.flash_valid``.
+``csrc/flash_attention.cu`` (its header gives the bound and the design):
+bf16 runs on the tensor cores (wgmma), fp32 on the CUDA cores. This module
+is its wrapper. The tunables are the reference's ``block_q`` (query rows
+per thread block: the grid) and ``block_kv`` (keys the bf16 kernel keeps
+in flight: its ring of 64-key stages; the fp32 kernel's score tile); the
+resource model is ``kernels.ops.flash_valid``.
 
 A CPU tensor takes the plain version (``kernels.ref.attention``); a CUDA
 tensor launches the kernel or raises.
@@ -23,18 +24,33 @@ _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 
 #: Head dims the kernel is built for, and the granularity of its blocks
-#: (query rows per sub-tile, keys per staged chunk).
+#: (query rows per warpgroup or sub-tile, keys per staged tile).
 HEAD_DIMS = (64, 128, 256)
 SUB_TILE = 64
-THREADS = 256
+#: The bf16 kernel's ring: stages of SUB_TILE keys, block_kv / 64 of them
+#: within these bounds.
+MIN_STAGES, MAX_STAGES = 2, 8
 
 
-def flash_smem_bytes(block_kv: int, hd: int) -> int:
-    """Shared memory one block needs (``smem_floats`` in the source): the
-    q sub-tile and one staged K or V chunk (fp32), the score tile, and the
-    per-row (m, l, corr)."""
-    return 4 * (hd * SUB_TILE + SUB_TILE * hd + SUB_TILE * block_kv
-                + 3 * SUB_TILE)
+def flash_stages(block_kv: int) -> int:
+    """Stages of the bf16 kernel's K/V ring (``stages_for`` in the
+    source)."""
+    return max(MIN_STAGES, min(MAX_STAGES, block_kv // SUB_TILE))
+
+
+def flash_smem_bytes(block_q: int, block_kv: int, hd: int,
+                     dtype: torch.dtype) -> int:
+    """Shared memory one block needs. bf16 (``tc::smem_bytes`` in the
+    source): 1 KB of alignment slack, the q sub-tile of one or two 64-row
+    warpgroups (two when ``block_q`` is a multiple of 128), and the ring of
+    K and V stages. fp32 (``cc::smem_floats``): the q sub-tile and one
+    staged K or V chunk, the 64 x block_kv score tile, and the per-row
+    (m, l, corr)."""
+    if dtype == torch.float32:
+        return 4 * (hd * SUB_TILE + SUB_TILE * hd + SUB_TILE * block_kv
+                    + 3 * SUB_TILE)
+    rows = 2 * SUB_TILE if block_q % (2 * SUB_TILE) == 0 else SUB_TILE
+    return 1024 + 2 * rows * hd + flash_stages(block_kv) * 2 * SUB_TILE * hd * 2
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

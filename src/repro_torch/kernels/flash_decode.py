@@ -11,12 +11,17 @@ kernel (``combine="kernel"``) or by tensor ops (``combine="torch"``, the
 reference's ``"jax"`` strategy; on the card it is a tuning choice, whose
 tensor ops run there too).
 
+The split kernel's grid is planned here, in :func:`decode_plan`: each
+split is cut into chunks, one block each, so that the grid fills the card;
+the kernel folds a split's chunks back into that split's partials, so
+:func:`decode_split` returns what the plain version returns.
+
 A CPU tensor takes the plain versions (``kernels.ref.decode_split`` and
 ``combine_partials``); a CUDA tensor launches the kernels or raises.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -33,18 +38,71 @@ _SPLIT = {torch.float32: "decode_split_f32", torch.bfloat16: "decode_split_bf16"
 _COMBINE = {torch.float32: "decode_combine_f32",
             torch.bfloat16: "decode_combine_bf16"}
 
-#: Head dims the split kernel is built for, query rows a block holds, and
-#: its threads per block.
+#: Head dims the split kernel is built for, query rows a block holds, its
+#: threads per block, the slots it stages per tile, and the blocks its grid
+#: aims for (one per SM of an H100).
 HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8
 THREADS = 256
+TILE = 64
+FILL_BLOCKS = 132
+
+#: Per-split arrival counters of the split kernel, per (device, stream):
+#: zeroed once, and reset by the kernel after each use.
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def decode_smem_bytes(block_kv: int, G: int, hd: int) -> int:
-    """Shared memory of one split block (``split_smem_floats`` in the
-    source): the G x block_kv score tile, the per-row (m, l, corr), and the
-    end reduction over the THREADS/hd slot groups."""
-    return 4 * (G * block_kv + 3 * MAX_GROUP + (THREADS // hd) * G * hd)
+def decode_stages(hd: int, dtype_bytes: int) -> int:
+    """Stages of the split kernel's K/V ring (``split_stages`` in the
+    source): two where they take at most 128 KB, else one."""
+    return 2 if 4 * TILE * hd * dtype_bytes <= 131072 else 1
+
+
+def decode_smem_bytes(G: int, hd: int, dtype_bytes: int) -> int:
+    """Shared memory of one split block (``split_smem_bytes`` in the
+    source): the K/V ring, q in fp32, the 64 x 8 score tile, the per-row
+    (m, l, corr), the slot groups' end reduction, the slots' valid flags."""
+    ring = decode_stages(hd, dtype_bytes) * 2 * TILE * hd * dtype_bytes
+    floats = (G * hd + MAX_GROUP * TILE + 3 * MAX_GROUP
+              + (2 * THREADS // hd) * G * hd)
+    return ring + 4 * floats + 4 * (TILE + 4)
+
+
+def decode_plan(B: int, KV: int, S: int, Sp: int, num_splits: int
+                ) -> Tuple[int, int]:
+    """The split kernel's grid: ``(C, chunk)``, each split's slots below
+    ``S`` cut into ``C`` chunks of ``chunk`` slots (a multiple of the
+    64-slot tile), one block each. A chunk takes the fewest tiles that
+    bring ``B x KV x num_splits x C`` to ``FILL_BLOCKS``, and at least
+    one: where the fullest split has the tiles, the grid reaches
+    ``FILL_BLOCKS``."""
+    L = Sp // num_splits
+    live = min(L, S)
+    tiles = -(-live // TILE)
+    want = -(-FILL_BLOCKS // (B * KV * num_splits))
+    chunk = max(1, tiles // want) * TILE
+    return -(-live // chunk), chunk
+
+
+def chunk_ranges(split: int, S: int, Sp: int, num_splits: int, C: int,
+                 chunk: int) -> List[Tuple[int, int]]:
+    """Slot ranges ``[lo, hi)`` of split ``split``'s live chunks, as the
+    kernel cuts them: the split's slots below ``S``, in order. Chunks
+    ``len(...)``..``C - 1`` hold only padding."""
+    L = Sp // num_splits
+    lo0, end = split * L, min(split * L + L, S)
+    return [(lo, min(lo + chunk, end))
+            for lo in range(lo0, lo0 + C * chunk, chunk) if lo < end]
+
+
+def _arrival_counters(device: torch.device, stream: int, n: int
+                      ) -> torch.Tensor:
+    key = (device.index, stream)
+    cnt = _counters.get(key)
+    if cnt is None or cnt.numel() < n:
+        cnt = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = cnt
+    return cnt
 
 
 def _check_cuda(t: torch.Tensor, what: str) -> None:
@@ -97,14 +155,28 @@ def decode_split(q: torch.Tensor, k_cache: torch.Tensor,
     m = torch.empty((B, KV, num_splits, G), dtype=torch.float32,
                     device=q.device)
     l = torch.empty_like(m)
+    C, chunk = decode_plan(B, KV, S, Sp, num_splits)
+    scratch = (0, 0, 0, 0)
+    stream = _build.stream_of(q)
+    if C > 1:
+        n = B * KV * num_splits
+        o_scr = torch.empty(n * C * G * hd, dtype=torch.float32,
+                            device=q.device)
+        ml_scr = torch.empty(2 * n * C * G, dtype=torch.float32,
+                             device=q.device)
+        cnt = _arrival_counters(q.device, stream.value, n)
+        scratch = (o_scr.data_ptr(), ml_scr.data_ptr(),
+                   ml_scr.data_ptr() + 4 * n * C * G, cnt.data_ptr())
     lib = _build.lib()
     with torch.cuda.device(q.device):
         code = getattr(lib, _SPLIT[q.dtype])(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             bias.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-            B, S, Sp, KV, G, hd, block_kv, num_splits, _build.stream_of(q))
+            *scratch, B, S, Sp, KV, G, hd, block_kv, num_splits, C, chunk,
+            stream)
     _build.check(code, f"decode_split B={B} S={S} Sp={Sp} KV={KV} G={G} "
-                       f"hd={hd} block_kv={block_kv} splits={num_splits}")
+                       f"hd={hd} block_kv={block_kv} splits={num_splits} "
+                       f"chunks {C} x {chunk}")
     split_launches += 1
     return o, m, l
 

@@ -81,16 +81,21 @@ def flash_config_space(S: int = 4096) -> SearchSpace:
     return SearchSpace(params, cons, name="cuda_flash")
 
 
-def flash_valid(cfg: Dict, hd: int = 128) -> bool:
+def flash_valid(cfg: Dict, hd: int, dtype: torch.dtype) -> bool:
     """Hopper resource model of one flash block: a head dim the kernel is
-    built for, blocks in whole 64-row sub-tiles, and the q sub-tile, one
-    staged K/V chunk and the 64 x block_kv score tile within 227 KB of
-    shared memory (at hd 256: block_kv 128 and 256 fit, 512 does not).
-    ``block_q`` sets the grid only; the kernel streams it."""
+    built for, blocks in whole 64-row sub-tiles, and the block's shared
+    memory within 227 KB. bf16: the q sub-tile and the ring of
+    max(2, min(8, block_kv / 64)) K/V stages (at hd 256 only block_kv 128
+    fits the reference's grid: 2 stages and 128 query rows take 193 KB).
+    Registers bind one block of at most two warpgroups to an SM: 128 fp32
+    accumulators a thread at hd 256, 256 threads within the SM's 65,536.
+    fp32: the q sub-tile, one staged K/V chunk and the 64 x block_kv score
+    tile (at hd 256: block_kv 128 and 256 fit, 512 does not). ``block_q``
+    sets the grid only; the kernels stream it."""
     bq, bkv = cfg["block_q"], cfg["block_kv"]
     return (hd in _fa.HEAD_DIMS and bq % _fa.SUB_TILE == 0
             and bkv % _fa.SUB_TILE == 0
-            and _fa.flash_smem_bytes(bkv, hd) <= SMEM_PER_BLOCK)
+            and _fa.flash_smem_bytes(bq, bkv, hd, dtype) <= SMEM_PER_BLOCK)
 
 
 # -- flash decode (single-token cache attention) --------------------------
@@ -117,17 +122,14 @@ def decode_bias(cache_pos, cur_pos, window, tile: int):
     """The (B, Sp) fp32 validity bias of a cache: 0 where a slot holds a
     position in ``(cur_pos - window, cur_pos]``, -inf where it is empty,
     in the future or evicted, and -inf padding up to a multiple of
-    ``tile``."""
+    ``tile`` (a padding slot is an empty one)."""
+    pad = (-cache_pos.shape[1]) % tile
+    if pad:
+        cache_pos = torch.nn.functional.pad(cache_pos, (0, pad), value=-1)
     valid = (cache_pos >= 0) & (cache_pos <= cur_pos[:, None])
     if window is not None:
         valid &= cache_pos > cur_pos[:, None] - window
-    bias = torch.zeros(valid.shape, dtype=torch.float32,
-                       device=cache_pos.device)
-    bias.masked_fill_(~valid, -math.inf)
-    pad = (-valid.shape[1]) % tile
-    if pad:
-        bias = torch.nn.functional.pad(bias, (0, pad), value=-math.inf)
-    return bias
+    return torch.where(valid, 0.0, -math.inf).to(torch.float32)
 
 
 def decode_config_space(S: int = 2048) -> SearchSpace:
@@ -144,12 +146,14 @@ def decode_config_space(S: int = 2048) -> SearchSpace:
 
 def decode_valid(cfg: Dict, G: int = 1, hd: int = 128) -> bool:
     """Hopper resource model of one split block: a head dim the kernel is
-    built for, at most 8 query heads per KV head (the rows one block holds
-    in registers), and its shared memory within 227 KB (under 48 KB for the
-    whole grid at G <= 8)."""
+    built for, at most 8 query heads per KV head (the rows one block
+    holds), and its shared memory (the K/V ring of 64-slot tiles, q and the
+    score tile) within 227 KB in fp32 and bf16: at most 158 KB, for every
+    ``block_kv``, which sets the splits' length and not the block's
+    tile."""
     return (hd in _fd.HEAD_DIMS and 1 <= G <= _fd.MAX_GROUP
-            and _fd.decode_smem_bytes(cfg["block_kv"], G, hd)
-            <= SMEM_PER_BLOCK)
+            and all(_fd.decode_smem_bytes(G, hd, b) <= SMEM_PER_BLOCK
+                    for b in (2, 4)))
 
 
 # -- Matérn GP posterior ---------------------------------------------------

@@ -141,7 +141,7 @@ def flash_cell(B: int = 1, S: int = 1024, H: int = 4, hd: int = 64,
     """Causal prefill attention at one shape. ``KV`` (default H) is the
     number of KV heads the kernel reads; the shape key is the reference's, plus
     ``_KV{KV}`` when KV < H. The default {128, 128} fits every head dim the
-    kernel takes (the reference's 512 / 512 needs 256 KB at hd 256)."""
+    kernel takes (the reference's 512 / 512 needs 590 KB at hd 256)."""
     dev = resolve_device(device)
     KV = H if KV is None else KV
     rng = np.random.default_rng(seed)
@@ -156,7 +156,7 @@ def flash_cell(B: int = 1, S: int = 1024, H: int = 4, hd: int = 64,
 
     def valid(cfg):
         aligned = S % cfg["block_q"] == 0 and S % cfg["block_kv"] == 0
-        return aligned and ops.flash_valid(cfg, hd)
+        return aligned and ops.flash_valid(cfg, hd, dtype)
 
     sig = f"B{B}_S{S}_H{H}_hd{hd}" + (f"_KV{KV}" if KV != H else "")
     return KernelCell(
@@ -392,10 +392,11 @@ def tuned_gp_block_n(store, N: Optional[int] = None, T: Optional[int] = None,
     return bn
 
 
-def kernel_config_from_store(store, *, S: int, hd: int,
+def kernel_config_from_store(store, *, S: int, hd: int, dtype: torch.dtype,
                              device: Optional[str] = None, base=None):
     """A ``KernelConfig`` with the best stored flash (prefill) blocks for a
-    server's prompt length ``S`` and head dim ``hd``, overlaid on ``base``.
+    server's prompt length ``S``, head dim ``hd`` and activation ``dtype``,
+    overlaid on ``base``.
     None when the store has no record whose blocks tile ``S`` and pass the
     resource model on this device (the caller keeps its defaults)."""
     from repro_torch.parallel.sharding import KernelConfig
@@ -405,7 +406,7 @@ def kernel_config_from_store(store, *, S: int, hd: int,
     bq, bkv = int(hit[0]["block_q"]), int(hit[0]["block_kv"])
     if S % bq or S % bkv:
         return None             # tuned blocks don't tile this server's S
-    if not ops.flash_valid({"block_q": bq, "block_kv": bkv}, hd):
+    if not ops.flash_valid({"block_q": bq, "block_kv": bkv}, hd, dtype):
         return None
     base = base if base is not None else KernelConfig()
     return base.replace(use_flash=True, flash_block_q=bq, flash_block_kv=bkv)

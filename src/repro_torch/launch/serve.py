@@ -36,7 +36,7 @@ from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import flash_decode as kfd
 from repro_torch.kernels import ops, tuning
 from repro_torch.models import layers as L
-from repro_torch.models.params import init_params
+from repro_torch.models.params import DTYPES, init_params
 from repro_torch.models.stepfn import make_decode_step, make_prefill_step
 from repro_torch.parallel.sharding import KernelConfig, ParallelConfig
 
@@ -178,11 +178,13 @@ def serving_kernel_config(cfg, *, device: torch.device, prompt_len: int,
     blocks."""
     hd = cfg.resolved_head_dim
     G = cfg.num_heads // cfg.num_kv_heads
+    dtype = DTYPES[cfg.dtype]
     kc = KernelConfig(use_flash=True, use_decode=True)
     if store:
         kind = tuning.device_kind(device)
         hit = tuning.kernel_config_from_store(store, S=prompt_len, hd=hd,
-                                              device=kind, base=kc)
+                                              dtype=dtype, device=kind,
+                                              base=kc)
         if hit is None:
             log("[serve] no usable flash (prefill) kernel record in store — "
                 f"default blocks ({kc.flash_block_q}, {kc.flash_block_kv})")
@@ -215,9 +217,9 @@ def serving_kernel_config(cfg, *, device: torch.device, prompt_len: int,
         log(f"[serve] flash blocks ({kc.flash_block_q}, {kc.flash_block_kv})"
             f" do not tile a prompt of {prompt_len}: ({bq}, {bkv})")
         kc = kc.replace(flash_block_q=bq, flash_block_kv=bkv)
-    if not ops.flash_valid({"block_q": bq, "block_kv": bkv}, hd):
+    if not ops.flash_valid({"block_q": bq, "block_kv": bkv}, hd, dtype):
         raise ValueError(f"the flash kernel does not take hd={hd} with "
-                         f"blocks ({bq}, {bkv})")
+                         f"blocks ({bq}, {bkv}) in {dtype}")
     if not ops.decode_valid({"block_kv": kc.decode_block_kv}, G, hd):
         raise ValueError(f"the decode kernel does not take hd={hd}, G={G}")
     return kc

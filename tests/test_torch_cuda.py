@@ -127,14 +127,23 @@ def _check(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,KV,hd,bq,bkv", [
     (1, 256, 4, 2, 64, 128, 64),          # small, block_q != block_kv
-    (4, 1024, 8, 1, 256, 128, 256),       # gemma-2b prefill: MQA, hd 256
+    (4, 1024, 8, 1, 256, 128, 256),       # fp32 only: bf16 is refused
+    (4, 1024, 8, 1, 256, 128, 128),       # gemma-2b prefill: MQA, hd 256
+    (4, 1024, 8, 1, 256, 256, 128),       # two sub-tiles a block, 2 updates
+    (2, 192, 4, 2, 128, 64, 64),          # one warpgroup, S 192
+    (1, 512, 4, 1, 64, 128, 512),         # 8 updates of 64 keys, 8 stages
 ])
 def test_flash_kernel_matches_plain(card, dtype, B, S, H, KV, hd, bq, bkv):
     rng = np.random.default_rng(1)
     q = torch.from_numpy(rng.normal(size=(B, S, H, hd))).to(card, dtype)
     k, v = (torch.from_numpy(rng.normal(size=(B, S, KV, hd))).to(card, dtype)
             for _ in range(2))
-    assert ops.flash_valid({"block_q": bq, "block_kv": bkv}, hd)
+    if not ops.flash_valid({"block_q": bq, "block_kv": bkv}, hd, dtype):
+        # the bf16 ring of 4 stages at hd 256; fp32 runs it on the CUDA cores
+        assert dtype == torch.bfloat16 and (hd, bkv) == (256, 256)
+        with pytest.raises(_build.LaunchRefused):
+            kfa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+        return
     kfa.launches = 0
     got = kfa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
     want = ref.attention(q, k, v)
@@ -144,13 +153,15 @@ def test_flash_kernel_matches_plain(card, dtype, B, S, H, KV, hd, bq, bkv):
 
 
 def test_flash_refused_config_raises_launch_refused(card):
-    """block_kv 512 at hd 256 needs 256 KB of shared memory: the resource
-    model marks it invalid and the card refuses it."""
-    assert not ops.flash_valid({"block_q": 128, "block_kv": 512}, 256)
+    """bf16 block_kv 256 at hd 256 is a ring of 4 stages of 64 keys, 321
+    KB of shared memory with the 128-row q sub-tile: the resource model
+    marks it invalid and the card refuses it."""
+    assert not ops.flash_valid({"block_q": 128, "block_kv": 256}, 256,
+                               torch.bfloat16)
     q = torch.zeros((1, 512, 1, 256), device=card, dtype=torch.bfloat16)
     kfa.launches = 0
     with pytest.raises(_build.LaunchRefused):
-        kfa.flash_attention(q, q, q, block_q=128, block_kv=512)
+        kfa.flash_attention(q, q, q, block_q=128, block_kv=256)
     assert kfa.launches == 0
     torch.cuda.synchronize()
 
@@ -159,6 +170,9 @@ def test_flash_refused_config_raises_launch_refused(card):
 @pytest.mark.parametrize("B,S,H,KV,hd,cur,bkv,ns", [
     (2, 200, 4, 2, 64, 97, 64, 4),        # small, capacity does not tile
     (4, 1088, 8, 1, 256, 1054, 256, 4),   # gemma-2b decode at 64 steps
+    (4, 1088, 8, 1, 256, 1054, 128, 8),   # splits 5..7 hold only padding
+    (1, 1088, 8, 1, 256, 1054, 1024, 1),  # B 1: one split of 17 chunks
+    (2, 1024, 8, 1, 128, 5, 128, 2),      # mostly empty: masked chunks
 ])
 def test_decode_kernels_match_plain(card, dtype, B, S, H, KV, hd, cur, bkv,
                                     ns):
@@ -182,6 +196,18 @@ def test_decode_kernels_match_plain(card, dtype, B, S, H, KV, hd, cur, bkv,
                                   num_splits=ns)
     torch.testing.assert_close(km, m, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(kl, l, rtol=1e-3, atol=1e-4)
+    empty = torch.isinf(m)                 # no valid slot, padding included
+    assert torch.all(km[empty] == -float("inf"))
+    assert torch.all(kl[empty] == 0) and torch.all(ko[empty] == 0)
+    Sp = bias.shape[1]
+    C, chunk = kfd.decode_plan(B, KV, S, Sp, ns)
+    n = B * KV * ns
+    if -(-min(Sp // ns, S) // kfd.TILE) * n >= kfd.FILL_BLOCKS:
+        assert n * C >= kfd.FILL_BLOCKS
+    # the arrival counters are reset: a second launch gives the same
+    ko2, km2, kl2 = kfd.decode_split(q[:, 0], k, v, bias, block_kv=bkv,
+                                     num_splits=ns)
+    assert torch.equal(km2, km) and torch.equal(kl2, kl)
 
 
 def test_decode_server_on_the_card_launches_the_kernels(card):

@@ -67,19 +67,41 @@ def test_flash_attention_rejects_what_the_kernel_cannot_tile():
 
 
 def test_flash_resource_model_agrees_with_the_kernel_shared_memory():
-    # hd 256: the 64 x block_kv fp32 score tile plus q and one K/V chunk
-    assert ops.flash_valid({"block_q": 128, "block_kv": 128}, 256)
-    assert ops.flash_valid({"block_q": 1024, "block_kv": 256}, 256)
-    assert not ops.flash_valid({"block_q": 128, "block_kv": 512}, 256)
-    assert kfa.flash_smem_bytes(512, 256) > SMEM_PER_BLOCK
-    assert ops.flash_valid({"block_q": 128, "block_kv": 512}, 128)
-    assert not ops.flash_valid({"block_q": 128, "block_kv": 1024}, 128)
-    assert not ops.flash_valid({"block_q": 128, "block_kv": 128}, 16)  # hd
-    assert not ops.flash_valid({"block_q": 96, "block_kv": 128}, 64)   # tile
+    # bf16 at hd 256: the 128-row q sub-tile and a ring of block_kv / 64
+    # stages of 64 keys (2 at least); fp32: the 64 x block_kv score tile
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert ops.flash_valid({"block_q": 128, "block_kv": 128}, 256, bf16)
+    assert not ops.flash_valid({"block_q": 1024, "block_kv": 256}, 256, bf16)
+    assert ops.flash_valid({"block_q": 1024, "block_kv": 256}, 256, f32)
+    assert not ops.flash_valid({"block_q": 128, "block_kv": 512}, 256, bf16)
+    assert not ops.flash_valid({"block_q": 128, "block_kv": 512}, 256, f32)
+    assert kfa.flash_smem_bytes(128, 512, 256, bf16) > SMEM_PER_BLOCK
+    assert kfa.flash_smem_bytes(128, 128, 256, bf16) == (
+        1024 + 128 * 256 * 2 + 2 * 2 * 64 * 256 * 2)
+    assert kfa.flash_smem_bytes(128, 256, 256, f32) == 4 * (
+        256 * 64 + 64 * 256 + 64 * 256 + 3 * 64)
+    # one warpgroup (block_q not a multiple of 128) leaves room for a third
+    # stage at hd 256
+    assert ops.flash_valid({"block_q": 64, "block_kv": 192}, 256, bf16)
+    assert not ops.flash_valid({"block_q": 128, "block_kv": 192}, 256, bf16)
+    assert ops.flash_valid({"block_q": 128, "block_kv": 256}, 128, bf16)
+    assert not ops.flash_valid({"block_q": 128, "block_kv": 512}, 128, bf16)
+    assert ops.flash_valid({"block_q": 128, "block_kv": 512}, 128, f32)
+    assert not ops.flash_valid({"block_q": 128, "block_kv": 1024}, 128, f32)
+    assert ops.flash_valid({"block_q": 128, "block_kv": 1024}, 64,
+                           bf16)                                # 8 stages
+    assert not ops.flash_valid({"block_q": 128, "block_kv": 1024}, 64, f32)
+    assert not ops.flash_valid({"block_q": 128, "block_kv": 128}, 16,
+                               bf16)                            # hd
+    assert not ops.flash_valid({"block_q": 96, "block_kv": 128}, 64,
+                               bf16)                            # tile
     space = ops.flash_config_space(1024)
-    n_valid = sum(ops.flash_valid(space.config(i), 256)
+    n_valid = sum(ops.flash_valid(space.config(i), 256, bf16)
                   for i in range(space.size))
-    assert space.size == 16 and n_valid == 8      # block_kv in {128, 256}
+    n_valid32 = sum(ops.flash_valid(space.config(i), 256, f32)
+                    for i in range(space.size))
+    assert space.size == 16 and n_valid == 4      # block_kv 128
+    assert n_valid32 == 8                         # block_kv in {128, 256}
 
 
 # -- flash decode ----------------------------------------------------------------
@@ -202,16 +224,131 @@ def test_plain_split_partials_fold_to_the_decode_reference():
     np.testing.assert_allclose(folded.numpy(), want, **TOL)
 
 
+def test_serving_config_checks_flash_blocks_in_the_model_dtype(monkeypatch):
+    """A stored flash record of (128, 256) at gemma-2b's hd 256 runs on the
+    fp32 CUDA-core kernel and not on the bf16 tensor-core kernel: the
+    store resolver and the server hold it against the model's dtype."""
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    flash = {"block_q": 128, "block_kv": 256}
+    monkeypatch.setattr(tuning, "best_kernel_config",
+                        lambda store, kernel, *a: (
+                            (flash, 1.0) if kernel == "flash" else None))
+    monkeypatch.setattr(tuning, "device_kind", lambda device=None: "card")
+    assert tuning.kernel_config_from_store(
+        "store", S=1024, hd=256, dtype=torch.bfloat16) is None
+    kc = tuning.kernel_config_from_store("store", S=1024, hd=256,
+                                         dtype=torch.float32)
+    assert (kc.flash_block_q, kc.flash_block_kv) == (128, 256)
+    cfg = get_arch("gemma-2b")
+    quiet = dict(device=torch.device("cuda"), prompt_len=1024,
+                 cache_cap=1088, store="store", log=lambda *a: None)
+    kc = serve.serving_kernel_config(cfg, **quiet)
+    assert (kc.flash_block_q, kc.flash_block_kv) == (128, 128)   # default
+    kc = serve.serving_kernel_config(
+        dataclasses.replace(cfg, dtype="float32"), **quiet)
+    assert (kc.flash_block_q, kc.flash_block_kv) == (128, 256)
+
+
 def test_decode_resource_model():
+    # the block's tile is 64 slots whatever block_kv is: every block_kv of
+    # the grid fits at G <= 8, in both dtypes (fp32 at hd 256: one stage)
     for bkv in (128, 256, 512, 1024):
         assert ops.decode_valid({"block_kv": bkv}, 8, 256)
-        assert kfd.decode_smem_bytes(bkv, 8, 256) <= 48 * 1024
+    assert kfd.decode_stages(256, 2) == 2 and kfd.decode_stages(256, 4) == 1
+    assert kfd.decode_smem_bytes(8, 256, 2) <= SMEM_PER_BLOCK
+    assert kfd.decode_smem_bytes(8, 256, 4) <= SMEM_PER_BLOCK
+    assert kfd.decode_smem_bytes(8, 128, 4) > kfd.decode_smem_bytes(8, 128, 2)
     assert not ops.decode_valid({"block_kv": 512}, 16, 256)   # G > 8
     assert not ops.decode_valid({"block_kv": 512}, 8, 16)     # head dim
     # splits that overhang a 1,088-slot cache are constrained out:
     # (block_kv, splits) in 128 x {1,2,4,8}, 256 x {1,2,4}, 512 x {1,2},
     # 1024 x {1,2}, times two combines
     assert ops.decode_config_space(1088).size == 22
+
+
+@pytest.mark.parametrize("B,KV,S,block_kv,num_splits", [
+    (4, 1, 1088, 128, 8),     # gemma-2b decode: splits 5..7 padding only
+    (1, 1, 1088, 128, 1),     # B 1: one split, the most chunks
+    (4, 1, 1088, 256, 2),
+    (2, 2, 200, 64, 4),       # capacity does not tile
+    (1, 4, 1000, 16, 8),
+    (64, 8, 4096, 512, 8),    # a grid already over 132 blocks: one chunk
+])
+def test_decode_plan_tiles_each_split(B, KV, S, block_kv, num_splits):
+    Sp = -(-S // (num_splits * block_kv)) * num_splits * block_kv
+    C, chunk = kfd.decode_plan(B, KV, S, Sp, num_splits)
+    assert C >= 1 and chunk % kfd.TILE == 0
+    L = Sp // num_splits
+    for s in range(num_splits):
+        ranges = kfd.chunk_ranges(s, S, Sp, num_splits, C, chunk)
+        assert len(ranges) <= C
+        want = list(range(s * L, min(s * L + L, S)))
+        assert [j for lo, hi in ranges for j in range(lo, hi)] == want
+        assert all(s * L <= lo < hi <= s * L + L and hi - lo <= chunk
+                   for lo, hi in ranges)
+    tiles = -(-min(L, S) // kfd.TILE)
+    if tiles >= -(-kfd.FILL_BLOCKS // (B * KV * num_splits)):
+        assert B * KV * num_splits * C >= kfd.FILL_BLOCKS
+    else:
+        assert C == tiles                          # capped by the tiles
+
+
+def _fold_chunks(o, m, l):
+    """The split kernel's fold of one split's chunk partials (o (C,G,hd),
+    m and l (C,G)), copied from csrc/flash_decode.cu: the combine's weights
+    exp(m_i - max m), 0 where m_i = -inf, without the normalisation."""
+    mt = m.amax(dim=0)
+    ms = torch.where(torch.isfinite(mt), mt, torch.zeros_like(mt))
+    w = torch.where(torch.isfinite(m), torch.exp(m - ms),
+                    torch.zeros_like(m))
+    return (w[..., None] * o).sum(0), mt, (w * l).sum(0)
+
+
+@pytest.mark.parametrize("S,cur,block_kv,num_splits", [
+    (1088, 1054, 128, 8),      # the serving cache: 5 live splits of 4 chunks
+    (1088, 1054, 1024, 1),     # one split of 17 chunks
+    (1024, 5, 128, 2),         # mostly empty: all-masked chunks
+    (200, 97, 64, 4),          # capacity does not tile
+])
+def test_split_partials_fold_from_chunks(S, cur, block_kv, num_splits):
+    B, H, KV, hd = 2, 4, 2, 16
+    q, k, v, cp, cu = _decode_case(B, S, H, KV, hd, cur)
+    Sp = -(-S // (num_splits * block_kv)) * num_splits * block_kv
+    bias = ops.decode_bias(torch.from_numpy(cp), torch.from_numpy(cu), None,
+                           num_splits * block_kv)
+    assert bias.shape == (B, Sp)
+    args = (torch.from_numpy(q[:, 0]), torch.from_numpy(k),
+            torch.from_numpy(v))
+    o_r, m_r, l_r = ref.decode_split(*args, bias, num_splits)
+    C, chunk = kfd.decode_plan(B, KV, S, Sp, num_splits)
+    L = Sp // num_splits
+    n_empty = 0
+    for s in range(num_splits):
+        ranges = kfd.chunk_ranges(s, S, Sp, num_splits, C, chunk)
+        if not ranges:                   # padding only: the empty result
+            assert torch.all(torch.isinf(m_r[:, :, s]))
+            assert torch.all(l_r[:, :, s] == 0) and torch.all(o_r[:, :, s] == 0)
+            continue
+        parts = []
+        for lo, hi in ranges:            # the chunk alone: the rest masked
+            cb = torch.full_like(bias, -math.inf)
+            cb[:, lo:hi] = bias[:, lo:hi]
+            parts.append([t[:, :, s] for t in
+                          ref.decode_split(*args, cb, num_splits)])
+            n_empty += int(torch.isinf(parts[-1][1]).all())
+        o_c, m_c, l_c = (torch.stack(x, 0) for x in zip(*parts))
+        for b in range(B):
+            for kv in range(KV):
+                o_f, m_f, l_f = _fold_chunks(o_c[:, b, kv], m_c[:, b, kv],
+                                             l_c[:, b, kv])
+                torch.testing.assert_close(m_f, m_r[b, kv, s], rtol=0, atol=0)
+                torch.testing.assert_close(l_f, l_r[b, kv, s], **TOL)
+                torch.testing.assert_close(o_f, o_r[b, kv, s], **TOL)
+    if cur < 10:
+        assert n_empty > 0               # all-masked chunks were folded
+    assert L > 0
 
 
 # -- tuning cells and the serve-side resolvers -----------------------------------
@@ -230,7 +367,8 @@ def test_flash_and_decode_cells_tune_and_resolve_on_cpu(tmp_path):
     assert dres.unique_evals == 4 and math.isfinite(dres.best_value)
 
     fbest = fcell.space.config(fres.best_idx)
-    kc = tuning.kernel_config_from_store(store, S=256, hd=64, device="cpu")
+    kc = tuning.kernel_config_from_store(store, S=256, hd=64,
+                                         dtype=torch.float32, device="cpu")
     assert kc == KernelConfig(use_flash=True,
                               flash_block_q=fbest["block_q"],
                               flash_block_kv=fbest["block_kv"])
@@ -243,6 +381,7 @@ def test_flash_and_decode_cells_tune_and_resolve_on_cpu(tmp_path):
                                      dbest["num_splits"], dbest["combine"])
     # a prompt the tuned blocks cannot tile, or a card, resolves nothing
     assert tuning.kernel_config_from_store(store, S=100, hd=64,
+                                           dtype=torch.float32,
                                            device="cpu") is None
     assert tuning.decode_kernel_config_from_store(
         store, cache_cap=160, H=4, KV=1, hd=64,
@@ -260,4 +399,12 @@ def test_flash_cell_statically_invalid_configs_are_nan():
     obj = tuning.KernelObjective(cell, reps=1, device="cpu")
     bad = cell.space.index_of({"block_q": 128, "block_kv": 512})
     assert math.isnan(obj(bad))
+    assert cell.valid(cell.default)
+    # bf16 runs the tensor-core kernel: its ring of 4 stages at block_kv
+    # 256 does not fit beside a 128-row q sub-tile at hd 256
+    cell = tuning.flash_cell(1, 1024, 2, 256, dtype=torch.bfloat16,
+                             device="cpu")
+    obj = tuning.KernelObjective(cell, reps=1, device="cpu")
+    assert math.isnan(obj(cell.space.index_of({"block_q": 128,
+                                               "block_kv": 256})))
     assert cell.valid(cell.default)
