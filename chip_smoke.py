@@ -9,8 +9,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      every kernel under src/repro_torch/kernels/csrc, registers per thread
      and spills of every instance;
   2. each CUDA kernel against its plain PyTorch version on the card: GEMM in
-     fp32 and bf16 at 128³, 256x384x512 and 4096³ under several block
-     configs; the Matérn-GP posterior for all four ν at (t,N,d) = (13,512,6),
+     fp32 and bf16 at 128³, 256x384x512 and 4096³ under the block configs
+     the resource model passes, and at 4096³ fp32 against an fp64 product
+     on the card (the kernel's error at most 4x the plain version's); the
+     Matérn-GP posterior for all four ν at (t,N,d) = (13,512,6),
      (37,1024,15) and the paper's panel (220,18432,15) padded to T = 256;
      flash attention in fp32 (CUDA cores) and bf16 (tensor cores) at small
      shapes, S 192, and gemma-2b's prefill (B 4, S 1,024, H 8, KV 1, hd
@@ -41,7 +43,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      an extra decode run of 8 steps;
   6. yardsticks at the blocks phases 4 and 8 ran: kernel, plain-version
      and library times (CUDA events around one call) beside each kernel's
-     bound;
+     bound (GEMM and GP: on the path the kernel takes, the tensor cores,
+     and on the CUDA cores), and the bf16 GEMM beside torch.matmul;
   9. torch.profiler, last (a profiler session leaves host overhead behind
      it): the device's busy share over a prefill and over 4 decode steps of
      the phase-8 server, the kernels that took its time, and each phase-6
@@ -69,8 +72,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 GEMM_SHAPES = ((128, 128, 128), (256, 384, 512), (4096, 4096, 4096))
 GEMM_BLOCKS = ((64, 64, 64), (128, 128, 64), (64, 128, 128), (128, 64, 256),
-               (128, 128, 128))
-GP_SHAPES = ((13, 512, 6), (37, 1024, 15), (220, 18432, 15))
+               (128, 128, 128),
+               # next to the reference's 256³ default, where the resource
+               # model passes them (1 to 4 ring stages)
+               (256, 128, 64), (128, 256, 64), (256, 128, 128),
+               (128, 256, 128), (256, 64, 64), (64, 256, 64))
+# the last pads T to 1024: 513 to 1024 observations, from a budget over
+# 512 or warm-start priors. Its observations are distinct candidates, as a
+# BO run makes them; the others are drawn with repeats
+GP_T1024 = (600, 2048, 15)
+GP_SHAPES = ((13, 512, 6), (37, 1024, 15), (220, 18432, 15), GP_T1024)
 MAIN_GEMM = (4096, 4096, 4096)
 MAIN_GP = (220, 18432, 15)          # 17,956 candidates padded to a tile multiple
 MAIN_T = 256
@@ -141,23 +152,28 @@ def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def gp_state(t: int, N: int, d: int, nu: str, seed: int = 5):
+def gp_state(t: int, N: int, d: int, nu: str, seed: int = 5,
+             distinct: bool = False):
     """A real IncrementalGP state: t observations drawn from an N-candidate
-    panel of dimension d, and the panel (fp32)."""
+    panel of dimension d (distinct candidates when ``distinct``, with
+    repeats otherwise), and the panel (fp32)."""
     import numpy as np
     from repro_torch.core.gp_fast import IncrementalGP
     rng = np.random.default_rng(seed)
     Xc = rng.random((N, d)).astype(np.float32)
     g = IncrementalGP(Xc, max_obs=t, kernel=nu, ell=2.0)
-    for _ in range(t):
-        g.add(Xc[rng.integers(N)], float(rng.normal(10, 3)))
+    pick = rng.permutation(N)[:t] if distinct else None
+    for s in range(t):
+        i = pick[s] if distinct else rng.integers(N)
+        g.add(Xc[i], float(rng.normal(10, 3)))
     return g, Xc
 
 
-def gp_problem(t: int, N: int, d: int, nu: str, T=None):
+def gp_problem(t: int, N: int, d: int, nu: str, T=None,
+               distinct: bool = False):
     """Padded kernel inputs (numpy) of ``gp_state``'s GP."""
     from repro_torch.kernels import ops
-    g, Xc = gp_state(t, N, d, nu)
+    g, Xc = gp_state(t, N, d, nu, distinct=distinct)
     return (Xc,) + ops.gp_inputs_from_incremental(g, pad_T=T)[:4]
 
 
@@ -165,9 +181,13 @@ def gp_problem(t: int, N: int, d: int, nu: str, T=None):
 
 
 def check_gemm(dev) -> dict:
+    """Every GEMM block the resource model passes against the plain
+    version, in fp32 (rtol 1e-4, atol 1e-3) and bf16 (3e-2); at 4096³ fp32
+    both against an fp64 product on the card too: the kernel's max|err|
+    may be at most 4x the plain version's (3xTF32 keeps fp32 accuracy)."""
     import numpy as np
     import torch
-    from repro_torch.kernels import gemm as kg, ops, ref
+    from repro_torch.kernels import _build, gemm as kg, ops, ref
     worst = {}
     for (M, N, K) in GEMM_SHAPES:
         rng = np.random.default_rng(0)
@@ -177,12 +197,27 @@ def check_gemm(dev) -> dict:
                            (torch.bfloat16, (3e-2, 3e-2))):
             a, b = a64.to(dev, dtype), b64.to(dev, dtype)
             want = ref.gemm(a, b).float()
+            exact = plain_err = None
+            if (M, N, K) == MAIN_GEMM and dtype == torch.float32:
+                # fp64 product of the fp32 inputs, used only to check
+                exact = torch.matmul(a.double(), b.double())
+                plain_err = float((want.double() - exact).abs().max())
             dtype_bytes = a.element_size()
             for bm, bn, bk in GEMM_BLOCKS:
                 cfg = {"block_m": bm, "block_n": bn, "block_k": bk}
-                if M % bm or N % bn or K % bk or not ops.gemm_valid(
-                        cfg, dtype_bytes):
+                if M % bm or N % bn or K % bk:
                     continue
+                if not ops.gemm_valid(cfg, dtype_bytes):
+                    # the model's static invalid: the card refuses it too
+                    try:
+                        kg.gemm(a, b, block_m=bm, block_n=bn, block_k=bk)
+                    except _build.LaunchRefused as e:
+                        log(f"  gemm {M}x{N}x{K} {str(dtype)[6:]:8s} blocks "
+                            f"({bm},{bn},{bk}): refused as the model says "
+                            f"({_build.error_string(e.code)})")
+                        continue
+                    fail(f"gemm {M}x{N}x{K} {dtype} ({bm},{bn},{bk}) ran, "
+                         "but the resource model calls it invalid")
                 got = kg.gemm(a, b, block_m=bm, block_n=bn,
                               block_k=bk).float()
                 torch.cuda.synchronize()
@@ -190,31 +225,52 @@ def check_gemm(dev) -> dict:
                 rtol, atol = tol
                 bad = int((err > atol + rtol * want.abs()).sum())
                 mx = float(err.max())
+                stages = kg.gemm_stages(bm, bn, bk, dtype_bytes)
                 log(f"  gemm {M}x{N}x{K} {str(dtype)[6:]:8s} blocks "
-                    f"({bm},{bn},{bk}): max|err| {mx:.3e} (rtol {rtol}, "
-                    f"atol {atol}) -> {'ok' if bad == 0 else f'{bad} BAD'}")
+                    f"({bm},{bn},{bk}), {stages} stages: max|err| {mx:.3e} "
+                    f"(rtol {rtol}, atol {atol}) -> "
+                    f"{'ok' if bad == 0 else f'{bad} BAD'}")
                 if bad:
                     fail(f"gemm {M}x{N}x{K} {dtype} ({bm},{bn},{bk}) "
                          f"disagrees with its plain version in {bad} entries")
-                if (M, N, K) == MAIN_GEMM and dtype == torch.float32:
+                if exact is not None:
+                    k_err = float((got.double() - exact).abs().max())
+                    log(f"    against fp64: kernel max|err| {k_err:.3e}, "
+                        f"plain {plain_err:.3e} ({k_err / plain_err:.2f}x; "
+                        "limit 4x)")
+                    if k_err > 4 * plain_err:
+                        fail(f"gemm {M}x{N}x{K} fp32 ({bm},{bn},{bk}) is "
+                             f"{k_err / plain_err:.2f}x the plain version's "
+                             "error against fp64, over 4x")
                     worst["gemm"] = max(worst.get("gemm", 0.0), mx)
+            del exact
     return worst
 
 
 def check_gp(dev) -> dict:
+    """Every GP shape against its plain version: var within 1e-4 +
+    3e-3|var|, mean within 3% of its range. Both means against the plain
+    version run in float64 on the same inputs too (printed; the kernel's
+    must be within 3% of the range there as well): where observations
+    repeat, L^-1 grows large and the fp32 versions lose digits, and this
+    shows which lost more."""
     import torch
     from repro_torch.kernels import matern_gp as kgp, ref
     worst = {}
     for (t, N, d) in GP_SHAPES:
         T = MAIN_T if (t, N, d) == MAIN_GP else None
         for nu in ("matern12", "matern32", "matern52", "rbf"):
-            Xc, x_obs, vinv, w, mask = gp_problem(t, N, d, nu, T)
+            Xc, x_obs, vinv, w, mask = gp_problem(
+                t, N, d, nu, T, distinct=(t, N, d) == GP_T1024)
             args = [torch.from_numpy(x).to(dev)
                     for x in (Xc, x_obs, vinv, w, mask)]
             mean_k, var_k = kgp.gp_posterior(*args, ell=2.0, nu=nu,
                                               block_n=256)
             mean_r, var_r = ref.gp_posterior(*args[:4], 2.0, nu,
                                              mask=args[4])
+            # used only to check
+            mean_x, _ = ref.gp_posterior(*(a.double() for a in args[:4]),
+                                         2.0, nu, mask=args[4].double())
             torch.cuda.synchronize()
             # variance is well conditioned: tight; the mean is amplified by
             # ||L^-1||*||w||, so it is bounded by a share of its range
@@ -227,12 +283,20 @@ def check_gp(dev) -> dict:
             log(f"  gp t={t} N={N} d={d} T={x_obs.shape[0]} {nu}: "
                 f"max|dvar| {v_err:.3e}, max|dmean| {m_err:.3e} "
                 f"({m_err / m_rng:.2e} of range) -> {'ok' if ok else 'BAD'}")
+            x_rng = float(mean_x.max() - mean_x.min()) + 1e-9
+            k_x = float((mean_k.double() - mean_x).abs().max()) / x_rng
+            p_x = float((mean_r.double() - mean_x).abs().max()) / x_rng
+            log(f"    mean against float64: kernel {k_x:.2e}, plain "
+                f"{p_x:.2e} of range")
             if not ok:
                 i = int(torch.argmax((var_k - var_r).abs()))
                 log(f"    worst var at {i}: kernel {float(var_k[i]):.6e}, "
                     f"plain {float(var_r[i]):.6e}")
                 fail(f"gp_posterior t={t} N={N} d={d} {nu} disagrees with "
                      "its plain version")
+            if k_x >= 0.03:
+                fail(f"gp_posterior t={t} N={N} d={d} {nu}: mean "
+                     f"{k_x:.2e} of its range from the float64 answer")
             if (t, N, d) == MAIN_GP:
                 worst["matern_gp"] = max(worst.get("matern_gp", 0.0), m_err,
                                          v_err)
@@ -387,6 +451,21 @@ def check_decode(dev) -> dict:
 
 
 # -- phases 3-6 ------------------------------------------------------------------
+
+
+def gp_bounds(N: int, T: int, d: int, card: str):
+    """Bounds of the GP kernel's work, N*(3*T*d + T^2) flop over the bytes
+    read and written once: all on the CUDA cores, and on the path the
+    kernel takes (the triangular product as 3xTF32 on the tensor cores,
+    plus the distances on the CUDA cores). Each (ms, bound_by)."""
+    from repro_torch.launch.roofline import bound_ms
+    nbytes = 4.0 * (N * d + T * d + T * T + 2 * T + 2 * N)
+    cores = bound_ms(N * (3.0 * T * d + T * T), nbytes, card)
+    ops_ms = (bound_ms(float(N) * T * T, 0, card, "tf32x3")[0]
+              + bound_ms(3.0 * N * T * d, 0, card)[0])
+    bytes_ms = bound_ms(0, nbytes, card)[0]
+    return cores, (max(ops_ms, bytes_ms),
+                   "operations" if ops_ms >= bytes_ms else "bytes")
 
 
 def evals_to_best(result) -> int:
@@ -743,9 +822,12 @@ def main() -> int:
     lib = _build.lib()
     log(f"[1] build: {_build.build_seconds:.1f} s")
     regs, local = ctypes.c_int(), ctypes.c_int()
-    attrs = [("gemm fp32", lambda: lib.gemm_attrs(0, regs, local)),
-             ("gemm bf16", lambda: lib.gemm_attrs(1, regs, local)),
-             ("gp", lambda: lib.gp_attrs(regs, local))]
+    attrs = [("gemm fp32 (3xTF32 mma.sync, cp.async ring)",
+              lambda: lib.gemm_attrs(0, regs, local)),
+             ("gemm bf16 (mma.sync, cp.async ring)",
+              lambda: lib.gemm_attrs(1, regs, local)),
+             ("gp (3xTF32 mma.sync, L^-1 ring)",
+              lambda: lib.gp_attrs(regs, local))]
     for hd in (64, 128, 256):
         attrs.append((f"flash hd{hd} fp32 (CUDA cores)",
                       lambda hd=hd: lib.flash_attention_attrs(0, hd, 1, regs,
@@ -764,7 +846,19 @@ def main() -> int:
     for name, get in attrs:
         _build.check(get(), f"{name} attributes")
         log(f"[1] {name}: {regs.value} registers/thread, "
-            f"{local.value} B local memory")
+            f"{local.value} B local memory"
+            + ("" if local.value == 0 else
+               " (spills or a stack frame: an array indexed at run time or "
+               "a register ceiling; nvcc -Xptxas -v names which)"))
+        if name.startswith("gemm"):
+            db = 4 if "fp32" in name else 2
+            model = ops.GEMM_REGS_PER_THREAD[db]
+            log(f"[1]   resource model: {model} registers/thread")
+            if regs.value != model:
+                fail(f"{name}: the build uses {regs.value} registers a "
+                     f"thread, the resource model {model} "
+                     "(kernels/ops.py GEMM_REGS_PER_THREAD): the tuner's "
+                     "static invalid configs would not be the card's")
 
     # 2. kernel vs plain, on the card
     t0 = time.perf_counter()
@@ -904,21 +998,32 @@ def main() -> int:
     Xc, x_obs, vinv, w, mask = gp_problem(*MAIN_GP, "matern32", MAIN_T)
     gargs = [torch.from_numpy(x).to(dev) for x in (Xc, x_obs, vinv, w, mask)]
     N_, T_, d_ = Xc.shape[0], MAIN_T, Xc.shape[1]
+    gemm_bytes = 4.0 * (M * K + K * N + M * N)
+    cores_ms = bound_ms(2.0 * M * N * K, gemm_bytes, card)[0]
+    gp_cores, gp_path = gp_bounds(N_, T_, d_, card)
+    a16, b16 = a.bfloat16(), b.bfloat16()
     cases = {
-        "gemm": (f"gemm {M}x{N}x{K} fp32 {best_cfg}; library torch.matmul",
+        "gemm": (f"gemm {M}x{N}x{K} fp32 {best_cfg} (3xTF32 on the tensor "
+                 f"cores; bound on the CUDA cores {cores_ms:.6f} ms); "
+                 "library torch.matmul",
                  lambda: kg.gemm(a, b, **best_cfg), lambda: ref.gemm(a, b),
                  lambda: torch.matmul(a, b),
-                 *bound_ms(2.0 * M * N * K, 4.0 * (M * K + K * N + M * N),
-                           card)),
+                 *bound_ms(2.0 * M * N * K, gemm_bytes, card, "tf32x3")),
+        "gemm bf16": (f"gemm {M}x{N}x{K} bf16 {cell.default} (tensor cores)"
+                      "; library torch.matmul",
+                      lambda: kg.gemm(a16, b16, **cell.default),
+                      lambda: ref.gemm(a16, b16),
+                      lambda: torch.matmul(a16, b16),
+                      *bound_ms(2.0 * M * N * K, gemm_bytes / 2, card,
+                                "bfloat16")),
         "matern_gp": (
-            f"gp N={N_} T={T_} d={d_} block_n={best_bn}; library none",
+            f"gp N={N_} T={T_} d={d_} block_n={best_bn} (the product as "
+            f"3xTF32 on the tensor cores; bound on the CUDA cores "
+            f"{gp_cores[0]:.6f} ms); library none",
             lambda: kgp.gp_posterior(*gargs, ell=2.0, nu="matern32",
                                      block_n=best_bn),
             lambda: ref.gp_posterior(*gargs[:4], 2.0, "matern32",
-                                     mask=gargs[4]), None,
-            *bound_ms(N_ * (3.0 * T_ * d_ + T_ * T_),
-                      4.0 * (N_ * d_ + T_ * d_ + T_ * T_ + 2 * T_ + 2 * N_),
-                      card))}
+                                     mask=gargs[4]), None, *gp_path)}
     cases.update(serve_cases(served["kc"], dev, card))
     event = {}
     for name, (label, *fns, bound, by) in cases.items():

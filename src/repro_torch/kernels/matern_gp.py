@@ -3,7 +3,8 @@
 Port of ``repro/kernels/matern_gp.py``. The kernel is ``csrc/matern_gp.cu``
 (its header gives the bound and the design): per candidate, the Matérn
 covariance column against the padded observations, ``V = L⁻¹K`` over the
-lower triangle, then ``mean = Vᵀw`` and ``var = max(1 − ΣV², 1e-12)``, with
+lower triangle (3xTF32 on the tensor cores, L⁻¹ staged in 64x64 tiles),
+then ``mean = Vᵀw`` and ``var = max(1 − ΣV², 1e-12)``, with
 V kept out of device memory. The tunable is ``block_n``, the candidates one
 thread block streams; its resource model is ``kernels.ops.gp_valid``.
 
@@ -26,16 +27,24 @@ launch_ms = 0.0
 
 NU_CODE = {"matern12": 0, "matern32": 1, "matern52": 2, "rbf": 3}
 
-#: Candidates per sub-tile and observation-row granularity of the kernel.
+#: Candidates per sub-panel, and the edge of the L⁻¹ tiles (the kernel's
+#: observation-row granularity).
 TILE = 32
 T_MULTIPLE = 64
-THREADS = 256
+#: Warps along a 64-row panel of V (the cross-warp reduction's depth),
+#: and the slots of the L⁻¹ tile ring.
+WARPS_M = 4
+L_SLOTS = 2
 
 
 def gp_smem_bytes(T: int, d: int) -> int:
-    """Shared memory one block needs (``smem_floats`` in the source)."""
-    return 4 * (T * TILE + T * d + 3 * T + TILE * (d | 1) + TILE
-                + 2 * (THREADS // 32) * TILE)
+    """Shared memory one block needs (``smem_floats`` in the source): the
+    K panel (T rows of 32 candidates, padded to 40), the two-slot ring
+    of 64x64 L⁻¹ tiles (rows padded to 68), three T-vectors, the
+    candidate sub-panel and the cross-warp reduction, fp32. The
+    observations themselves are read through L1, not staged."""
+    return 4 * (T * (TILE + 8) + L_SLOTS * T_MULTIPLE * (T_MULTIPLE + 4)
+                + 3 * T + TILE * (d | 1) + TILE + 2 * WARPS_M * TILE)
 
 
 def gp_posterior(x_cand: torch.Tensor, x_obs: torch.Tensor,

@@ -22,15 +22,24 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import matern_gp as _mgp
-from repro_torch.launch.roofline import (MAX_REGS_PER_THREAD,
-                                         MAX_THREADS_PER_BLOCK, REGS_PER_SM,
+from repro_torch.launch.roofline import (MAX_REGS_PER_THREAD, REGS_PER_SM,
                                          SMEM_PER_BLOCK)
 
-#: Registers per thread the GEMM kernel is modelled with: 64 fp32
-#: accumulators, 16 operand registers and addressing. The build's real
-#: count (``_build.lib().gemm_attrs``) is printed by the chip smoke; a
-#: config the model passes but the card refuses is a runtime invalid.
-GEMM_REGS_PER_THREAD = 128
+#: Registers per thread of the GEMM kernel's builds, by dtype bytes, as
+#: ``_build.lib().gemm_attrs`` reports them (nvcc 12.8, sm_90a): fp32 holds
+#: 64 accumulators, the 64 of a ring stage's partial sum and the split
+#: fragments; bf16 the 64 accumulators and its fragments. Phase 1 of
+#: ``chip_smoke.py`` fails when a build reports another count, so this
+#: model and the card stay in step.
+GEMM_REGS_PER_THREAD = {4: 224, 2: 128}
+
+#: The card allocates a warp's registers in units of 256: 8 a thread.
+REG_ALLOC_UNIT = 8
+
+
+def allocated_regs(regs: int) -> int:
+    """Registers the card sets aside for a thread that uses ``regs``."""
+    return -(-regs // REG_ALLOC_UNIT) * REG_ALLOC_UNIT
 
 
 # -- GEMM ---------------------------------------------------------------
@@ -53,18 +62,22 @@ def gemm_config_space(M: int = 1024, N: int = 1024, K: int = 1024) -> SearchSpac
     return SearchSpace(params, cons, name="cuda_gemm")
 
 
-def gemm_valid(cfg: Dict, dtype_bytes: int = 4,
-               regs_per_thread: int = GEMM_REGS_PER_THREAD) -> bool:
-    """Hopper resource model of one GEMM block: 32..1024 threads, the A and
-    B tiles within 227 KB of shared memory, and the block's registers within
-    the SM's 65,536 (each thread within 255)."""
-    threads = _gemm.gemm_threads(cfg["block_m"], cfg["block_n"])
-    smem = _gemm.gemm_smem_bytes(cfg["block_m"], cfg["block_n"],
-                                 cfg["block_k"], dtype_bytes)
-    return (32 <= threads <= MAX_THREADS_PER_BLOCK
+def gemm_valid(cfg: Dict, dtype_bytes: int = 4) -> bool:
+    """Hopper resource model of one GEMM block: a warp per 64x32 tile of C,
+    32 threads up to the kernel's launch bound (256 in fp32, 512 in bf16);
+    a cp.async ring of at least 2 stages of padded A and B tiles within 227
+    KB of shared memory (fewer than 2 is a static invalid); and the block's
+    registers, as the card allocates them, within the SM's 65,536 (each
+    thread within 255)."""
+    regs = GEMM_REGS_PER_THREAD[dtype_bytes]
+    bm, bn, bk = cfg["block_m"], cfg["block_n"], cfg["block_k"]
+    threads = _gemm.gemm_threads(bm, bn)
+    smem = _gemm.gemm_smem_bytes(bm, bn, bk, dtype_bytes)
+    return (bm % _gemm.WARP_M == 0 and bn % _gemm.WARP_N == 0
+            and 32 <= threads <= _gemm.MAX_THREADS[dtype_bytes]
             and smem <= SMEM_PER_BLOCK
-            and regs_per_thread <= MAX_REGS_PER_THREAD
-            and threads * regs_per_thread <= REGS_PER_SM)
+            and regs <= MAX_REGS_PER_THREAD
+            and threads * allocated_regs(regs) <= REGS_PER_SM)
 
 
 # -- flash attention -----------------------------------------------------
@@ -199,8 +212,9 @@ def gp_config_space(N: int = 16384) -> SearchSpace:
 
 def gp_valid(cfg: Dict, T: int = 256, d: int = 16) -> bool:
     """Hopper resource model of one GP block: ``block_n`` a multiple of the
-    32-candidate sub-tile, T a multiple of the 64-row granularity, and the
-    shared memory for T observations of dimension d (which ``block_n`` does
-    not change: a block streams its candidates) within 227 KB."""
+    32-candidate sub-panel, T a multiple of the 64-row L⁻¹ tile, and the
+    shared memory for T observations of dimension d, the K panel and the
+    L⁻¹ ring (which ``block_n`` does not change: a block streams its
+    candidates) within 227 KB."""
     return (cfg["block_n"] % _mgp.TILE == 0 and T % _mgp.T_MULTIPLE == 0
             and _mgp.gp_smem_bytes(T, d) <= SMEM_PER_BLOCK)

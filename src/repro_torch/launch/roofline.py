@@ -31,6 +31,12 @@ FP32_PEAK_FLOPS = 67e12
 #: time is taken against it, whether or not the kernel uses the tensor cores.
 BF16_TC_PEAK_FLOPS = 989e12
 
+#: TF32 dense peak of the tensor cores, H100 SXM (NVIDIA H100 data sheet:
+#: 495 TFLOP/s without sparsity at the 700 W limit). A product computed as
+#: 3xTF32 (fp32 accuracy from three TF32 products) does three times its
+#: flops at this rate.
+TF32_TC_PEAK_FLOPS = 495e12
+
 #: HBM3 bandwidth, H100 SXM 80 GB (NVIDIA H100 data sheet: 3.35 TB/s).
 HBM_BW = 3.35e12
 
@@ -51,11 +57,14 @@ def peaks_for(card_name: str) -> Tuple[float, float]:
 def bound_ms(flops: float, nbytes: float, card_name: str,
              dtype: str = "float32") -> Tuple[float, str]:
     """Least time (ms) for ``flops`` operations of type ``dtype`` (fp32 on
-    the CUDA cores, or bf16 on the tensor cores) moving ``nbytes`` of device
-    memory on the named card, and which of the two bounds it."""
+    the CUDA cores, bf16 on the tensor cores, or "tf32x3": fp32 products as
+    three TF32 products each on the tensor cores) moving ``nbytes`` of
+    device memory on the named card, and which of the two bounds it."""
     peak_flops, bw = peaks_for(card_name)
     if dtype == "bfloat16":
         peak_flops = BF16_TC_PEAK_FLOPS
+    elif dtype == "tf32x3":
+        peak_flops = TF32_TC_PEAK_FLOPS / 3
     elif dtype != "float32":
         raise ValueError(f"no peak recorded for {dtype!r} operations")
     t_ops, t_bytes = flops / peak_flops, nbytes / bw

@@ -28,12 +28,17 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _gp_inputs(t, N, d, nu, device, seed=5):
+def _gp_inputs(t, N, d, nu, device, seed=5, distinct=False):
+    """Padded GP inputs after t observations of an N-candidate panel:
+    distinct candidates, as a BO run observes them, when ``distinct``;
+    drawn with repeats otherwise."""
     rng = np.random.default_rng(seed)
     Xc = rng.random((N, d)).astype(np.float32)
-    g = IncrementalGP(Xc, max_obs=64, kernel=nu, ell=2.0)
-    for _ in range(t):
-        g.add(Xc[rng.integers(N)], float(rng.normal(10, 3)))
+    g = IncrementalGP(Xc, max_obs=max(64, t), kernel=nu, ell=2.0)
+    pick = rng.permutation(N)[:t] if distinct else None
+    for s in range(t):
+        i = pick[s] if distinct else rng.integers(N)
+        g.add(Xc[i], float(rng.normal(10, 3)))
     return [torch.from_numpy(x).to(device) for x in
             (Xc,) + ops.gp_inputs_from_incremental(g)[:4]]
 
@@ -41,15 +46,25 @@ def _gp_inputs(t, N, d, nu, device, seed=5):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-4, 1e-3)),
                                        (torch.bfloat16, (3e-2, 3e-2))])
 @pytest.mark.parametrize("blocks", [(64, 64, 64), (128, 128, 64),
-                                    (128, 64, 256)])
+                                    (128, 64, 256), (64, 128, 128),
+                                    (128, 128, 128), (256, 128, 64)])
 def test_gemm_kernel_matches_plain(card, dtype, tol, blocks):
+    """Every block shape the resource model passes agrees with the plain
+    version (fp32 on the tensor cores as 3xTF32, bf16 on them directly).
+    A shape it refuses, a ring with room for fewer than 2 stages (fp32
+    128x64x256 and 128x128x128) or more threads than the launch bound
+    (fp32 256x128x64: 512 of 224 registers), is refused at launch too."""
     rng = np.random.default_rng(0)
     a = torch.from_numpy(rng.normal(size=(256, 512))).to(card, dtype)
     b = torch.from_numpy(rng.normal(size=(512, 384))).to(card, dtype)
     bm, bn, bk = blocks
-    if 384 % bn:
-        pytest.skip("block_n does not tile N=384")
+    cfg = {"block_m": bm, "block_n": bn, "block_k": bk}
     kgemm.launches = 0
+    if not ops.gemm_valid(cfg, a.element_size()):
+        with pytest.raises(_build.LaunchRefused):
+            kgemm.gemm(a, b, block_m=bm, block_n=bn, block_k=bk)
+        assert kgemm.launches == 0
+        return
     got = kgemm.gemm(a, b, block_m=bm, block_n=bn, block_k=bk)
     want = ref.gemm(a, b)
     torch.cuda.synchronize()
@@ -58,10 +73,30 @@ def test_gemm_kernel_matches_plain(card, dtype, tol, blocks):
                                atol=tol[1])
 
 
+def test_gemm_fp32_keeps_fp32_accuracy_against_fp64(card):
+    """3xTF32 at 1024³: the kernel's max|err| against an fp64 product is at
+    most 4x the plain fp32 product's (plain TF32 would be about 100x)."""
+    rng = np.random.default_rng(3)
+    a64 = torch.from_numpy(rng.normal(size=(1024, 1024))).to(card)
+    b64 = torch.from_numpy(rng.normal(size=(1024, 1024))).to(card)
+    a, b = a64.float(), b64.float()
+    exact = torch.matmul(a.double(), b.double())
+    got = kgemm.gemm(a, b, block_m=128, block_n=128, block_k=64)
+    plain = ref.gemm(a, b)
+    k_err = float((got.double() - exact).abs().max())
+    p_err = float((plain.double() - exact).abs().max())
+    assert k_err <= 4 * p_err, (k_err, p_err)
+
+
 def test_gemm_refused_launch_raises_launch_refused(card):
-    """1,024 threads of 115 registers exceed the SM's 65,536: the card
-    refuses the launch, which the objective journals as invalid."""
-    a = torch.zeros((1024, 1024), device=card)
+    """256x256x64 bf16: its 3-stage ring (207 KB) fits, but it needs 32
+    warps (1024 threads) and the bf16 kernel is built for at most 512,
+    which keeps a thread within 128 registers: the launcher refuses it with
+    cudaErrorInvalidConfiguration, which the objective journals as
+    invalid."""
+    a = torch.zeros((1024, 1024), device=card, dtype=torch.bfloat16)
+    assert kgemm.gemm_stages(256, 256, 64, 2) == 3
+    assert kgemm.gemm_threads(256, 256) > kgemm.MAX_THREADS[2]
     kgemm.launches = 0
     with pytest.raises(_build.LaunchRefused):
         kgemm.gemm(a, a, block_m=256, block_n=256, block_k=64)
@@ -83,26 +118,74 @@ def test_gp_kernel_matches_plain(card, nu, t, N, d):
     assert float((mean_k - mean_r).abs().max()) < 0.03 * rng_m
 
 
-def test_gp_kernel_takes_t_512(card):
-    """A warm-started run pads T to 512: the kernel runs it (about 104 KB
-    of shared memory) and agrees with its plain version."""
-    args = _gp_inputs(37, 1024, 15, "matern32", card)
-    x_obs = torch.zeros((512, 15), device=card)
-    x_obs[:128] = args[1]
-    vinv = torch.zeros((512, 512), device=card)
-    vinv[:128, :128] = args[2]
-    w = torch.zeros(512, device=card)
-    w[:128] = args[3]
-    mask = torch.zeros(512, device=card)
-    mask[:128] = args[4]
-    mean_k, var_k = kgp.gp_posterior(args[0], x_obs, vinv, w, mask,
-                                      block_n=128)
-    mean_r, var_r = ref.gp_posterior(args[0], x_obs, vinv, w, 2.0,
-                                     mask=mask)
+def _padded(args, T):
+    """The GP inputs of ``_gp_inputs`` padded with zeros to ``T`` rows."""
+    xc, xo, vinv, w, mask = args
+    t = xo.shape[0]
+    x_obs = torch.zeros((T, xo.shape[1]), device=xo.device)
+    x_obs[:t] = xo
+    vi = torch.zeros((T, T), device=xo.device)
+    vi[:t, :t] = vinv
+    out = [xc, x_obs, vi]
+    for v in (w, mask):
+        p = torch.zeros(T, device=xo.device)
+        p[:t] = v
+        out.append(p)
+    return out
+
+
+def _gp_agrees(args, block_n=128):
+    mean_k, var_k = kgp.gp_posterior(*args, block_n=block_n)
+    mean_r, var_r = ref.gp_posterior(*args[:4], 2.0, mask=args[4])
     torch.cuda.synchronize()
     torch.testing.assert_close(var_k, var_r, rtol=3e-3, atol=1e-4)
     rng_m = float(mean_r.max() - mean_r.min())
     assert float((mean_k - mean_r).abs().max()) < 0.03 * rng_m
+
+
+def test_gp_kernel_takes_t_512(card):
+    """A warm-started run pads T to 512: the kernel runs it (about 123 KB
+    of shared memory, eight 64-row panels of L^-1) and agrees with its
+    plain version."""
+    _gp_agrees(_padded(_gp_inputs(37, 1024, 15, "matern32", card), 512))
+
+
+def test_gp_kernel_takes_t_1024(card):
+    """600 observations (a budget over 512, or warm-start priors) pad T to
+    1024: the kernel runs it (about 209 KB of shared memory, sixteen
+    64-row panels of L^-1) and agrees with its plain version. The
+    observations are distinct candidates, as a BO run makes them; the test
+    below takes them with repeats."""
+    args = _gp_inputs(600, 2048, 15, "matern32", card, distinct=True)
+    assert args[1].shape[0] == 1024
+    _gp_agrees(args)
+
+
+def test_gp_kernel_nearer_fp64_than_plain_with_repeated_observations(card):
+    """600 draws with repeats from 2,048 candidates observe some candidates
+    twice, with different values: the covariance is then singular but for
+    the 1e-6 noise, L^-1 and w = L^-1 y grow to thousands, and V = L^-1 K
+    and mean = V^T w sum large terms that cancel. Both versions lose digits;
+    the kernel's mean stays nearer the plain version run in float64 on the
+    same inputs than the plain fp32 version does (3xTF32 products, each k8
+    step summed apart, against one fp32 product over T)."""
+    args = _gp_inputs(600, 2048, 15, "matern32", card)
+    assert args[1].shape[0] == 1024
+    mean_k, _ = kgp.gp_posterior(*args, block_n=128)
+    mean_r, _ = ref.gp_posterior(*args[:4], 2.0, mask=args[4])
+    mean_x, _ = ref.gp_posterior(*(a.double() for a in args[:4]), 2.0,
+                                 mask=args[4].double())
+    torch.cuda.synchronize()
+    k_err = float((mean_k.double() - mean_x).abs().max())
+    p_err = float((mean_r.double() - mean_x).abs().max())
+    assert k_err <= p_err, (k_err, p_err)
+
+
+def test_gp_kernel_t_not_a_multiple_of_16(card):
+    """t = 21 real observations cut the diagonal L^-1 tile inside a 16-row
+    fragment; T = 192 is three 64-row panels (six tiles of the lower
+    triangle). The kernel agrees with its plain version."""
+    _gp_agrees(_padded(_gp_inputs(21, 1024, 15, "matern32", card), 192))
 
 
 # -- the serve path's kernels -----------------------------------------------------

@@ -181,9 +181,17 @@ def test_gp_rejects_untileable_candidates():
 
 
 def test_gp_smem_model_matches_the_kernel_layout():
-    # Ks (T x 32) + x_obs (T x d) + 3 T-vectors + x_cand tile (32 x odd d)
-    # + |x_cand|^2 + the 2 x 8 x 32 cross-warp reduction, fp32
-    assert kgp.gp_smem_bytes(256, 15) == 4 * (256 * 32 + 256 * 15 + 3 * 256
-                                              + 32 * 15 + 32 + 512)
+    # Ks (T x 32, rows padded to 40) + the L^-1 ring (2 x 64 x 64, rows
+    # padded to 68) + 3 T-vectors + x_cand tile (32 x odd d) + |x_cand|^2
+    # + the 2 x 4 x 32 cross-warp reduction, fp32; x_obs is not staged
+    assert kgp.gp_smem_bytes(256, 15) == 4 * (256 * 40 + 2 * 64 * 68
+                                              + 3 * 256 + 32 * 15 + 32
+                                              + 256)
+    # two blocks share an SM's 228 KB at the paper's T = 256 (1 KB each
+    # reserved by the runtime); T = 512 and T = 1024 (513 to 1024
+    # observations) still fit one, up to d = 16 and past it
+    assert 2 * (kgp.gp_smem_bytes(256, 15) + 1024) <= 228 * 1024
     assert kgp.gp_smem_bytes(512, 15) <= SMEM_PER_BLOCK
+    assert kgp.gp_smem_bytes(1024, 16) <= SMEM_PER_BLOCK
+    assert kgp.gp_smem_bytes(1024, 64) <= SMEM_PER_BLOCK
     assert kgp.gp_smem_bytes(2048, 15) > SMEM_PER_BLOCK

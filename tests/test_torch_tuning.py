@@ -24,8 +24,9 @@ from repro_torch.core.objectives import SimulatedObjective
 from repro_torch.core.runner import run_strategy
 from repro_torch.core.searchspace import Param, SearchSpace
 from repro_torch.core.strategies import make_strategy
+from repro_torch.kernels import gemm as kgemm
 from repro_torch.kernels import ops, tuning
-from repro_torch.launch.roofline import CARD, bound_ms
+from repro_torch.launch.roofline import CARD, SMEM_PER_BLOCK, bound_ms
 from repro_torch.store.records import SpaceFingerprint, TuningRecordStore
 
 
@@ -42,27 +43,69 @@ def _toy(space_cls, param_cls, obj_cls, seed=0):
 
 # -- the Hopper resource model -------------------------------------------------
 
-def test_gemm_resource_model():
+def test_gemm_resource_model(monkeypatch):
     f32 = torch.empty((), dtype=torch.float32).element_size()
     bf16 = torch.empty((), dtype=torch.bfloat16).element_size()
     default = tuning.gemm_cell(256, 256, 256, device="cpu").default
     assert default == {"block_m": 128, "block_n": 128, "block_k": 64}
     assert ops.gemm_valid(default, f32) and ops.gemm_valid(default, bf16)
+    # a warp per 64x32 tile of C: the default runs 8 warps
+    assert kgemm.gemm_threads(128, 128) == 256
+    # the ring: padded A (rows + 4 floats / 8 bf16) and B (rows + 8) tiles,
+    # as many stages as fit 227 KB, at most 4
+    assert kgemm.gemm_stage_bytes(128, 128, 64, f32) == 4 * (128 * 68
+                                                            + 64 * 136)
+    assert kgemm.gemm_stages(128, 128, 64, f32) == 3
+    assert kgemm.gemm_stages(128, 128, 64, bf16) == 4
+    assert kgemm.gemm_smem_bytes(128, 128, 64, f32) == 3 * 69632
     big = {"block_m": 1024, "block_n": 1024, "block_k": 64}     # 16K threads
     assert not ops.gemm_valid(big, f32) and not ops.gemm_valid(big, bf16)
-    cube = {"block_m": 256, "block_n": 256, "block_k": 256}     # 512 KiB tiles
-    assert not ops.gemm_valid(cube, f32)
-    tiny = {"block_m": 64, "block_n": 16, "block_k": 64}        # 16 threads
+    # room for fewer than 2 stages: a static invalid, in fp32 where bf16's
+    # half-size tiles still fit a ring
+    for bm, bn, bk in ((128, 128, 128), (128, 64, 256), (256, 256, 256)):
+        cfg = {"block_m": bm, "block_n": bn, "block_k": bk}
+        assert kgemm.gemm_stages(bm, bn, bk, f32) < 2
+        assert kgemm.gemm_smem_bytes(bm, bn, bk, f32) > SMEM_PER_BLOCK
+        assert not ops.gemm_valid(cfg, f32)
+    assert ops.gemm_valid({"block_m": 128, "block_n": 128, "block_k": 128},
+                          bf16)
+    tiny = {"block_m": 64, "block_n": 16, "block_k": 64}        # no warp
     assert not ops.gemm_valid(tiny, f32)
-    # registers: 512 threads x 128 fit the SM's 65,536, 1,024 threads do not
-    assert ops.gemm_valid({"block_m": 256, "block_n": 128, "block_k": 64}, f32)
-    assert not ops.gemm_valid({"block_m": 256, "block_n": 256, "block_k": 32},
-                              f32)
+    # 32 warps: the ring fits in bf16, but the kernel is built for at most
+    # 512 threads a block (256 in fp32)
+    assert kgemm.gemm_threads(256, 256) == 1024
+    assert kgemm.gemm_stages(256, 256, 64, bf16) == 3
+    assert not ops.gemm_valid({"block_m": 256, "block_n": 256,
+                               "block_k": 64}, bf16)
+    assert kgemm.MAX_THREADS == {f32: 256, bf16: 512}
+    wide = {"block_m": 256, "block_n": 128, "block_k": 64}     # 512 threads
+    assert kgemm.gemm_stages(256, 128, 64, f32) == 2
+    # registers: 512 threads of 224 (fp32) exceed the SM's 65,536, and the
+    # fp32 launch bound refuses them; 512 of 128 (bf16) just fit
+    assert ops.GEMM_REGS_PER_THREAD == {f32: 224, bf16: 128}
+    assert not ops.gemm_valid(wide, f32) and ops.gemm_valid(wide, bf16)
+    # the card allocates registers 8 a thread: 121 counts as 128 and 129
+    # as 136, which 512 threads cannot have
+    assert ops.allocated_regs(121) == 128 and ops.allocated_regs(129) == 136
+    monkeypatch.setitem(ops.GEMM_REGS_PER_THREAD, bf16, 121)
+    assert ops.gemm_valid(wide, bf16)
+    monkeypatch.setitem(ops.GEMM_REGS_PER_THREAD, bf16, 129)
+    assert not ops.gemm_valid(wide, bf16)
+    monkeypatch.undo()
+    # the reference's 125-config space, unchanged; 9 of it run in fp32 at
+    # 4096^3 (the ring's shared memory refuses most block_k >= 128, the
+    # registers blocks over 8 warps) and 21 in bf16
+    space = ops.gemm_config_space(4096, 4096, 4096)
+    assert space.size == 125
+    n_ok = {db: sum(ops.gemm_valid(space.config(i), db)
+                    for i in range(space.size)) for db in (f32, bf16)}
+    assert n_ok == {f32: 9, bf16: 21}
 
 
 def test_gp_resource_model_and_tuned_block_n(tmp_path):
-    for T in (128, 256, 512):
+    for T in (128, 256, 512, 1024):
         assert ops.gp_valid({"block_n": 512}, T, 15)
+        assert ops.gp_valid({"block_n": 512}, T, 16)
     assert not ops.gp_valid({"block_n": 512}, 2048, 15)      # smem over 227 KB
     assert not ops.gp_valid({"block_n": 512}, 200, 15)       # T not 64-aligned
     assert not ops.gp_valid({"block_n": 48}, 256, 15)        # partial sub-tile
@@ -129,6 +172,9 @@ def test_card_objective_refuses_process_backend_and_workers():
 def test_bound_is_the_larger_of_operations_and_bytes():
     ms, by = bound_ms(2.0 * 4096 ** 3, 4.0 * 3 * 4096 ** 2, CARD)
     assert by == "operations" and ms == pytest.approx(2.0513, abs=1e-4)
+    # 3xTF32: three TF32 products each on the 495 TFLOP/s tensor cores
+    ms, by = bound_ms(2.0 * 4096 ** 3, 4.0 * 3 * 4096 ** 2, CARD, "tf32x3")
+    assert by == "operations" and ms == pytest.approx(0.8330, abs=1e-4)
     ms, by = bound_ms(1e6, 3.35e9, CARD)
     assert by == "bytes" and ms == pytest.approx(1.0)
     with pytest.raises(ValueError, match="no published peaks"):
