@@ -17,13 +17,15 @@ Phases, in order; any failure exits non-zero and prints no result:
      flash attention in fp32 (CUDA cores) and bf16 (tensor cores) at small
      shapes, S 192, and gemma-2b's prefill (B 4, S 1,024, H 8, KV 1, hd
      256) under several blocks: block_q != block_kv, one and two
-     warpgroups, block_kv > 64 (successive 64-key updates); flash decode
-     (split + either combine) in fp32 and bf16 at gemma-2b's decode (B 4,
-     capacity 1,088, H 8, KV 1, hd 256) and at its widths with B 1, at
-     G = 1 and 2, and on a mostly empty cache, a capacity that does not
-     tile, and windows with and without wrap-around, the split kernel's
-     per-split partials held against the plain version's too (splits of
-     padding only exactly m = -inf, l = 0, o = 0);
+     warpgroups, block_kv > 64 (successive 64-key updates); flash decode,
+     every config both ways (one launch with the combine fused in, and the
+     partials mode + the tensor-op combine), in fp32 and bf16 at gemma-2b's
+     decode (B 4, capacity 1,088, H 8, KV 1, hd 256) and at its widths with
+     B 1, at G = 1 and 2, with one block a head group, and on a mostly
+     empty cache, a capacity that does not tile, windows with and without
+     wrap-around, and a row with no valid slot (exact zeros), the
+     partials held against the plain version's too (splits of padding only
+     exactly m = -inf, l = 0, o = 0);
   3. the self-hosting cell: BO tunes the GP kernel's block_n at the paper's
      panel, journaled into a temporary store, and tuned_gp_block_n reads
      the stored best back;
@@ -39,16 +41,19 @@ Phases, in order; any failure exits non-zero and prints no result:
      at full width and depth (random bf16 weights from a seed): prefill of
      4 x 1,024 tokens, 64 greedy decode steps, blocks resolved from the
      store; its logits are held against the plain attention path, teacher-
-     forced on the same tokens; the combine kernel runs on the path or in
-     an extra decode run of 8 steps;
+     forced on the same tokens; one decode launch a layer, the combine
+     fused in, on the path or in an extra decode run of 8 steps;
   6. yardsticks at the blocks phases 4 and 8 ran: kernel, plain-version
      and library times (CUDA events around one call) beside each kernel's
      bound (GEMM and GP: on the path the kernel takes, the tensor cores,
      and on the CUDA cores), and the bf16 GEMM beside torch.matmul;
   9. torch.profiler, last (a profiler session leaves host overhead behind
      it): the device's busy share over a prefill and over 4 decode steps of
-     the phase-8 server, the kernels that took its time, and each phase-6
-     call's device time (kernels only, no host launch time).
+     the phase-8 server, the kernels that took its time (one decode kernel
+     a layer and step), and each phase-6 call's device time (kernels only,
+     no host launch time); the fused decode call launches one kernel. The
+     combine's time is the fused launch's less the partials-mode launch's,
+     on the same inputs, timed in turns.
 The line before the last holds the kernels' JSON summary (times are the
 phase-9 device times, the phase-6 event times where the profiler saw none),
 the one before it the card's name and power limit; the last line is the
@@ -93,7 +98,8 @@ FLASH_SHAPES = ((1, 256, 4, 4, 64), (2, 512, 4, 2, 128), (4, 1024, 8, 1, 256),
 FLASH_BLOCKS = ((128, 128), (128, 64), (64, 128), (256, 128), (128, 256),
                 (512, 256), (64, 64), (128, 512))
 GEMMA_FLASH = (4, 1024, 8, 1, 256)
-# flash decode: (name, B, S, H, KV, hd, cur, window, rolling)
+# flash decode: (name, B, S, H, KV, hd, cur, window, rolling); cur per row
+# where it is a tuple (-1: a row with no valid slot)
 DECODE_CASES = (
     ("gemma-2b decode", 4, 1088, 8, 1, 256, 1054, None, False),
     ("gemma-2b widths, B 1", 1, 1088, 8, 1, 256, 1054, None, False),
@@ -103,14 +109,18 @@ DECODE_CASES = (
     ("capacity 1000 does not tile", 1, 1000, 4, 2, 64, 999, None, False),
     ("rolling window", 2, 512, 4, 2, 64, 1500, 200, True),
     ("window, no wrap", 2, 768, 4, 1, 128, 400, 128, False),
+    ("one block a group", 33, 256, 8, 4, 64, 200, None, False),
+    ("no valid slot in row 0", 2, 1088, 8, 1, 256, (-1, 1054), None, False),
 )
-DECODE_CONFIGS = ((128, 8, "kernel"), (256, 4, "torch"), (512, 2, "kernel"),
-                  (1024, 1, "torch"), (512, 1, "kernel"), (128, 1, "torch"))
+# (block_kv, splits), each run with both combines
+DECODE_CONFIGS = ((128, 8), (256, 4), (512, 2), (1024, 1), (512, 1), (128, 1))
 GEMMA_DECODE = (4, 1088, 8, 1, 256)
 # the serving run: batch, prompt, decode steps; logits held for PARITY_STEPS
 SERVE_B, SERVE_PROMPT, SERVE_STEPS, PARITY_STEPS = 4, 1024, 64, 8
 # decode steps the profile window covers (phase 9)
 PROFILE_STEPS = 4
+# the phase-6/9 row of decode attention as one fused launch
+FUSED_DECODE = "decode (one fused launch)"
 # a cache 97% full: the middle of the 64 decode steps (1,024..1,087 of 1,088)
 DECODE_FILL = 0.97
 # about 1 config in 6 of the 4096³ space passes the resource model, and the
@@ -399,22 +409,29 @@ def _agree_partials(got, want, what: str) -> None:
 
 
 def check_decode(dev) -> dict:
+    """Every case and config with the combine fused in (one launch) and
+    with the partials mode + the tensor-op combine, against the plain
+    split + combine; rows with no valid slot exactly 0. max_abs_err at the
+    serving shape in bf16: the split's from the partials path, the
+    combine's from the fused launch."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_decode as kfd, ops, ref
     worst = {"flash_decode_split": 0.0, "flash_decode_combine": 0.0}
     for name, B, S, H, KV, hd, cur, window, rolling in DECODE_CASES:
+        curs = cur if isinstance(cur, tuple) else (cur,) * B
+        empty = [b for b, c in enumerate(curs) if c < 0]
         rng = np.random.default_rng(1)
         q64 = torch.from_numpy(rng.normal(size=(B, 1, H, hd)))
         k64, v64 = (torch.from_numpy(rng.normal(size=(B, S, KV, hd)))
                     for _ in range(2))
-        pos = _cache_positions(S, cur, rolling)
-        cp = torch.from_numpy(np.broadcast_to(pos, (B, S)).copy()).to(dev)
-        cu = torch.full((B,), cur, dtype=torch.long, device=dev)
-        serving = (B, S, H, KV, hd) == GEMMA_DECODE and cur == 1054
+        pos = np.stack([_cache_positions(S, c, rolling) for c in curs])
+        cp = torch.from_numpy(pos).to(dev)
+        cu = torch.tensor(curs, dtype=torch.long, device=dev)
+        serving = (B, S, H, KV, hd) == GEMMA_DECODE and curs == (1054,) * B
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (t.to(dev, dtype) for t in (q64, k64, v64))
-            for bkv, ns, comb in DECODE_CONFIGS:
+            for bkv, ns in DECODE_CONFIGS:
                 if (bkv * (ns - 1) >= S
                         or not ops.decode_valid({"block_kv": bkv}, H // KV,
                                                 hd)):
@@ -423,30 +440,31 @@ def check_decode(dev) -> dict:
                 o_r, m_r, l_r = ref.decode_split(q[:, 0], k, v, bias, ns)
                 want = ref.combine_partials(o_r, m_r, l_r).reshape(
                     B, 1, H, hd).to(dtype).float()
-                got = ops.decode_attention(q, k, v, cp, cu, window=window,
-                                           block_kv=bkv, num_splits=ns,
-                                           combine=comb).float()
-                torch.cuda.synchronize()
                 label = (f"decode {name} B{B} S{S} H{H} KV{KV} hd{hd} "
-                         f"{str(dtype)[6:]} ({bkv},{ns},{comb})")
-                err = _agree(got, want, dtype, label)
+                         f"{str(dtype)[6:]} ({bkv},{ns})")
+                err = {}
+                for comb in ("kernel", "torch"):
+                    kfd.split_launches = kfd.combine_launches = 0
+                    got = ops.decode_attention(q, k, v, cp, cu, window=window,
+                                               block_kv=bkv, num_splits=ns,
+                                               combine=comb).float()
+                    torch.cuda.synchronize()
+                    n = (kfd.split_launches, kfd.combine_launches)
+                    if n != (1, int(comb == "kernel")):
+                        fail(f"{label} combine={comb}: launches (split, "
+                             f"fused combine) {n}")
+                    err[comb] = _agree(got, want, dtype, f"{label} {comb}")
+                    if empty and not bool((got[empty] == 0).all()):
+                        fail(f"{label} combine={comb}: rows {empty} have no "
+                             "valid slot and are not exactly 0")
                 _agree_partials(kfd.decode_split(q[:, 0], k, v, bias,
                                                  block_kv=bkv, num_splits=ns),
                                 (o_r, m_r, l_r), label)
-                if not (serving and dtype == torch.bfloat16):
-                    continue
-                worst["flash_decode_split"] = max(
-                    worst["flash_decode_split"], err)
-                # the combine kernel alone, on the split kernel's partials
-                parts = kfd.decode_split(q[:, 0], k, v, bias, block_kv=bkv,
-                                         num_splits=ns)
-                c_k = kfd.decode_combine(*parts, dtype).float()
-                c_r = ref.combine_partials(*parts).reshape(
-                    B, H, hd).to(dtype).float()
-                torch.cuda.synchronize()
-                worst["flash_decode_combine"] = max(
-                    worst["flash_decode_combine"],
-                    _agree(c_k, c_r, dtype, f"  combine alone ({bkv},{ns})"))
+                if serving and dtype == torch.bfloat16:
+                    worst["flash_decode_split"] = max(
+                        worst["flash_decode_split"], err["torch"])
+                    worst["flash_decode_combine"] = max(
+                        worst["flash_decode_combine"], err["kernel"])
     return worst
 
 
@@ -513,11 +531,12 @@ def tune_serve_kernels(sdir: str, gp_block_n: int) -> None:
             f"({time.perf_counter() - t0:.1f} s)")
 
 
-def profile_window(fn, what: str, top: int = 8) -> None:
+def profile_window(fn, what: str, top: int = 8):
     """Run ``fn`` under torch.profiler and print the device's busy share of
     the window (kernel time over wall time) and the kernels that took the
     most device time. Prints "not measured" when the profiler sees no
-    device time."""
+    device time. Returns the (ms, count, name) rows, or None without
+    them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -528,7 +547,7 @@ def profile_window(fn, what: str, top: int = 8) -> None:
         log(f"[9] profile of {what}: profiler unavailable ({e}); device "
             "busy share not measured")
         fn()
-        return
+        return None
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -544,7 +563,7 @@ def profile_window(fn, what: str, top: int = 8) -> None:
     if busy <= 0:
         log(f"[9] profile of {what}: wall {wall_ms:.3f} ms; the profiler saw "
             "no device time (device busy share not measured)")
-        return
+        return None
     rows.sort(reverse=True)
     log(f"[9] profile of {what} (torch.profiler on): wall {wall_ms:.3f} ms, "
         f"device kernel time {busy:.3f} ms, busy {100 * busy / wall_ms:.1f}%"
@@ -552,6 +571,7 @@ def profile_window(fn, what: str, top: int = 8) -> None:
         f"{sum(r[1] for r in rows)} device events")
     for ms, n, name in rows[:top]:
         log(f"[9]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<5d} {name[:90]}")
+    return rows
 
 
 def serve_gemma(sdir: str, dev) -> dict:
@@ -599,14 +619,16 @@ def serve_gemma(sdir: str, dev) -> dict:
         f"{max(steps) * 1e3:.4f}), {SERVE_B / med:.1f} tokens/s "
         f"({server.decode_dispatch}); peak memory "
         f"{peak / 2 ** 30:.3f} GiB; launches {launches}")
+    # one decode launch a layer and step, carrying the combine where the
+    # config says "kernel"; none else (phase 9 reads the device trace)
+    fused = kc.decode_combine == "kernel"
     want = {"flash_attention": 2 * cfg.num_layers,
-            "flash_decode_split": cfg.num_layers * SERVE_STEPS}
-    if kc.decode_combine == "kernel":
-        want["flash_decode_combine"] = cfg.num_layers * SERVE_STEPS
+            "flash_decode_split": cfg.num_layers * SERVE_STEPS,
+            "flash_decode_combine": cfg.num_layers * SERVE_STEPS * fused}
     for name, n in want.items():
         if launches[name] != n:
             fail(f"{name} launched {launches[name]} times in two prefills "
-                 f"and {SERVE_STEPS} decode steps, want {n} (one a layer)")
+                 f"and {SERVE_STEPS} decode steps, want {n}")
     toks = torch.stack(server.out, 1)
     if toks.shape != (SERVE_B, SERVE_STEPS + 1) or not all(
             bool(torch.isfinite(x).all()) for x in server.kept):
@@ -642,8 +664,8 @@ def serve_gemma(sdir: str, dev) -> dict:
 
     rel = parity(server.kept, "served")
     combine = launches["flash_decode_combine"]
-    if kc.decode_combine != "kernel":
-        # the combine kernel on the same path: an extra decode run at the
+    if not fused:
+        # the fused combine on the same path: an extra decode run at the
         # serving shape, teacher-forced on the served tokens
         extra = serve.DecodeServer(
             cfg, ParallelConfig(kernel=kc.replace(decode_combine="kernel")),
@@ -654,12 +676,15 @@ def serve_gemma(sdir: str, dev) -> dict:
         for i in range(PARITY_STEPS):
             extra.toks = server.out[i]
             extra.decode_step()
-        combine = serve.kernel_launches()["flash_decode_combine"]
-        log(f"[8] extra run with decode_combine='kernel': {combine} combine "
-            f"launches")
-        rel = max(rel, parity(extra.kept, "combine-kernel run"))
+        n = serve.kernel_launches()
+        combine = n["flash_decode_combine"]
+        log(f"[8] extra run with decode_combine='kernel': {combine} fused "
+            f"launches of {n['flash_decode_split']} decode launches")
+        if n["flash_decode_split"] != combine:
+            fail(f"extra run: decode launches {n}, want each fused")
+        rel = max(rel, parity(extra.kept, "fused-combine run"))
     if combine < cfg.num_layers:
-        fail(f"combine kernel launched {combine} times")
+        fail(f"fused combine launched {combine} times")
     launches["flash_decode_combine"] = combine
     return {"kc": kc, "launches": launches, "prefill_ms": prefill_s * 1e3,
             "prefill_cold_ms": cold_s * 1e3,
@@ -670,12 +695,13 @@ def serve_gemma(sdir: str, dev) -> dict:
 def serve_cases(kc, dev, card: str) -> dict:
     """The serve kernels at gemma-2b's shapes with the blocks phase 8 ran:
     name -> (label, kernel fn, plain fn, library fn or None, bound ms,
-    bound_by). The decode library call (SDPA with the additive bias mask
-    and enable_gqa) computes split + combine together: it is timed beside
-    them as ``decode (split + combine)`` and given to neither. Both sides
-    take the validity bias built beforehand, as SDPA takes its mask. The
-    row ``decode as served`` times it as the serve path runs it, the bias
-    built from the cache positions on every side."""
+    bound_by); a kernel fn that is a pair is timed as the difference of
+    the two. The decode library call (SDPA with the additive bias mask and
+    enable_gqa) computes split + combine together: it is timed beside the
+    one fused launch as ``FUSED_DECODE`` and given to neither kernel. Both
+    sides take the validity bias built beforehand, as SDPA takes its mask.
+    The row ``decode as served`` times it as the serve path runs it, the
+    bias built from the cache positions on every side."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -715,40 +741,53 @@ def serve_cases(kc, dev, card: str) -> dict:
     bias = ops.decode_bias(cp, cu, None, ns * dbkv)
     n_valid = int((bias == 0).sum())            # slots the data needs read
     part_bytes = 4.0 * B * KV * ns * G * (hd + 2)
+    out_bytes = 2.0 * B * H * hd
     parts = kfd.decode_split(qd, kd, vd, bias, block_kv=dbkv, num_splits=ns)
     mask = bias[:, :S].to(bf16)[:, None, None, :]
-    split_b = bound_ms(4.0 * hd * G * KV * n_valid,
-                       2.0 * 2 * n_valid * KV * hd + 2.0 * B * H * hd
-                       + 4.0 * B * bias.shape[1] + part_bytes, card,
-                       "bfloat16")
+    kv_bytes = 2.0 * 2 * n_valid * KV * hd + 2.0 * B * H * hd \
+        + 4.0 * B * bias.shape[1]
+    split_b = bound_ms(4.0 * hd * G * KV * n_valid, kv_bytes + part_bytes,
+                       card, "bfloat16")
+    fused_b = bound_ms(4.0 * hd * G * KV * n_valid, kv_bytes + out_bytes,
+                       card, "bfloat16")
+
+    def split():
+        return kfd.decode_split(qd, kd, vd, bias, block_kv=dbkv,
+                                num_splits=ns)
+
+    def fused():
+        return kfd.flash_decode(qd, kd, vd, bias, block_kv=dbkv,
+                                num_splits=ns, combine="kernel")
+
     cases["flash_decode_split"] = (
         f"decode split B{B} S{S} ({n_valid} valid slots) H{H} KV{KV} hd{hd} "
-        f"bf16 ({dbkv},{ns}); library none",
-        lambda: kfd.decode_split(qd, kd, vd, bias, block_kv=dbkv,
-                                 num_splits=ns),
-        lambda: ref.decode_split(qd, kd, vd, bias, ns), None, *split_b)
+        f"bf16 ({dbkv},{ns}), partials mode; library none",
+        split, lambda: ref.decode_split(qd, kd, vd, bias, ns), None,
+        *split_b)
+    # the combine has no launch of its own: its time is the fused launch's
+    # less the partials-mode launch's (a pair of functions: their difference)
     cases["flash_decode_combine"] = (
-        f"decode combine ({ns} splits) bf16; library none",
-        lambda: kfd.decode_combine(*parts, bf16),
+        f"decode combine, fused into the split kernel ({ns} splits) bf16: "
+        "fused launch less partials-mode launch; plain: the tensor-op "
+        "combine of the partials; library none",
+        (fused, split),
         lambda: ref.combine_partials(*parts).reshape(B, H, hd).to(bf16),
-        None, *bound_ms(2.0 * ns * B * H * hd, part_bytes + 2.0 * B * H * hd,
-                        card))
-    cases["decode (split + combine)"] = (
-        "decode as a whole (split + combine on the bias); library SDPA"
-        "(the bias as its additive mask, enable_gqa)",
-        lambda: kfd.flash_decode(qd, kd, vd, bias, block_kv=dbkv,
-                                 num_splits=ns, combine="kernel"),
+        None, *bound_ms(2.0 * ns * B * H * hd, part_bytes + out_bytes, card))
+    cases[FUSED_DECODE] = (
+        "decode as a whole, one launch (split with the combine fused in, on "
+        "the bias); library SDPA(the bias as its additive mask, enable_gqa)",
+        fused,
         lambda: ref.combine_partials(*ref.decode_split(
             qd, kd, vd, bias, ns)).reshape(B, H, hd).to(bf16),
         lambda: F.scaled_dot_product_attention(
             qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
             attn_mask=mask, enable_gqa=True),
-        *split_b)
+        *fused_b)
     # as a layer of the serve path runs it: the bias built from the cache
-    # positions, then split + combine; the plain and library sides build
+    # positions, then the fused launch; the plain and library sides build
     # their bias too
-    cases["decode as served (bias + split + combine)"] = (
-        "decode as served (the bias built, then split + combine); library "
+    cases["decode as served (bias + fused launch)"] = (
+        "decode as served (the bias built, then the fused launch); library "
         "SDPA(the bias built as its additive mask, enable_gqa)",
         lambda: ops.decode_attention(qd[:, None], kd, vd, cp, cu,
                                      block_kv=dbkv, num_splits=ns,
@@ -767,12 +806,13 @@ def serve_cases(kc, dev, card: str) -> dict:
     return cases
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3):
+def device_ms(fn, reps: int = 20, warmup: int = 3, kernels=None):
     """Device time of one call of ``fn``: the kernels (and copies) the
     profiler saw over ``reps`` calls, divided by ``reps``. Host launch time
     is not in it, where CUDA events around one call include it whenever
     the kernel is shorter than its launch. None where the profiler sees no
-    device time."""
+    device time. A list given as ``kernels`` receives (name, device events
+    per call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -784,9 +824,30 @@ def device_ms(fn, reps: int = 20, warmup: int = 3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(a.self_device_time_total for a in prof.key_averages()
-             if a.device_type != DeviceType.CPU)
+    rows = [a for a in prof.key_averages()
+            if a.device_type != DeviceType.CPU and a.self_device_time_total > 0]
+    if kernels is not None:
+        kernels.extend((a.key, a.count / reps) for a in rows)
+    us = sum(a.self_device_time_total for a in rows)
     return us / 1e3 / reps if us > 0 else None
+
+
+def timed(timer, fn, what: str):
+    """``timer(fn)``; for a pair (a, b), a's time less b's, the two timed
+    in turns (a b b a, twice), each the median of its four, printed beside
+    the difference. None where the timer gives none."""
+    if not isinstance(fn, tuple):
+        return timer(fn)
+    a, b = fn
+    ta, tb = [], []
+    for i in range(4):
+        for f in ((a, b) if i % 2 == 0 else (b, a)):
+            (ta if f is a else tb).append(timer(f))
+    if None in ta + tb:
+        return None
+    ma, mb = statistics.median(ta), statistics.median(tb)
+    log(f"    {what}: {ma:.4f} ms less {mb:.4f} ms = {ma - mb:.4f} ms")
+    return ma - mb
 
 
 def main() -> int:
@@ -838,11 +899,10 @@ def main() -> int:
                           lambda hd=hd, nwg=nwg: lib.flash_attention_attrs(
                               1, hd, nwg, regs, local)))
         for dt, dname in ((0, "fp32"), (1, "bf16")):
-            attrs.append((f"decode split hd{hd} {dname}",
-                          lambda hd=hd, dt=dt: lib.decode_attrs(0, dt, hd, regs,
-                                                                local)))
-    attrs.append(("decode combine bf16",
-                  lambda: lib.decode_attrs(1, 1, 0, regs, local)))
+            for mode, mname in ((0, "partials"), (1, "combine fused in")):
+                attrs.append((f"decode split hd{hd} {dname}, {mname}",
+                              lambda hd=hd, dt=dt, mode=mode: lib.decode_attrs(
+                                  mode, dt, hd, regs, local)))
     for name, get in attrs:
         _build.check(get(), f"{name} attributes")
         log(f"[1] {name}: {regs.value} registers/thread, "
@@ -1027,7 +1087,9 @@ def main() -> int:
     cases.update(serve_cases(served["kc"], dev, card))
     event = {}
     for name, (label, *fns, bound, by) in cases.items():
-        event[name] = [None if f is None else event_ms(f) for f in fns]
+        event[name] = [None if f is None else timed(event_ms, f,
+                                                    f"[6] {name} events")
+                       for f in fns]
         k_ms, p_ms, l_ms = event[name]
         log(f"[6] {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
             f"library {'none' if l_ms is None else f'{l_ms:.4f} ms'}, bound "
@@ -1037,12 +1099,29 @@ def main() -> int:
     # last, since a profiler session leaves host overhead behind it
     server, batch = served["server"], served["batch"]
     profile_window(lambda: server.prefill_batch(batch), "a prefill")
-    profile_window(lambda: [server.decode_step()
-                            for _ in range(PROFILE_STEPS)],
-                   f"{PROFILE_STEPS} decode steps after it")
+    rows = profile_window(lambda: [server.decode_step()
+                                   for _ in range(PROFILE_STEPS)],
+                          f"{PROFILE_STEPS} decode steps after it")
+    n_layers = served["server"].cfg.num_layers
+    if rows:
+        # the decode attention on the trace: one kernel a layer and step
+        dec = {name: n for _, n, name in rows if "decode" in name}
+        log(f"[9] decode kernels in the window: {dec}")
+        if (len(dec) != 1 or "decode_split_kernel" not in next(iter(dec))
+                or sum(dec.values()) != n_layers * PROFILE_STEPS):
+            fail(f"decode window: want {n_layers * PROFILE_STEPS} launches "
+                 f"of decode_split_kernel and no other decode kernel, got "
+                 f"{dec}")
+    seen = []
+    device_ms(cases[FUSED_DECODE][1], kernels=seen)
+    log(f"[9] device kernels per fused decode call: {seen}")
+    if seen and (len(seen) != 1 or seen[0][1] != 1):
+        fail(f"the fused decode call launched {seen}, want one kernel")
     device = {}
     for name, (label, *fns, bound, by) in cases.items():
-        device[name] = [None if f is None else device_ms(f) for f in fns]
+        device[name] = [None if f is None else timed(device_ms, f,
+                                                     f"[9] {name} device")
+                        for f in fns]
         k_ms, p_ms, l_ms = (("not measured" if x is None else f"{x:.4f} ms")
                             if f is not None else "none"
                             for x, f in zip(device[name], fns))
@@ -1059,6 +1138,7 @@ def main() -> int:
             ("matern_gp", "matern_gp.cu", "matern_gp.py:44"),
             ("flash_attention", "flash_attention.cu", "flash_attention.py:22"),
             ("flash_decode_split", "flash_decode.cu", "flash_decode.py:37"),
+            # the combine: the tail fused into the split kernel's launch
             ("flash_decode_combine", "flash_decode.cu", "flash_decode.py:94")):
         n = launches[name] if name in launches else served["launches"][name]
         # device time where the profiler gave one, else the event time

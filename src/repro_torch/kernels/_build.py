@@ -134,11 +134,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_attrs.restype = i
     for name in ("decode_split_f32", "decode_split_bf16"):
         fn = getattr(lib, name)
-        fn.argtypes = [p] * 11 + [i] * 10 + [p]
-        fn.restype = i
-    for name in ("decode_combine_f32", "decode_combine_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p] * 12 + [i] * 10 + [p]
         fn.restype = i
     lib.decode_attrs.argtypes = [i, i, i, ctypes.POINTER(i),
                                  ctypes.POINTER(i)]

@@ -1,37 +1,53 @@
 // Split-KV flash decode (one new token over the KV cache) for Hopper
-// (sm_90a): the split pass and the cross-split combine.
+// (sm_90a): the split pass with the cross-split combine fused into its
+// last block, so one launch does a layer's decode attention.
 //
 // Replaces: src/repro/kernels/flash_decode.py, _decode_split_kernel and
 // _decode_combine_kernel (Pallas TPU kernels behind flash_decode).
 //
-// Split: q (B,H,hd), K/V caches (B,S,KV,hd) in fp32 or bf16, and an fp32
+// In: q (B,H,hd), K/V caches (B,S,KV,hd) in fp32 or bf16, and an fp32
 // validity bias (B,Sp), 0 or -inf, Sp >= S a multiple of splits*block_kv
 // (slots past S are padding; the reference pads K and V too, this kernel
-// never reads them). Split i covers slots [i*L, (i+1)*L), L = Sp/splits,
-// and the kernel returns, per split, the reference's unnormalized partials
-// with its isfinite guards: an all-masked split gives m = -inf, l = 0,
-// o = 0. Out: o (B,KV,splits,G,hd), m and l (B,KV,splits,G), fp32.
-// Combine: one block per (KV head, b) folds the splits, weights
-// exp(m_i - max m) (0 where m_i = -inf), and writes o / max(l, 1e-30) in
-// q's dtype, (B,H,hd).
+// never reads them). Split i covers slots [i*L, (i+1)*L), L = Sp/splits.
+// Two modes, one kernel template:
+//   * fused (`out` given): the reference's flash_decode(combine="kernel")
+//     whole. Out: o / max(l, 1e-30) in q's dtype, (B,H,hd); a head group
+//     with no valid slot gives exact zeros (the reference's 0 / 1e-30).
+//   * partials (`out` null): per split, the reference's unnormalized
+//     partials with its isfinite guards: an all-masked split gives m = -inf,
+//     l = 0, o = 0. Out: o (B,KV,splits,G,hd), m and l (B,KV,splits,G),
+//     fp32 (the tensor-op combine and decode_split take these).
 //
 // Bound on an H100 SXM at the serving decode (B 4, capacity 1,088, H 8,
 // KV 1, hd 256, bf16): the bytes, K and V of the slots that are valid (a
-// masked slot is not read) plus q, bias and partials; at 1,024..1,087 valid
-// slots about 4.3 MB, 1.3 us at 3.35 TB/s. The operations (4*H*hd per slot,
-// 9 MFLOP) take less: at about 8 flop a byte the CUDA cores keep up, so the
-// design is about blocks on SMs and bytes in flight.
+// masked slot is not read) plus q, bias and the output; at 1,024..1,087
+// valid slots about 4.3 MB, 1.3 us at 3.35 TB/s. The operations (4*H*hd
+// per slot, 9 MFLOP) take less: at about 8 flop a byte the CUDA cores keep
+// up, so the design is about blocks on SMs and bytes in flight. The
+// combine's own work, reading the splits' partials (33 KB at one split)
+// and writing the output, is 0.015 us of bytes; as a launch of its own it
+// cost what any launch costs, so it is folded into a launch that already
+// folds.
 //   * The grid fills the card: each split's slots below S are cut into C
 //     chunks of `chunk` slots (a multiple of the 64-slot tile), one block
 //     each, grid (C, splits, B*KV). The wrapper's plan
 //     (kernels/flash_decode.py decode_plan) picks C so that B*KV*splits*C
-//     reaches 132 blocks where the split has the tiles. A chunk's block
-//     writes its (o, m, l) to a scratch, fences, and counts itself in its
-//     split's arrival counter; the last to arrive folds the chunk partials
-//     into the split's (the combine's weights, unnormalized) and resets the
-//     counter for the next launch. A split with one live chunk writes its
-//     partials directly. Splits of padding only write m = -inf, l = 0,
-//     o = 0 from one block; chunks past S exit at once.
+//     reaches 132 blocks where the split has the tiles. A live chunk's
+//     block writes its (o, m, l) to a scratch, fences, and counts itself in
+//     an arrival counter; the last to arrive folds the partials (max m,
+//     weights exp(m_i - max m), 0 where m_i = -inf, then the weighted sums
+//     of l and o) and resets the counter for the next launch. Partials
+//     mode counts per split and folds its chunks into the split's
+//     partials. Fused mode counts per (b, KV head) group and folds every
+//     live chunk of every split in one pass: the reference's two levels,
+//     chunks to splits and splits to the group, as one, only the fp32 sums
+//     in another order; then it normalizes and writes out. Counters of the
+//     two modes are separate buffers (the wrapper's), so launches of both
+//     on one stream never share one. A fold of one block (one live chunk
+//     of a split; of a group, fused) writes directly, with no scratch or
+//     counter. Splits of padding only write m = -inf, l = 0, o = 0 from one
+//     block in partials mode and nothing in fused mode; chunks past S exit
+//     at once.
 //   * K and V tiles of 64 slots are staged by cp.async in 16-byte vectors,
 //     16-byte chunks XOR-swizzled by slot % 8, through a ring of two stages
 //     (one where two do not fit: fp32 at hd 256); a masked slot is neither
@@ -59,9 +75,8 @@
 
 namespace {
 
-constexpr int THREADS = 256;         // split kernel
+constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int COMBINE_THREADS = 256;
 constexpr int MAXG = 8;              // query rows per KV head a block holds
 constexpr int TILE = 64;             // slots per staged tile
 constexpr int RG = THREADS / TILE;   // row groups of the score pass
@@ -78,6 +93,13 @@ __host__ __device__ inline size_t split_smem_bytes(int hd, int esize, int G) {
   return ring + 4 * floats + 4 * (TILE + 4);
 }
 
+// live chunks of split s: its slots below S, [s*L, min(s*L + L, S)), cut
+// into chunks of `chunk` slots
+__host__ __device__ inline int live_chunks(int s, int S, int L, int chunk) {
+  const int lo = s * L, end = min(lo + L, S);
+  return end > lo ? (end - lo + chunk - 1) / chunk : 0;
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -89,6 +111,15 @@ __device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+
+// two outputs of a row, normalized by its l as the reference's combine
+template <typename T>
+__device__ __forceinline__ void store_normalized(T* p, float a, float b,
+                                                 float l) {
+  const float d = fmaxf(l, 1e-30f);
+  store1(p, a / d);
+  store1(p + 1, b / d);
 }
 
 // 16 bytes of K or V from shared memory, as fp32
@@ -153,14 +184,15 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool FUSED>
 __global__ void __launch_bounds__(THREADS, 1)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ bias,
                     float* __restrict__ o_part, float* __restrict__ m_part,
-                    float* __restrict__ l_part, float* o_scr, float* m_scr,
-                    float* l_scr, int* counters, int S, int Sp, int KVH,
-                    int G, int chunk, int stages, float scale) {
+                    float* __restrict__ l_part, T* __restrict__ out,
+                    float* o_scr, float* m_scr, float* l_scr, int* counters,
+                    int S, int Sp, int KVH, int G, int chunk, int stages,
+                    float scale) {
   extern __shared__ __align__(16) unsigned char smraw[];
   constexpr int ES = sizeof(T);
   constexpr int EPC = 16 / ES;          // elements per 16-byte chunk
@@ -193,11 +225,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int L = Sp / nsplit;
   const int s_lo = split * L;
   const int s_end = min(s_lo + L, S);   // the split's slots below S
-  const int n_live = s_end > s_lo ? (s_end - s_lo + chunk - 1) / chunk : 0;
+  const int n_live = live_chunks(split, S, L, chunk);
   const size_t part = (size_t)bk * nsplit + split;
 
   if (n_live == 0) {                    // padding only: the empty result
-    if (c == 0) {
+    if (!FUSED && c == 0) {
       for (int e = tid; e < G * HD; e += THREADS) o_part[part * G * HD + e] = 0.f;
       if (tid < G) {
         m_part[part * G + tid] = -INFINITY;
@@ -366,8 +398,34 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  const bool direct = n_live == 1;
-  const size_t cpart = direct ? part : part * C + c;
+  // The partials the last block folds lie in the scratch from c0 on, n_fold
+  // of them: the split's live chunks (partials mode), or every live chunk
+  // of the head group, split by split (fused); this block's is at c0 + rank.
+  int n_fold = n_live, rank = c;
+  size_t c0 = part * C;
+  if (FUSED) {
+    n_fold = rank = 0;
+    for (int s = 0; s < nsplit; ++s) {
+      const int n = live_chunks(s, S, L, chunk);
+      rank += s < split ? n : 0;
+      n_fold += n;
+    }
+    rank += c;
+    c0 = (size_t)bk * nsplit * C;
+  }
+  // fused: the group's rows of the output
+  T* ob = FUSED ? out + ((size_t)b * H + (size_t)kvh * G) * HD : nullptr;
+  const bool direct = n_fold == 1;
+  if (FUSED && direct) {                // the one live block: normalize
+    if (sg == 0) {
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g)
+        if (g < G)
+          store_normalized(ob + g * HD + dp, acc[g][0], acc[g][1], l_s[g]);
+    }
+    return;
+  }
+  const size_t cpart = direct ? part : c0 + rank;
   float* od = (direct ? o_part : o_scr) + cpart * G * HD;
   float* md = (direct ? m_part : m_scr) + cpart * G;
   float* ld = (direct ? l_part : l_scr) + cpart * G;
@@ -384,10 +442,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (direct) return;
 
-  // the last of the split's live chunks folds their partials
+  // the last of the live chunks to arrive folds their partials
+  int* cnt = counters + (FUSED ? (size_t)bk : part);
   __threadfence();
   __syncthreads();
-  if (tid == 0) *last = atomicAdd(counters + part, 1) == n_live - 1;
+  if (tid == 0) *last = atomicAdd(cnt, 1) == n_fold - 1;
   __syncthreads();
   if (!*last) return;
   __threadfence();
@@ -397,7 +456,6 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // exp(m_i - max m) (0 where m_i = -inf), then each thread's 2 dims of
   // its rows, the chunks' loads unrolled so that they are in flight
   // together.
-  const size_t c0 = part * C;
   float* lc = red;                      // [TILE][MAXG]: the chunks' l
   auto load_ml = [&](int cb, int nb) {
     for (int e = tid; e < nb * G; e += THREADS) {
@@ -406,8 +464,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
   if (tid < MAXG) m_s[tid] = -INFINITY;
-  for (int cb = 0; cb < n_live; cb += TILE) {
-    const int nb = min(TILE, n_live - cb);
+  for (int cb = 0; cb < n_fold; cb += TILE) {
+    const int nb = min(TILE, n_fold - cb);
     __syncthreads();
     load_ml(cb, nb);
     __syncthreads();
@@ -418,10 +476,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) of[g][0] = of[g][1] = 0.f;
   float lt = 0.f;
-  for (int cb = 0; cb < n_live; cb += TILE) {
-    const int nb = min(TILE, n_live - cb);
+  for (int cb = 0; cb < n_fold; cb += TILE) {
+    const int nb = min(TILE, n_fold - cb);
     __syncthreads();
-    if (n_live > TILE) {
+    if (n_fold > TILE) {
       load_ml(cb, nb);
       __syncthreads();
     }
@@ -447,52 +505,35 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
   }
+  if (FUSED) {                          // normalize: out = o / max(l, 1e-30)
+    if (tid < G) l_s[tid] = lt;
+    __syncthreads();
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g)
-    if (g < G && g % SG == sg)
-      *reinterpret_cast<float2*>(o_part + (part * G + g) * HD + dp) =
-          make_float2(of[g][0], of[g][1]);
-  if (tid < G) {
-    m_part[part * G + tid] = m_s[tid];
-    l_part[part * G + tid] = lt;
-  }
-  if (tid == 0) counters[part] = 0;     // ready for the next launch
-}
-
-template <typename T>
-__global__ void __launch_bounds__(COMBINE_THREADS)
-decode_combine_kernel(const float* __restrict__ o_part,
-                      const float* __restrict__ m_part,
-                      const float* __restrict__ l_part, T* __restrict__ out,
-                      int nsplit, int G, int hd) {
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int KVH = gridDim.x;
-  const size_t base = ((size_t)b * KVH + kvh) * nsplit;
-  for (int e = threadIdx.x; e < G * hd; e += COMBINE_THREADS) {
-    const int g = e / hd;
-    const int d = e % hd;
-    float m_tot = -INFINITY;
-    for (int s = 0; s < nsplit; ++s) m_tot = fmaxf(m_tot, m_part[(base + s) * G + g]);
-    const float m_safe = finite(m_tot) ? m_tot : 0.f;
-    float l_tot = 0.f, acc = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const float m = m_part[(base + s) * G + g];
-      const float w = finite(m) ? expf(m - m_safe) : 0.f;
-      l_tot += w * l_part[(base + s) * G + g];
-      acc += w * o_part[((base + s) * G + g) * hd + d];
+    for (int g = 0; g < MAXG; ++g)
+      if (g < G && g % SG == sg)
+        store_normalized(ob + g * HD + dp, of[g][0], of[g][1], l_s[g]);
+  } else {
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g)
+      if (g < G && g % SG == sg)
+        *reinterpret_cast<float2*>(o_part + (part * G + g) * HD + dp) =
+            make_float2(of[g][0], of[g][1]);
+    if (tid < G) {
+      m_part[part * G + tid] = m_s[tid];
+      l_part[part * G + tid] = lt;
     }
-    store1(out + (((size_t)b * KVH + kvh) * G + g) * hd + d,
-           acc / fmaxf(l_tot, 1e-30f));
   }
+  if (tid == 0) *cnt = 0;               // ready for the next launch
 }
 
 template <typename T, int HD>
 cudaError_t launch_split(const void* q, const void* k, const void* v,
                          const void* bias, void* o, void* m, void* l,
-                         void* o_scr, void* m_scr, void* l_scr, void* counters,
-                         int B, int S, int Sp, int KVH, int G, int nsplit,
-                         int C, int chunk, cudaStream_t stream) {
+                         void* out, void* o_scr, void* m_scr, void* l_scr,
+                         void* counters, int B, int S, int Sp, int KVH, int G,
+                         int nsplit, int C, int chunk, cudaStream_t stream) {
+  auto kernel = decode_split_kernel<T, HD, false>;
+  if (out) kernel = decode_split_kernel<T, HD, true>;
   const size_t smem = split_smem_bytes(HD, sizeof(T), G);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -501,59 +542,53 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
                                dev);
   if (err != cudaSuccess) return err;
   if (smem > (size_t)optin) return cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(decode_split_kernel<T, HD>,
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(C, nsplit, B * KVH);
-  decode_split_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<float*>(o), static_cast<float*>(m), static_cast<float*>(l),
-      static_cast<float*>(o_scr), static_cast<float*>(m_scr),
-      static_cast<float*>(l_scr), static_cast<int*>(counters), S, Sp, KVH, G,
-      chunk, split_stages(HD, sizeof(T)), 1.0f / sqrtf((float)HD));
+      static_cast<T*>(out), static_cast<float*>(o_scr),
+      static_cast<float*>(m_scr), static_cast<float*>(l_scr),
+      static_cast<int*>(counters), S, Sp, KVH, G, chunk,
+      split_stages(HD, sizeof(T)), 1.0f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
+// `out` null: partials mode (o, m, l needed); else fused (o, m, l unused).
+// The scratch and counters are needed where a fold may take more than one
+// block's partials: C > 1 (partials), splits * C > 1 (fused).
 template <typename T>
 int split_dispatch(const void* q, const void* k, const void* v,
-                   const void* bias, void* o, void* m, void* l, void* o_scr,
-                   void* m_scr, void* l_scr, void* counters, int B, int S,
-                   int Sp, int KVH, int G, int hd, int bkv, int nsplit, int C,
-                   int chunk, void* stream) {
+                   const void* bias, void* o, void* m, void* l, void* out,
+                   void* o_scr, void* m_scr, void* l_scr, void* counters,
+                   int B, int S, int Sp, int KVH, int G, int hd, int bkv,
+                   int nsplit, int C, int chunk, void* stream) {
+  const long long folds = out ? (long long)nsplit * C : C;
   if (B <= 0 || S <= 0 || KVH <= 0 || G <= 0 || G > MAXG || bkv <= 0 ||
       nsplit <= 0 || Sp < S || Sp % (nsplit * bkv) || C <= 0 || chunk <= 0 ||
       chunk % TILE || (long long)C * chunk < (long long)min(Sp / nsplit, S) ||
-      (C > 1 && (!o_scr || !m_scr || !l_scr || !counters)))
+      (!out && (!o || !m || !l)) ||
+      (folds > 1 && (!o_scr || !m_scr || !l_scr || !counters)))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 64: return launch_split<T, 64>(q, k, v, bias, o, m, l, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
-    case 128: return launch_split<T, 128>(q, k, v, bias, o, m, l, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
-    case 256: return launch_split<T, 256>(q, k, v, bias, o, m, l, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
+    case 64: return launch_split<T, 64>(q, k, v, bias, o, m, l, out, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
+    case 128: return launch_split<T, 128>(q, k, v, bias, o, m, l, out, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
+    case 256: return launch_split<T, 256>(q, k, v, bias, o, m, l, out, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-int combine_dispatch(const void* o, const void* m, const void* l, void* out,
-                     int B, int KVH, int nsplit, int G, int hd, void* stream) {
-  if (B <= 0 || KVH <= 0 || nsplit <= 0 || G <= 0 || hd <= 0)
-    return cudaErrorInvalidValue;
-  const dim3 grid(KVH, B);
-  decode_combine_kernel<T><<<grid, COMBINE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(o), static_cast<const float*>(m),
-      static_cast<const float*>(l), static_cast<T*>(out), nsplit, G, hd);
-  return cudaGetLastError();
-}
-
-template <typename T>
+template <typename T, bool FUSED>
 cudaError_t split_attrs_of(int hd, cudaFuncAttributes* attr) {
   switch (hd) {
-    case 64: return cudaFuncGetAttributes(attr, decode_split_kernel<T, 64>);
-    case 128: return cudaFuncGetAttributes(attr, decode_split_kernel<T, 128>);
-    case 256: return cudaFuncGetAttributes(attr, decode_split_kernel<T, 256>);
+    case 64: return cudaFuncGetAttributes(attr, decode_split_kernel<T, 64, FUSED>);
+    case 128: return cudaFuncGetAttributes(attr, decode_split_kernel<T, 128, FUSED>);
+    case 256: return cudaFuncGetAttributes(attr, decode_split_kernel<T, 256, FUSED>);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -563,49 +598,37 @@ cudaError_t split_attrs_of(int hd, cudaFuncAttributes* attr) {
 extern "C" {
 
 int decode_split_f32(const void* q, const void* k, const void* v,
-                     const void* bias, void* o, void* m, void* l, void* o_scr,
-                     void* m_scr, void* l_scr, void* counters, int B, int S,
-                     int Sp, int KVH, int G, int hd, int bkv, int nsplit,
-                     int C, int chunk, void* stream) {
-  return split_dispatch<float>(q, k, v, bias, o, m, l, o_scr, m_scr, l_scr,
-                               counters, B, S, Sp, KVH, G, hd, bkv, nsplit, C,
-                               chunk, stream);
+                     const void* bias, void* o, void* m, void* l, void* out,
+                     void* o_scr, void* m_scr, void* l_scr, void* counters,
+                     int B, int S, int Sp, int KVH, int G, int hd, int bkv,
+                     int nsplit, int C, int chunk, void* stream) {
+  return split_dispatch<float>(q, k, v, bias, o, m, l, out, o_scr, m_scr,
+                               l_scr, counters, B, S, Sp, KVH, G, hd, bkv,
+                               nsplit, C, chunk, stream);
 }
 
 int decode_split_bf16(const void* q, const void* k, const void* v,
-                      const void* bias, void* o, void* m, void* l,
+                      const void* bias, void* o, void* m, void* l, void* out,
                       void* o_scr, void* m_scr, void* l_scr, void* counters,
                       int B, int S, int Sp, int KVH, int G, int hd, int bkv,
                       int nsplit, int C, int chunk, void* stream) {
-  return split_dispatch<__nv_bfloat16>(q, k, v, bias, o, m, l, o_scr, m_scr,
-                                       l_scr, counters, B, S, Sp, KVH, G, hd,
-                                       bkv, nsplit, C, chunk, stream);
+  return split_dispatch<__nv_bfloat16>(q, k, v, bias, o, m, l, out, o_scr,
+                                       m_scr, l_scr, counters, B, S, Sp, KVH,
+                                       G, hd, bkv, nsplit, C, chunk, stream);
 }
 
-int decode_combine_f32(const void* o, const void* m, const void* l, void* out,
-                       int B, int KVH, int nsplit, int G, int hd,
-                       void* stream) {
-  return combine_dispatch<float>(o, m, l, out, B, KVH, nsplit, G, hd, stream);
-}
-
-int decode_combine_bf16(const void* o, const void* m, const void* l,
-                        void* out, int B, int KVH, int nsplit, int G, int hd,
-                        void* stream) {
-  return combine_dispatch<__nv_bfloat16>(o, m, l, out, B, KVH, nsplit, G, hd,
-                                         stream);
-}
-
-// Registers per thread and local (spill) bytes: kernel 0 = split (at hd),
-// 1 = combine; dtype 0 = fp32, 1 = bf16.
-int decode_attrs(int kernel, int dtype, int hd, int* regs, int* local_bytes) {
+// Registers per thread and local (spill) bytes of the kernel at hd: mode 0 =
+// partials, 1 = fused (the combine in its last block); dtype 0 = fp32,
+// 1 = bf16.
+int decode_attrs(int mode, int dtype, int hd, int* regs, int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t err;
-  if (kernel == 0)
-    err = dtype == 0 ? split_attrs_of<float>(hd, &attr)
-                     : split_attrs_of<__nv_bfloat16>(hd, &attr);
+  if (mode == 0)
+    err = dtype == 0 ? split_attrs_of<float, false>(hd, &attr)
+                     : split_attrs_of<__nv_bfloat16, false>(hd, &attr);
   else
-    err = dtype == 0 ? cudaFuncGetAttributes(&attr, decode_combine_kernel<float>)
-                     : cudaFuncGetAttributes(&attr, decode_combine_kernel<__nv_bfloat16>);
+    err = dtype == 0 ? split_attrs_of<float, true>(hd, &attr)
+                     : split_attrs_of<__nv_bfloat16, true>(hd, &attr);
   if (err != cudaSuccess) return err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;

@@ -1,23 +1,25 @@
-"""Split-KV flash decode: one new token over the KV cache, as two
-hand-written CUDA kernels.
+"""Split-KV flash decode: one new token over the KV cache, as one
+hand-written CUDA kernel.
 
-Port of ``repro/kernels/flash_decode.py``. The kernels are in
-``csrc/flash_decode.cu`` (its header gives the bound and the design):
-:func:`decode_split` scans ``num_splits`` ranges of the cache in
-``block_kv`` tiles and returns unnormalized ``(o, m, l)`` partials, and
-:func:`decode_combine` folds the splits. :func:`flash_decode` is the
-reference's entry point: the split pass, then the combine by the combine
-kernel (``combine="kernel"``) or by tensor ops (``combine="torch"``, the
-reference's ``"jax"`` strategy; on the card it is a tuning choice, whose
-tensor ops run there too).
+Port of ``repro/kernels/flash_decode.py``. The kernel is in
+``csrc/flash_decode.cu`` (its header gives the bound and the design). It
+runs in two modes. :func:`decode_split` scans ``num_splits`` ranges of the
+cache in ``block_kv`` tiles and returns unnormalized ``(o, m, l)``
+partials. :func:`flash_decode` is the reference's entry point: with
+``combine="kernel"`` one launch does the split pass and the cross-split
+combine, folded into its last block (the reference's second kernel); with
+``combine="torch"`` (the reference's ``"jax"`` strategy; on the card a
+tuning choice whose tensor ops run there too) the partials are merged by
+tensor ops.
 
-The split kernel's grid is planned here, in :func:`decode_plan`: each
-split is cut into chunks, one block each, so that the grid fills the card;
-the kernel folds a split's chunks back into that split's partials, so
-:func:`decode_split` returns what the plain version returns.
+The kernel's grid is planned here, in :func:`decode_plan`: each split is
+cut into chunks, one block each, so that the grid fills the card; the
+kernel folds the chunks back, per split into that split's partials (so
+:func:`decode_split` returns what the plain version returns) or per head
+group into the normalized output.
 
 A CPU tensor takes the plain versions (``kernels.ref.decode_split`` and
-``combine_partials``); a CUDA tensor launches the kernels or raises.
+``combine_partials``); a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -29,14 +31,13 @@ from repro_torch.kernels import _build, ref
 
 COMBINE_STRATEGIES = ("torch", "kernel")
 
-#: Kernel launches by :func:`decode_split` and :func:`decode_combine`
-#: (never by the plain versions).
+#: Launches of the kernel: every launch counts in ``split_launches``, and
+#: those that carry the fused combine (``flash_decode(combine="kernel")``)
+#: also in ``combine_launches``. The plain versions count nothing.
 split_launches = 0
 combine_launches = 0
 
 _SPLIT = {torch.float32: "decode_split_f32", torch.bfloat16: "decode_split_bf16"}
-_COMBINE = {torch.float32: "decode_combine_f32",
-            torch.bfloat16: "decode_combine_bf16"}
 
 #: Head dims the split kernel is built for, query rows a block holds, its
 #: threads per block, the slots it stages per tile, and the blocks its grid
@@ -47,9 +48,11 @@ THREADS = 256
 TILE = 64
 FILL_BLOCKS = 132
 
-#: Per-split arrival counters of the split kernel, per (device, stream):
-#: zeroed once, and reset by the kernel after each use.
-_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+#: Arrival counters of the kernel, per (device, stream, fused): per split
+#: in partials mode, per head group in fused mode, two buffers so that
+#: launches of both modes on one stream never share a counter. Zeroed once,
+#: and reset by the kernel after each use.
+_counters: Dict[Tuple[int, int, bool], torch.Tensor] = {}
 
 
 def decode_stages(hd: int, dtype_bytes: int) -> int:
@@ -95,9 +98,9 @@ def chunk_ranges(split: int, S: int, Sp: int, num_splits: int, C: int,
             for lo in range(lo0, lo0 + C * chunk, chunk) if lo < end]
 
 
-def _arrival_counters(device: torch.device, stream: int, n: int
-                      ) -> torch.Tensor:
-    key = (device.index, stream)
+def _arrival_counters(device: torch.device, stream: int, fused: bool,
+                      n: int) -> torch.Tensor:
+    key = (device.index, stream, fused)
     cnt = _counters.get(key)
     if cnt is None or cnt.numel() < n:
         cnt = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
@@ -110,15 +113,7 @@ def _check_cuda(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
 
 
-def decode_split(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, bias: torch.Tensor, *,
-                 block_kv: int = 512, num_splits: int = 1
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q (B,H,hd); caches (B,S,KV,hd), fp32 or bf16 like q; bias (B,Sp)
-    fp32 (0 valid, -inf masked) with Sp >= S a multiple of num_splits x
-    block_kv, slots past S masked. Returns o (B,KV,splits,G,hd), m and l
-    (B,KV,splits,G), fp32."""
-    global split_launches
+def _check_operands(q, k_cache, v_cache, bias, block_kv, num_splits):
     B, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     Sp = bias.shape[1]
@@ -134,15 +129,22 @@ def decode_split(q: torch.Tensor, k_cache: torch.Tensor,
                          f"multiple of num_splits x block_kv = "
                          f"{num_splits * block_kv}")
     if not (q.dtype == k_cache.dtype == v_cache.dtype) or q.dtype not in _SPLIT:
-        raise TypeError(f"decode_split takes fp32 or bf16 q and caches, got "
+        raise TypeError(f"flash decode takes fp32 or bf16 q and caches, got "
                         f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
     if bias.dtype != torch.float32:
         raise TypeError(f"bias must be fp32, got {bias.dtype}")
     if not (q.device == k_cache.device == v_cache.device == bias.device):
-        raise ValueError("decode_split operands on different devices")
-    if q.device.type == "cpu":
-        return ref.decode_split(q, k_cache, v_cache, bias, num_splits)
-    _check_cuda(q, "decode_split")
+        raise ValueError("flash decode operands on different devices")
+
+
+def _launch(q, k_cache, v_cache, bias, block_kv, num_splits, fused):
+    """One launch of the kernel on checked CUDA operands: the normalized
+    output (B,H,hd) in q's dtype when ``fused``, else the partials."""
+    global split_launches, combine_launches
+    _check_cuda(q, "flash decode")
+    B, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    Sp = bias.shape[1]
     G = H // KV
     if hd not in HEAD_DIMS or G > MAX_GROUP:
         raise ValueError(f"kernel takes hd in {HEAD_DIMS} and at most "
@@ -150,68 +152,53 @@ def decode_split(q: torch.Tensor, k_cache: torch.Tensor,
                          f"G={G}")
     q, k_cache, v_cache, bias = (t.contiguous()
                                  for t in (q, k_cache, v_cache, bias))
-    o = torch.empty((B, KV, num_splits, G, hd), dtype=torch.float32,
-                    device=q.device)
-    m = torch.empty((B, KV, num_splits, G), dtype=torch.float32,
-                    device=q.device)
-    l = torch.empty_like(m)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if fused:
+        out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+        ptrs = (0, 0, 0, out.data_ptr())
+    else:
+        out = (torch.empty((B, KV, num_splits, G, hd), **f32),
+               torch.empty((B, KV, num_splits, G), **f32),
+               torch.empty((B, KV, num_splits, G), **f32))
+        ptrs = tuple(t.data_ptr() for t in out) + (0,)
     C, chunk = decode_plan(B, KV, S, Sp, num_splits)
     scratch = (0, 0, 0, 0)
     stream = _build.stream_of(q)
-    if C > 1:
-        n = B * KV * num_splits
-        o_scr = torch.empty(n * C * G * hd, dtype=torch.float32,
-                            device=q.device)
-        ml_scr = torch.empty(2 * n * C * G, dtype=torch.float32,
-                             device=q.device)
-        cnt = _arrival_counters(q.device, stream.value, n)
+    n = B * KV * num_splits
+    if (num_splits * C if fused else C) > 1:   # a fold of several blocks
+        o_scr = torch.empty(n * C * G * hd, **f32)
+        ml_scr = torch.empty(2 * n * C * G, **f32)
+        cnt = _arrival_counters(q.device, stream.value, fused,
+                                B * KV if fused else n)
         scratch = (o_scr.data_ptr(), ml_scr.data_ptr(),
                    ml_scr.data_ptr() + 4 * n * C * G, cnt.data_ptr())
     lib = _build.lib()
     with torch.cuda.device(q.device):
         code = getattr(lib, _SPLIT[q.dtype])(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            bias.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-            *scratch, B, S, Sp, KV, G, hd, block_kv, num_splits, C, chunk,
-            stream)
-    _build.check(code, f"decode_split B={B} S={S} Sp={Sp} KV={KV} G={G} "
-                       f"hd={hd} block_kv={block_kv} splits={num_splits} "
+            bias.data_ptr(), *ptrs, *scratch, B, S, Sp, KV, G, hd, block_kv,
+            num_splits, C, chunk, stream)
+    _build.check(code, f"flash decode{' (fused)' if fused else ''} B={B} "
+                       f"S={S} Sp={Sp} KV={KV} G={G} hd={hd} "
+                       f"block_kv={block_kv} splits={num_splits} "
                        f"chunks {C} x {chunk}")
     split_launches += 1
-    return o, m, l
-
-
-def decode_combine(o_part: torch.Tensor, m_part: torch.Tensor,
-                   l_part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Fold the split partials: o (B,KV,splits,G,hd), m and l
-    (B,KV,splits,G), fp32 -> (B, KV*G, hd) in ``dtype``."""
-    global combine_launches
-    B, KV, ns, G, hd = o_part.shape
-    if m_part.shape != (B, KV, ns, G) or l_part.shape != m_part.shape:
-        raise ValueError(f"partials {tuple(o_part.shape)}, "
-                         f"{tuple(m_part.shape)}, {tuple(l_part.shape)} "
-                         "do not fit")
-    if any(t.dtype != torch.float32 for t in (o_part, m_part, l_part)):
-        raise TypeError("decode_combine takes fp32 partials")
-    if dtype not in _COMBINE:
-        raise TypeError(f"decode_combine writes fp32 or bf16, not {dtype}")
-    if not (o_part.device == m_part.device == l_part.device):
-        raise ValueError("decode_combine operands on different devices")
-    if o_part.device.type == "cpu":
-        merged = ref.combine_partials(o_part, m_part, l_part)
-        return merged.reshape(B, KV * G, hd).to(dtype)
-    _check_cuda(o_part, "decode_combine")
-    o_part, m_part, l_part = (t.contiguous() for t in (o_part, m_part, l_part))
-    out = torch.empty((B, KV * G, hd), dtype=dtype, device=o_part.device)
-    lib = _build.lib()
-    with torch.cuda.device(o_part.device):
-        code = getattr(lib, _COMBINE[dtype])(
-            o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-            out.data_ptr(), B, KV, ns, G, hd, _build.stream_of(o_part))
-    _build.check(code, f"decode_combine B={B} KV={KV} splits={ns} G={G} "
-                       f"hd={hd}")
-    combine_launches += 1
+    combine_launches += fused
     return out
+
+
+def decode_split(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, bias: torch.Tensor, *,
+                 block_kv: int = 512, num_splits: int = 1
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q (B,H,hd); caches (B,S,KV,hd), fp32 or bf16 like q; bias (B,Sp)
+    fp32 (0 valid, -inf masked) with Sp >= S a multiple of num_splits x
+    block_kv, slots past S masked. Returns o (B,KV,splits,G,hd), m and l
+    (B,KV,splits,G), fp32."""
+    _check_operands(q, k_cache, v_cache, bias, block_kv, num_splits)
+    if q.device.type == "cpu":
+        return ref.decode_split(q, k_cache, v_cache, bias, num_splits)
+    return _launch(q, k_cache, v_cache, bias, block_kv, num_splits, False)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -220,13 +207,16 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  combine: str = "kernel") -> torch.Tensor:
     """Single-token cache attention: q (B,H,hd), caches (B,S,KV,hd), bias
     (B,Sp) as :func:`decode_split` takes them. Returns (B,H,hd) in q's
-    dtype."""
+    dtype. On the card ``combine="kernel"`` is one launch, the combine
+    fused into the split pass; ``"torch"`` merges the split partials with
+    tensor ops."""
     if combine not in COMBINE_STRATEGIES:
         raise ValueError(f"combine must be one of {COMBINE_STRATEGIES}, got "
                          f"{combine!r}")
+    if combine == "kernel" and q.device.type != "cpu":
+        _check_operands(q, k_cache, v_cache, bias, block_kv, num_splits)
+        return _launch(q, k_cache, v_cache, bias, block_kv, num_splits, True)
     o, m, l = decode_split(q, k_cache, v_cache, bias, block_kv=block_kv,
                            num_splits=num_splits)
-    if combine == "kernel":
-        return decode_combine(o, m, l, q.dtype)
     B, H, hd = q.shape
     return ref.combine_partials(o, m, l).reshape(B, H, hd).to(q.dtype)

@@ -42,7 +42,9 @@ from repro_torch.parallel.sharding import KernelConfig, ParallelConfig
 
 
 def kernel_launches() -> Dict[str, int]:
-    """Launch counts of the serve path's three kernels."""
+    """Launch counts of the serve path's kernels: flash attention, and the
+    decode kernel's launches, all of them and those that carry the fused
+    combine."""
     return {"flash_attention": kfa.launches,
             "flash_decode_split": kfd.split_launches,
             "flash_decode_combine": kfd.combine_launches}
@@ -106,7 +108,8 @@ class DecodeServer:
         hd = self.cfg.resolved_head_dim
         kc = self.pcfg.kernel
         gate = L._decode_kernel_ok(hd, hd, kc, self.device)
-        combine = (" + combine kernel" if gate and kc.decode_combine == "kernel"
+        combine = (" with the combine fused in"
+                   if gate and kc.decode_combine == "kernel"
                    else " + tensor-op combine")
         return self._impl(gate, "flash-decode split kernel" + combine,
                           "plain decode attention")

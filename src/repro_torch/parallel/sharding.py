@@ -24,9 +24,9 @@ class KernelConfig:
     tuning cells in ``repro_torch.kernels.tuning``. The defaults are blocks
     the CUDA kernels run at every head dim they take (the reference's 512 /
     512 prefill default needs 256 KB of shared memory at head dim 256), and
-    the combine kernel for the cross-split merge (the reference defaults to
-    its tensor-op merge). The reference's ``interpret`` field has no
-    counterpart: a CPU tensor takes the plain version, a CUDA tensor
+    the kernel's fused combine for the cross-split merge (the reference
+    defaults to its tensor-op merge). The reference's ``interpret`` field
+    has no counterpart: a CPU tensor takes the plain version, a CUDA tensor
     launches the kernel.
     """
 
@@ -36,7 +36,8 @@ class KernelConfig:
     use_decode: bool = False         # split-KV flash decode per token
     decode_block_kv: int = 512
     decode_num_splits: int = 1
-    # cross-split merge: "kernel" = the combine kernel, "torch" = tensor ops
+    # cross-split merge: "kernel" = fused into the split kernel's launch
+    # (the reference's combine kernel), "torch" = tensor ops
     # (the reference's "jax" strategy); a tuning dimension of the decode cell
     decode_combine: str = "kernel"
 

@@ -256,9 +256,12 @@ def test_flash_refused_config_raises_launch_refused(card):
     (4, 1088, 8, 1, 256, 1054, 128, 8),   # splits 5..7 hold only padding
     (1, 1088, 8, 1, 256, 1054, 1024, 1),  # B 1: one split of 17 chunks
     (2, 1024, 8, 1, 128, 5, 128, 2),      # mostly empty: masked chunks
+    (66, 64, 8, 4, 64, 60, 64, 1),        # one block a group: no fold
 ])
 def test_decode_kernels_match_plain(card, dtype, B, S, H, KV, hd, cur, bkv,
                                     ns):
+    """combine="kernel" is one launch, the combine fused into the split
+    kernel; its partials mode (decode_split) against the plain split."""
     rng = np.random.default_rng(2)
     q = torch.from_numpy(rng.normal(size=(B, 1, H, hd))).to(card, dtype)
     k, v = (torch.from_numpy(rng.normal(size=(B, S, KV, hd))).to(card, dtype)
@@ -291,6 +294,64 @@ def test_decode_kernels_match_plain(card, dtype, B, S, H, KV, hd, cur, bkv,
     ko2, km2, kl2 = kfd.decode_split(q[:, 0], k, v, bias, block_kv=bkv,
                                      num_splits=ns)
     assert torch.equal(km2, km) and torch.equal(kl2, kl)
+    assert kfd.split_launches == 3 and kfd.combine_launches == 1
+
+
+def _decode_problem(card, dtype, B, S, H, KV, hd, curs, bkv, ns):
+    """q, caches and bias of a cache filled to ``curs[b]`` in row b (-1:
+    no valid slot)."""
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.normal(size=(B, H, hd))).to(card, dtype)
+    k, v = (torch.from_numpy(rng.normal(size=(B, S, KV, hd))).to(card, dtype)
+            for _ in range(2))
+    pos = np.stack([np.where(np.arange(S) <= c, np.arange(S), -1)
+                    for c in curs])
+    cp = torch.from_numpy(pos).to(card)
+    cu = torch.tensor(curs, device=card)
+    return q, k, v, ops.decode_bias(cp, cu, None, ns * bkv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,bkv,ns", [
+    (4, 1088, 8, 1, 256, 128, 8),         # folds 17 chunks of 5 splits
+    (4, 1088, 8, 1, 256, 1024, 1),        # folds the chunks of one split
+    (132, 64, 8, 1, 64, 64, 1),           # one block a group: no fold
+])
+def test_decode_group_with_no_valid_slot_gives_exact_zeros(
+        card, dtype, B, S, H, KV, hd, bkv, ns):
+    """A head group whose every slot is masked gives exact zeros (the
+    reference's 0 / 1e-30), not NaN; the other groups agree with the plain
+    version."""
+    curs = [-1 if b % 2 else S - 30 for b in range(B)]
+    q, k, v, bias = _decode_problem(card, dtype, B, S, H, KV, hd, curs, bkv,
+                                    ns)
+    got = kfd.flash_decode(q, k, v, bias, block_kv=bkv, num_splits=ns,
+                           combine="kernel")
+    want = ref.combine_partials(*ref.decode_split(q, k, v, bias, ns)
+                                ).reshape(B, H, hd).to(dtype)
+    torch.cuda.synchronize()
+    assert torch.all(got[1::2] == 0) and torch.all(want[1::2] == 0)
+    _check(got[0::2], want[0::2], dtype)
+
+
+def test_fused_and_partials_launches_on_one_stream_repeat_bitwise(card):
+    """fused -> partials -> fused on one stream: the second fused output
+    equals the first bit for bit, so each mode's arrival counters are
+    reset by the kernel and never shared between the modes."""
+    q, k, v, bias = _decode_problem(card, torch.bfloat16, 4, 1088, 8, 1,
+                                    256, [1054] * 4, 128, 8)
+    kw = dict(block_kv=128, num_splits=8)
+    kfd.split_launches = kfd.combine_launches = 0
+    first = kfd.flash_decode(q, k, v, bias, combine="kernel", **kw)
+    parts = kfd.decode_split(q, k, v, bias, **kw)
+    second = kfd.flash_decode(q, k, v, bias, combine="kernel", **kw)
+    again = kfd.decode_split(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert kfd.split_launches == 4 and kfd.combine_launches == 2
+    assert torch.equal(first, second)
+    assert all(torch.equal(a, b) for a, b in zip(parts, again))
+    want = ref.combine_partials(*parts).reshape(4, 8, 256).to(torch.bfloat16)
+    _check(first, want, torch.bfloat16)
 
 
 def test_decode_server_on_the_card_launches_the_kernels(card):

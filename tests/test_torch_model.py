@@ -203,7 +203,7 @@ def test_decode_server_on_cpu_matches_its_plain_path():
     plain, kern = runs["plain"], runs["kernels"]
     assert plain.prefill_dispatch == "plain direct attention"
     assert kern.prefill_dispatch == "flash-attention kernel plain version (cpu)"
-    assert "combine kernel" in kern.decode_dispatch
+    assert "combine fused in" in kern.decode_dispatch
     assert len(kern.kept) == 7 and kern.pos == 22
     for a, b in zip(plain.kept, kern.kept):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -196,12 +196,27 @@ def test_combine_matches_jax_including_empty_splits():
     got = ref.combine_partials(*args)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
     assert np.all(got.numpy()[1, 1] == 0.0)
-    kfd.combine_launches = 0
-    wrapped = kfd.decode_combine(*args, torch.float32)
-    assert kfd.combine_launches == 0
-    np.testing.assert_allclose(wrapped.numpy(),
-                               want.reshape(B, KV * G, hd), rtol=1e-6,
-                               atol=1e-6)
+    # the port's combine="kernel" on CPU tensors (the plain split pass and
+    # combine, no launch) against the reference's split and combine kernels
+    # on a cache with an empty split (row 0) and empty head groups (row 1)
+    S, block_kv = 64, 16
+    q = rng.normal(size=(B, KV * G, hd)).astype(np.float32)
+    k, v = (rng.normal(size=(B, S, KV, hd)).astype(np.float32)
+            for _ in range(2))
+    valid = np.ones((B, S), bool)
+    valid[0, 16:32] = False
+    valid[1] = False
+    bias = np.where(valid, 0.0, -np.inf).astype(np.float32)
+    want = np.asarray(jax_fd.flash_decode(
+        *(jnp.asarray(x) for x in (q, k, v, bias)), block_kv=block_kv,
+        num_splits=ns, combine="kernel", interpret=True))
+    kfd.split_launches = kfd.combine_launches = 0
+    fused = kfd.flash_decode(*(torch.from_numpy(x) for x in (q, k, v, bias)),
+                             block_kv=block_kv, num_splits=ns,
+                             combine="kernel")
+    assert kfd.split_launches == kfd.combine_launches == 0
+    np.testing.assert_allclose(fused.numpy(), want, rtol=1e-6, atol=1e-6)
+    assert np.all(fused.numpy()[1] == 0.0) and np.all(want[1] == 0.0)
 
 
 def test_plain_split_partials_fold_to_the_decode_reference():
@@ -349,6 +364,56 @@ def test_split_partials_fold_from_chunks(S, cur, block_kv, num_splits):
     if cur < 10:
         assert n_empty > 0               # all-masked chunks were folded
     assert L > 0
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,cur,block_kv,num_splits,empty_row", [
+    (2, 128, 4, 2, 16, 97, 128, 1, False),     # one split of 2 chunks
+    (2, 200, 4, 2, 16, 150, 64, 2, False),     # capacity does not tile
+    (2, 256, 4, 1, 16, 240, 32, 4, False),
+    (2, 1088, 4, 1, 16, 1054, 128, 8, False),  # splits 5..7 padding only
+    (2, 256, 4, 2, 16, 97, 64, 2, True),       # row 1: no valid slot
+    (2, 256, 8, 1, 256, 200, 64, 2, False),    # gemma-2b's G 8 and hd 256
+])
+def test_fused_fold_of_every_chunk_matches_the_jax_combine_kernel(
+        B, S, H, KV, hd, cur, block_kv, num_splits, empty_row):
+    """The kernel's fused mode: every live chunk of every split of a head
+    group counted once and folded in one level (``_fold_chunks``, the
+    kernel's fold), then normalized by max(l, 1e-30); splits of padding
+    only add no chunk. Against the reference's split kernel + combine
+    kernel in interpret mode, fp32, at the file's 2e-4 (rtol and atol: the
+    sums run in another order). A head group with no valid slot gives
+    exact zeros in both."""
+    q, k, v, cp, cu = _decode_case(B, S, H, KV, hd, cur)
+    if empty_row:
+        cp[1] = -1
+    bias = ops.decode_bias(torch.from_numpy(cp), torch.from_numpy(cu), None,
+                           num_splits * block_kv)
+    Sp = bias.shape[1]
+    args = (torch.from_numpy(q[:, 0]), torch.from_numpy(k),
+            torch.from_numpy(v))
+    C, chunk = kfd.decode_plan(B, KV, S, Sp, num_splits)
+    parts = []
+    for s in range(num_splits):
+        for lo, hi in kfd.chunk_ranges(s, S, Sp, num_splits, C, chunk):
+            cb = torch.full_like(bias, -math.inf)   # the chunk alone
+            cb[:, lo:hi] = bias[:, lo:hi]
+            parts.append([t[:, :, s] for t in
+                          ref.decode_split(*args, cb, num_splits)])
+    if S < Sp - Sp // num_splits:
+        assert len(parts) < num_splits * C         # padding adds no chunk
+    o_c, m_c, l_c = (torch.stack(x, 0) for x in zip(*parts))
+    o_f, _, l_f = _fold_chunks(o_c, m_c, l_c)
+    got = (o_f / torch.clamp(l_f, min=1e-30)[..., None]).reshape(B, H, hd)
+    pad = ((0, 0), (0, Sp - S), (0, 0), (0, 0))
+    want = np.asarray(jax_fd.flash_decode(
+        jnp.asarray(q[:, 0]), jnp.asarray(np.pad(k, pad)),
+        jnp.asarray(np.pad(v, pad)), jnp.asarray(bias.numpy()),
+        block_kv=block_kv, num_splits=num_splits, combine="kernel",
+        interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    if empty_row:
+        assert torch.all(got[1] == 0) and np.all(want[1] == 0)
+        assert torch.all(got[0] != 0)
 
 
 # -- tuning cells and the serve-side resolvers -----------------------------------
