@@ -14,10 +14,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      on the card (the kernel's error at most 4x the plain version's); the
      Matérn-GP posterior for all four ν at (t,N,d) = (13,512,6),
      (37,1024,15) and the paper's panel (220,18432,15) padded to T = 256;
-     flash attention in fp32 (CUDA cores) and bf16 (tensor cores) at small
-     shapes, S 192, and gemma-2b's prefill (B 4, S 1,024, H 8, KV 1, hd
-     256) under several blocks: block_q != block_kv, one and two
-     warpgroups, block_kv > 64 (successive 64-key updates); flash decode,
+     flash attention in fp32 (CUDA cores) and bf16 (tensor cores), causal
+     and full (causal=False), at small shapes, S 192, and gemma-2b's
+     prefill (B 4, S 1,024, H 8, KV 1, hd 256) under several blocks:
+     block_q != block_kv, one and two warpgroups, block_kv > 64 (successive
+     64-key updates); flash decode,
      every config both ways (one launch with the combine fused in, and the
      partials mode + the tensor-op combine), in fp32 and bf16 at gemma-2b's
      decode (B 4, capacity 1,088, H 8, KV 1, hd 256) and at its widths with
@@ -39,19 +40,33 @@ Phases, in order; any failure exits non-zero and prints no result:
      journaled into the same store;
   8. slice 2's main path: launch/serve.py's DecodeServer serves gemma-2b
      at full width and depth (random bf16 weights from a seed): prefill of
-     4 x 1,024 tokens, 64 greedy decode steps, blocks resolved from the
-     store; its logits are held against the plain attention path, teacher-
-     forced on the same tokens; one decode launch a layer, the combine
-     fused in, on the path or in an extra decode run of 8 steps;
+     4 x 1,024 tokens, 64 greedy decode steps, each a replay of the decode
+     step's captured CUDA graph, blocks resolved from the store; its logits
+     are held against the plain attention path, teacher-forced on the same
+     tokens; one decode launch a layer, the combine fused in, on the path
+     or in an extra decode run of 8 steps (replays count the launches they
+     hold, and a capture's warm-up step its own); the graph's logits
+     against the eager step function's on the same state (bit for bit or
+     not, within the serve limit); ms/step eager against graph in turns;
+ 10. the online loop on a copy of the phase-7 store, as serve --online
+     --kernels wires it: gemma-2b at prompt 1,024 and 128 steps (a cache
+     of 1,152, a decode cell never tuned: stale), one durable job, the
+     retune daemon's BO on the card (the GP kernel its surrogate) journaled
+     under its fence token, the hot-swap at the next poll (or the source's
+     reason to keep its config), a forced swap back that must be a graph-
+     cache hit, prod records, every decode launch fused, and the last steps
+     against the plain attention path;
   6. yardsticks at the blocks phases 4 and 8 ran: kernel, plain-version
      and library times (CUDA events around one call) beside each kernel's
      bound (GEMM and GP: on the path the kernel takes, the tensor cores,
      and on the CUDA cores), and the bf16 GEMM beside torch.matmul;
   9. torch.profiler, last (a profiler session leaves host overhead behind
      it): the device's busy share over a prefill and over 4 decode steps of
-     the phase-8 server, the kernels that took its time (one decode kernel
-     a layer and step), and each phase-6 call's device time (kernels only,
-     no host launch time); the fused decode call launches one kernel. The
+     the phase-8 server (graph replays, no logits kept), the kernels that
+     took its time (one decode kernel a layer and step), and each phase-6
+     call's device time (kernels only, no host launch time), the flash
+     kernel's full-attention instance beside SDPA(is_causal=False) among
+     them; the fused decode call launches one kernel. The
      combine's time is the fused launch's less the partials-mode launch's,
      on the same inputs, timed in turns.
 The line before the last holds the kernels' JSON summary (times are the
@@ -117,10 +132,20 @@ DECODE_CONFIGS = ((128, 8), (256, 4), (512, 2), (1024, 1), (512, 1), (128, 1))
 GEMMA_DECODE = (4, 1088, 8, 1, 256)
 # the serving run: batch, prompt, decode steps; logits held for PARITY_STEPS
 SERVE_B, SERVE_PROMPT, SERVE_STEPS, PARITY_STEPS = 4, 1024, 64, 8
+# eager against graph decode, in turns: this many pairs of SERVE_STEPS steps
+TIMING_PAIRS = 4
+# phase 10, the online loop: decode steps (a cache of 1,152, a decode cell
+# phase 7 never tuned), steps before the daemon runs, steps after the swap
+# back (held against the plain path), the daemon's budget and init
+ONLINE_STEPS, ONLINE_FIRST, ONLINE_LAST = 128, 8, 8
+DAEMON_BUDGET, DAEMON_INIT = 12, 4
+ONLINE_SHAPE = "decode_32k"          # the sharding cell (the reference's)
 # decode steps the profile window covers (phase 9)
 PROFILE_STEPS = 4
-# the phase-6/9 row of decode attention as one fused launch
+# the phase-6/9 row of decode attention as one fused launch, and of the
+# flash kernel's full-attention (causal=False) instance
 FUSED_DECODE = "decode (one fused launch)"
+FLASH_FULL = "flash_attention full (causal=False)"
 # a cache 97% full: the middle of the 64 decode steps (1,024..1,087 of 1,088)
 DECODE_FILL = 0.97
 # about 1 config in 6 of the 4096³ space passes the resource model, and the
@@ -341,32 +366,65 @@ def _agree(got, want, dtype, what: str) -> float:
     return mx
 
 
+def _agree_full_bf16(got, want, q, k, v, what: str) -> float:
+    """Full attention in bf16. The plain version rounds the scores q.k to
+    bf16 before the softmax, as the reference's ``ref.attention`` does; the
+    kernel keeps them in fp32, as the Pallas kernel does. Every row of a
+    full attention averages all S keys, so max|ref| is small and that
+    rounding (a score of |q.k| ~ 45 is off by up to 1/8 before the 1/16
+    scale) exceeds one output ulp. So the kernel is held to the plain
+    version at the reference's bf16 tolerance (3e-2 + 3e-2|ref|,
+    tests/test_kernels.py:55), and to the plain version computed in fp32 on
+    the same bf16 inputs, rounded to bf16, at 2^-7 x max|ref|, as causal
+    bf16 is held."""
+    import torch
+    from repro_torch.kernels import ref
+    bad = int(((got - want).abs() > 3e-2 + 3e-2 * want.abs()).sum())
+    log(f"  {what}: against the bf16 plain version max|err| "
+        f"{float((got - want).abs().max()):.3e} (3e-2 + 3e-2|ref|) -> "
+        f"{'ok' if bad == 0 else f'{bad} BAD'}")
+    if bad:
+        fail(f"{what} disagrees with its plain version in {bad} entries")
+    want32 = ref.attention(q.float(), k.float(), v.float(), causal=False)
+    return _agree(got, want32.to(torch.bfloat16).float(), torch.bfloat16,
+                  f"{what}, against the plain version in fp32")
+
+
 def check_flash(dev) -> dict:
+    """Every shape and block the resource model passes, causal and full
+    (``causal=False``), fp32 and bf16, against the plain version."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as kfa, ops, ref
-    worst = 0.0
+    worst = {}
     for (B, S, H, KV, hd) in FLASH_SHAPES:
         rng = np.random.default_rng(0)
         q64 = torch.from_numpy(rng.normal(size=(B, S, H, hd)))
         k64, v64 = (torch.from_numpy(rng.normal(size=(B, S, KV, hd)))
                     for _ in range(2))
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, causal in ((torch.float32, True), (torch.bfloat16, True),
+                              (torch.float32, False),
+                              (torch.bfloat16, False)):
             q, k, v = (t.to(dev, dtype) for t in (q64, k64, v64))
-            want = ref.attention(q, k, v).float()
+            want = ref.attention(q, k, v, causal=causal).float()
             for bq, bkv in FLASH_BLOCKS:
                 cfg = {"block_q": bq, "block_kv": bkv}
                 if S % bq or S % bkv or not ops.flash_valid(cfg, hd, dtype):
                     continue
-                got = kfa.flash_attention(q, k, v, block_q=bq,
-                                          block_kv=bkv).float()
+                got = kfa.flash_attention(q, k, v, block_q=bq, block_kv=bkv,
+                                          causal=causal).float()
                 torch.cuda.synchronize()
-                err = _agree(got, want, dtype,
-                             f"flash B{B} S{S} H{H} KV{KV} hd{hd} "
-                             f"{str(dtype)[6:]} blocks ({bq},{bkv})")
+                label = (f"flash B{B} S{S} H{H} KV{KV} hd{hd} "
+                         f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
+                         f" blocks ({bq},{bkv})")
+                if causal or dtype == torch.float32:
+                    err = _agree(got, want, dtype, label)
+                else:
+                    err = _agree_full_bf16(got, want, q, k, v, label)
                 if (B, S, H, KV, hd) == GEMMA_FLASH and dtype == torch.bfloat16:
-                    worst = max(worst, err)
-    return {"flash_attention": worst}
+                    key = "flash_attention" if causal else "flash_full"
+                    worst[key] = max(worst.get(key, 0.0), err)
+    return worst
 
 
 def _cache_positions(S: int, cur: int, rolling: bool):
@@ -559,6 +617,12 @@ def profile_window(fn, what: str, top: int = 8):
     rows = [(a.self_device_time_total / 1e3, a.count, a.key)
             for a in prof.key_averages()
             if a.device_type != DeviceType.CPU and a.self_device_time_total > 0]
+    graphs = sum(a.count for a in prof.key_averages()
+                 if a.device_type == DeviceType.CPU
+                 and "GraphLaunch" in a.key)
+    if graphs:
+        log(f"[9] profile of {what}: {graphs} CUDA graph launches on the "
+            "host; the device events below include the graphs' kernels")
     busy = sum(r[0] for r in rows)
     if busy <= 0:
         log(f"[9] profile of {what}: wall {wall_ms:.3f} ms; the profiler saw "
@@ -620,11 +684,20 @@ def serve_gemma(sdir: str, dev) -> dict:
         f"({server.decode_dispatch}); peak memory "
         f"{peak / 2 ** 30:.3f} GiB; launches {launches}")
     # one decode launch a layer and step, carrying the combine where the
-    # config says "kernel"; none else (phase 9 reads the device trace)
+    # config says "kernel"; none else (phase 9 reads the device trace). The
+    # steps replay the captured graph, which counts the launches it holds;
+    # each capture ran one warm-up step first
     fused = kc.decode_combine == "kernel"
+    n_dec = cfg.num_layers * (SERVE_STEPS + server.captures)
     want = {"flash_attention": 2 * cfg.num_layers,
-            "flash_decode_split": cfg.num_layers * SERVE_STEPS,
-            "flash_decode_combine": cfg.num_layers * SERVE_STEPS * fused}
+            "flash_decode_split": n_dec,
+            "flash_decode_combine": n_dec * fused}
+    log(f"[8] decode graphs: {server.captures} captured in "
+        f"{[round(t, 4) for t in server.capture_s]} s (warm-up step "
+        f"included); cache {server.kernel_cache.stats()}; {SERVE_STEPS} "
+        f"steps replayed, {cfg.num_layers} decode launches each")
+    if server.captures != 1:
+        fail(f"{server.captures} decode graphs captured for one config")
     for name, n in want.items():
         if launches[name] != n:
             fail(f"{name} launched {launches[name]} times in two prefills "
@@ -663,6 +736,8 @@ def serve_gemma(sdir: str, dev) -> dict:
         return worst
 
     rel = parity(server.kept, "served")
+    graph_vs_eager(server, batch, dev)
+    timing = eager_vs_graph_ms(server, batch, dev)
     combine = launches["flash_decode_combine"]
     if not fused:
         # the fused combine on the same path: an extra decode run at the
@@ -689,7 +764,252 @@ def serve_gemma(sdir: str, dev) -> dict:
     return {"kc": kc, "launches": launches, "prefill_ms": prefill_s * 1e3,
             "prefill_cold_ms": cold_s * 1e3,
             "step_ms": med * 1e3, "tokens_s": SERVE_B / med, "peak": peak,
-            "parity": rel, "server": server, "batch": batch}
+            "parity": rel, "server": server, "batch": batch,
+            "timing": timing}
+
+
+def eager_step(server, pos, dev) -> float:
+    """One decode step of ``server`` through its eager step function (no
+    graph), as ``DecodeServer.decode_step`` does on the CPU; seconds."""
+    import torch
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        pos.fill_(server.pos)
+        logits, _ = server.decode(server.params, server.cache,
+                                  {"tokens": server.toks[:, None]}, pos)
+        server.toks = torch.argmax(logits, -1)
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    server.out.append(server.toks)
+    server.pos += 1
+    return dt
+
+
+def graph_vs_eager(server, batch, dev) -> None:
+    """The graph step's logits against the eager step function's on the
+    same state, over PARITY_STEPS steps of a new sequence: before each
+    replay the eager step runs on the held state (it writes the cache slot
+    the replay then rewrites with the same values). Prints whether they are
+    equal bit for bit; fails past the serve limit, 2e-2 x max|logits|."""
+    import torch
+    server.prefill_batch(batch)
+    saved = server.keep_logits
+    server.keep_logits = PARITY_STEPS
+    same, worst = 0, 0.0
+    for _ in range(PARITY_STEPS):
+        with torch.inference_mode():
+            eager, _ = server.decode(server.params, server.cache,
+                                     {"tokens": server.toks[:, None]},
+                                     server.pos)
+            eager = eager.float().cpu()
+        server.decode_step()
+        got = server.kept[-1]
+        same += int(torch.equal(got, eager))
+        top = float(eager.abs().max())
+        worst = max(worst, float((got - eager).abs().max()) / top)
+    server.keep_logits = saved
+    log(f"[8] graph replay vs eager step on the same state, {PARITY_STEPS} "
+        f"steps: bit for bit equal at {same} of {PARITY_STEPS}; max|err| / "
+        f"max|logits| = {worst:.3e} (limit 2e-2)")
+    if worst > 2e-2:
+        fail(f"graph step logits {worst:.3e} x max|logits| from the eager "
+             "step's")
+
+
+def eager_vs_graph_ms(server, batch, dev) -> dict:
+    """Median ms/step of SERVE_STEPS decode steps, eager step function
+    against graph replay, in TIMING_PAIRS pairs in turns (E G, G E, ...),
+    each run on a fresh prefill of the same prompt, no logits kept."""
+    import torch
+    pos = torch.zeros((), dtype=torch.long, device=dev)
+    saved = server.keep_logits
+    server.keep_logits = 0
+    runs = {"eager": [], "graph": []}
+    for i in range(TIMING_PAIRS):
+        for mode in (("eager", "graph") if i % 2 == 0 else ("graph", "eager")):
+            server.prefill_batch(batch)
+            step = ((lambda: eager_step(server, pos, dev)) if mode == "eager"
+                    else server.decode_step)
+            runs[mode].append(1e3 * statistics.median(
+                [step() for _ in range(SERVE_STEPS)]))
+    server.keep_logits = saved
+    log(f"[8] decode ms/step (median of {SERVE_STEPS}), eager step against "
+        f"graph replay in turns (E G G E ...), {smi_line()}: eager "
+        f"{[round(x, 4) for x in runs['eager']]}, graph "
+        f"{[round(x, 4) for x in runs['graph']]}")
+    return runs
+
+
+def online_gemma(sdir: str, dev, params, gp_block_n: int) -> dict:
+    """Phase 10: the online loop on a copy of the phase-7 store, wired as
+    ``serve.main --online --kernels`` wires it: a stale decode cell, one
+    durable job, the retune daemon's BO on the card, the hot-swap (or the
+    source's reason to keep its config), a forced swap back that must be a
+    graph-cache hit, prod records, and parity against the plain path."""
+    import shutil
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.kernels import matern_gp as kgp
+    from repro_torch.launch import serve
+    from repro_torch.launch.retune import RetuneDaemon
+    from repro_torch.models.stepfn import make_decode_step, make_prefill_step
+    from repro_torch.parallel.sharding import ParallelConfig
+    from repro_torch.store import HotConfigSource, TuningRecordStore
+    cfg = get_arch("gemma-2b")
+    cap = SERVE_PROMPT + ONLINE_STEPS
+    odir = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_online_"), "st")
+    shutil.copytree(sdir, odir)
+    source = HotConfigSource(odir, cfg.name, ONLINE_SHAPE)
+    if source.refresh() is not None:
+        fail("the sharding cell has a record in a store of kernel cells")
+    kc = serve.serving_kernel_config(cfg, device=dev, prompt_len=SERVE_PROMPT,
+                                     cache_cap=cap, store=odir, log=log)
+    ksrc = serve.kernel_sources(odir, cfg, batch=SERVE_B,
+                                prompt_len=SERVE_PROMPT, cache_cap=cap,
+                                device=dev, log=log)
+    fsrc, dsrc = ksrc
+    log(f"[10] sources: {fsrc.objective_id} stale={fsrc.stale}; "
+        f"{dsrc.objective_id} stale={dsrc.stale}")
+    if fsrc.stale or not dsrc.stale:
+        fail("want the flash cell tuned (phase 7) and the decode cell at "
+             f"capacity {cap} stale")
+    first = {"block_kv": kc.decode_block_kv,
+             "num_splits": kc.decode_num_splits,
+             "combine": kc.decode_combine}
+    server = serve.DecodeServer(
+        cfg, ParallelConfig(kernel=kc), batch=SERVE_B,
+        prompt_len=SERVE_PROMPT, decode_steps=ONLINE_STEPS, device=dev,
+        params=params)
+    batch = server.input_batch()
+    prefill_s = server.prefill_batch(batch)
+    loop, recorder, queue = serve.make_online_loop(
+        server, odir, arch=cfg.name, tuned_shape=ONLINE_SHAPE, source=source,
+        kernel_sources=ksrc, prefill_s=prefill_s)
+    serve.reset_kernel_launches()
+    t0 = time.perf_counter()
+    stats = [loop.run(ONLINE_FIRST)]
+    tickets = queue.open_tickets()
+    log(f"[10] {ONLINE_FIRST} steps served on blocks {first} (resolved "
+        f"from the capacity-1,088 record); open jobs: "
+        f"{[(tk.key, tk.reason) for tk in tickets]}")
+    if [(tk.key, tk.reason) for tk in tickets] != [(dsrc.objective_id,
+                                                     "stale")]:
+        fail("want exactly one open stale job, for the decode cell")
+
+    # the daemon, in process, on the card: claims the job, BO retunes the
+    # cell (its surrogate on the GP kernel), journals under its fence token
+    daemon = RetuneDaemon(
+        odir, budget=DAEMON_BUDGET, worker="chip-smoke-daemon", device=dev,
+        verbose=True, strategy_factory=lambda: make_strategy(
+            "ei", initial_samples=DAEMON_INIT, gp_backend="cuda",
+            gp_device=str(dev), gp_block_n=gp_block_n))
+    before, gp0, d0 = serve.kernel_launches(), kgp.launches, time.perf_counter()
+    res = daemon.step()
+    daemon_s = time.perf_counter() - d0
+    mid = serve.kernel_launches()
+    daemon_launches = {k: mid[k] - before[k] for k in mid}
+    if res is None or daemon.serviced != 1:
+        fail("the daemon serviced no job")
+    view = TuningRecordStore(odir)
+    fp = next(d for d, desc in view.fingerprints().items()
+              if desc.objective == dsrc.objective_id)
+    recs = view.records(fp=fp)
+    tokens = {int((r.meta or {}).get("fence", {}).get("token", -1))
+              for r in recs}
+    jobs = [d for seg in sorted(os.listdir(odir)) if seg.endswith(".jsonl")
+            for d in (json.loads(x) for x in open(os.path.join(odir, seg))
+                      if x.strip()) if d.get("kind") == "job"]
+    states = [d["state"] for d in jobs if d["key"] == dsrc.objective_id]
+    log(f"[10] daemon: {res.unique_evals} evaluations in {daemon_s:.1f} s, "
+        f"best {res.best_value * 1e3:.4f} ms; "
+        f"{len(recs)} records journaled under fence tokens {tokens}; job "
+        f"records {states}; launches in its BO run: GP kernel "
+        f"{kgp.launches - gp0}, {daemon_launches}")
+    # the loop re-submits at each poll while the cell is stale: duplicate
+    # submits coalesce into the one job, and its done closes each of them
+    if (states.count("claim") != 1 or states.count("done")
+            != states.count("submit") or len(tokens) != 1 or -1 in tokens
+            or queue.open_tickets() or {d["key"] for d in jobs}
+            != {dsrc.objective_id}):
+        fail("want one job, claimed once and done, its records under the "
+             "claim's token")
+    if kgp.launches == gp0:
+        fail("the daemon's BO never ran the GP kernel")
+
+    stats.append(loop.run(ONLINE_STEPS - ONLINE_FIRST - ONLINE_LAST))
+    swaps = stats[-1].kernel_swaps
+    log(f"[10] after the retune: kernel hot-swaps {swaps}; decode source "
+        f"current {dsrc.current}, stale={dsrc.stale}")
+    if dsrc.stale:
+        fail("the decode cell is still stale after the daemon's run")
+    if not swaps:
+        log(f"[10] no hot-swap: the source kept {dsrc.current} by its tier "
+            "and margin rules")
+    captured = server.captures
+    server.apply_kernel_config(first)           # the forced swap back
+    server.kept, server.keep_logits = [], ONLINE_LAST - 1
+    stats.append(loop.run(ONLINE_LAST))
+    wall = time.perf_counter() - t0
+    cache = server.kernel_cache.stats()
+    log(f"[10] swap back to {first}: captures {captured} -> "
+        f"{server.captures}; cache {cache}; capture times "
+        f"{[round(x, 4) for x in server.capture_s]} s")
+    if server.captures != captured or cache["hits"] < 1:
+        fail("the swap back captured a new graph instead of a cache hit")
+    if server.captures != cache["entries"]:
+        fail(f"{server.captures} graphs captured for {cache['entries']} "
+             "kernel configs served")
+
+    total = serve.kernel_launches()
+    served = {k: total[k] - daemon_launches[k] for k in total}
+    n_steps = sum(st.steps for st in stats)
+    n_kernel = sum(st.decode_steps_kernel for st in stats)
+    warm = {0} | {step for st in stats for step, *_ in
+                  st.swaps + st.kernel_swaps}
+    lat = [x for st in stats for x in st.latencies]
+    log(f"[10] {n_steps} steps in {wall:.1f} s (daemon included), median "
+        f"{1e3 * statistics.median(lat):.4f} ms/step; {n_kernel} on the "
+        f"decode kernel; prod records {recorder.count} (the prefill's and "
+        f"{n_steps - len(warm)} steps, {len(warm)} warm-up); serve launches "
+        f"{served}")
+    if recorder.count != 1 + n_steps - len(warm):
+        fail(f"{recorder.count} prod records, want 1 + {n_steps} - "
+             f"{len(warm)}")
+    n_dec = cfg.num_layers * ONLINE_STEPS
+    fused = all(c.get("combine", "kernel") == "kernel" for c in
+                [first] + [c for st in stats for _, c, _ in st.kernel_swaps])
+    if not fused:
+        log("[10] the tuned decode blocks merge the splits with tensor ops: "
+            "steps on them launch the decode kernel in partials mode")
+    if (n_kernel != n_steps or served["flash_decode_split"] < n_dec
+            or (fused and served["flash_decode_split"]
+                != served["flash_decode_combine"])):
+        fail(f"decode launches {served}: want {n_dec} or more, each fused "
+             "where the served blocks say so")
+
+    # the last steps, after both swaps, against the plain attention path,
+    # teacher-forced on the served tokens
+    plain_pcfg = ParallelConfig(kernel=None)
+    logits, pcache = make_prefill_step(cfg, plain_pcfg, cache_cap=cap)(
+        server.params, batch)
+    decode = make_decode_step(cfg, plain_pcfg)
+    plain = []
+    for i in range(ONLINE_STEPS):
+        logits, pcache = decode(server.params, pcache,
+                                {"tokens": server.out[i][:, None]},
+                                SERVE_PROMPT + i)
+        if i >= ONLINE_STEPS - ONLINE_LAST:
+            plain.append(logits.float().cpu())
+    del pcache
+    worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(server.kept, plain))
+    log(f"[10] last {ONLINE_LAST} steps vs plain attention path: max|err| / "
+        f"max|logits| = {worst:.3e} (limit 2e-2)")
+    if len(server.kept) != ONLINE_LAST or worst > 2e-2:
+        fail(f"online logits {worst:.3e} x max|logits| from the plain path")
+    shutil.rmtree(os.path.dirname(odir))
+    return {"parity": worst, "launches": served, "steps": n_steps}
 
 
 def serve_cases(kc, dev, card: str) -> dict:
@@ -727,6 +1047,19 @@ def serve_cases(kc, dev, card: str) -> dict:
         *bound_ms(4.0 * B * H * hd * S * (S + 1) / 2,
                   2.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd), card,
                   "bfloat16"))}
+    # the reference's causal=False branch at the same shape and blocks (no
+    # model path runs it: it is timed here, not on the JSON line)
+    cases[FLASH_FULL] = (
+        f"flash full (causal=False) B{B} S{S} H{H} KV{KV} hd{hd} bf16 "
+        f"({bq},{bkv}); library SDPA(is_causal=False, enable_gqa)",
+        lambda: kfa.flash_attention(q, k, v, block_q=bq, block_kv=bkv,
+                                    causal=False),
+        lambda: ref.attention(q, k, v, causal=False),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=False,
+                                               enable_gqa=True),
+        *bound_ms(4.0 * B * H * hd * S * S,
+                  2.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd), card,
+                  "bfloat16"))
 
     B, S, H, KV, hd = GEMMA_DECODE
     G = H // KV
@@ -890,14 +1223,16 @@ def main() -> int:
              ("gp (3xTF32 mma.sync, L^-1 ring)",
               lambda: lib.gp_attrs(regs, local))]
     for hd in (64, 128, 256):
-        attrs.append((f"flash hd{hd} fp32 (CUDA cores)",
-                      lambda hd=hd: lib.flash_attention_attrs(0, hd, 1, regs,
-                                                              local)))
-        for nwg in (1, 2):
-            attrs.append((f"flash hd{hd} bf16 (wgmma, {nwg} warpgroup"
-                          f"{'s' if nwg > 1 else ''})",
-                          lambda hd=hd, nwg=nwg: lib.flash_attention_attrs(
-                              1, hd, nwg, regs, local)))
+        for causal, mask in ((1, "causal"), (0, "full")):
+            attrs.append((f"flash hd{hd} fp32 {mask} (CUDA cores)",
+                          lambda hd=hd, c=causal: lib.flash_attention_attrs(
+                              0, hd, 1, c, regs, local)))
+            for nwg in (1, 2):
+                attrs.append((f"flash hd{hd} bf16 {mask} (wgmma, {nwg} "
+                              f"warpgroup{'s' if nwg > 1 else ''})",
+                              lambda hd=hd, nwg=nwg, c=causal:
+                              lib.flash_attention_attrs(1, hd, nwg, c, regs,
+                                                        local)))
         for dt, dname in ((0, "fp32"), (1, "bf16")):
             for mode, mname in ((0, "partials"), (1, "combine fused in")):
                 attrs.append((f"decode split hd{hd} {dname}, {mname}",
@@ -1050,6 +1385,11 @@ def main() -> int:
     t0 = time.perf_counter()
     served = serve_gemma(sdir, dev)
     log(f"[8] done in {time.perf_counter() - t0:.1f} s")
+
+    # 10. the online loop on a copy of the phase-7 store
+    t0 = time.perf_counter()
+    online = online_gemma(sdir, dev, served["server"].params, best_bn)
+    log(f"[10] done in {time.perf_counter() - t0:.1f} s")
     store_tmp.cleanup()
 
     # 6. yardsticks at the main-path shapes: CUDA events around one call
@@ -1096,8 +1436,11 @@ def main() -> int:
             f"{bound:.6f} ms ({by})")
 
     # 9. device time and the device's busy share, from torch.profiler; run
-    # last, since a profiler session leaves host overhead behind it
+    # last, since a profiler session leaves host overhead behind it. The
+    # phase-8 server keeps no logits here: its decode steps replay the
+    # graph and copy nothing to the host
     server, batch = served["server"], served["batch"]
+    server.keep_logits = 0
     profile_window(lambda: server.prefill_batch(batch), "a prefill")
     rows = profile_window(lambda: [server.decode_step()
                                    for _ in range(PROFILE_STEPS)],

@@ -76,10 +76,10 @@ class RetuneQueue:
     key re-arms once the request is popped (taken by a tuner).
 
     This queue dies with its process; production serving uses the durable
-    store-backed ``TuningJobQueue`` (``repro.store.queue`` in the reference
-    package, not ported yet; same ``submit`` interface), whose requests
-    survive crashes and are claimed — under fenced, exactly-once leases — by
-    a fleet of ``repro.launch.retune`` daemons."""
+    store-backed ``TuningJobQueue`` (``repro_torch.store.queue``; same
+    ``submit`` interface), whose requests survive crashes and are claimed —
+    under fenced, exactly-once leases — by a fleet of
+    ``repro_torch.launch.retune`` daemons."""
 
     def __init__(self):
         self._lock = threading.Lock()

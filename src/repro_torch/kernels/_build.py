@@ -127,9 +127,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gp_attrs.restype = i
     for name in ("flash_attention_f32", "flash_attention_bf16"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = i
-    lib.flash_attention_attrs.argtypes = [i, i, i, ctypes.POINTER(i),
+    lib.flash_attention_attrs.argtypes = [i, i, i, i, ctypes.POINTER(i),
                                           ctypes.POINTER(i)]
     lib.flash_attention_attrs.restype = i
     for name in ("decode_split_f32", "decode_split_bf16"):

@@ -1,11 +1,12 @@
-// Causal flash attention (prefill) for Hopper (sm_90a): bf16 on the tensor
-// cores (wgmma), fp32 on the CUDA cores.
+// Flash attention (prefill) for Hopper (sm_90a), causal or full: bf16 on the
+// tensor cores (wgmma), fp32 on the CUDA cores.
 //
 // Replaces: src/repro/kernels/flash_attention.py, _flash_kernel (Pallas TPU
 // kernel behind the wrapper flash_attention). Same function: q (B,S,H,hd),
 // k/v (B,S,KV,hd) -> o (B,S,H,hd) in q's dtype (fp32 or bf16); scores
 // s = (q.k) * scale in fp32, masked above the diagonal with the reference's
-// -1e30 sentinel; an online softmax over KV tiles keeps (m, l, acc) on
+// -1e30 sentinel when causal (the reference's causal=False skips the mask
+// and every key tile is taken); an online softmax over KV tiles keeps (m, l, acc) on
 // chip, p is cast to v's dtype before p.v, and acc / l is written once.
 // Head h reads KV head h / (H/KV): for MQA the reference's jnp.repeat of K
 // and V into H heads is never made.
@@ -14,6 +15,7 @@
 // bf16, causal): 4*B*H*hd*S*(S+1)/2 = 17.2 GFLOP (both products, the
 // causal half); against the 989 TFLOP/s bf16 tensor-core peak that is
 // 17 us, the 25 MB of q, k, v and o take 8 us: bound by operations.
+// Full attention at the same shape does 4*B*H*hd*S*S = 34.4 GFLOP: 35 us.
 //
 // bf16 (the serving dtype): the products on the tensor cores.
 //   * A warpgroup (4 warps) owns 64 query rows; a block holds two
@@ -48,6 +50,10 @@
 //     mirrors the sum.
 //   * A warpgroup skips the tiles wholly above its own diagonal; tiles
 //     astride it are masked per element.
+//   * Full (non-causal) attention is the same kernel instanced with
+//     CAUSAL = false: no mask, every key tile for every row, so all rows
+//     have the same work and a block takes a contiguous run of sub-tiles
+//     (no pairing from both ends).
 // fp32: the CUDA-core kernel of the first port (TF32 on the tensor cores
 // would break the 2e-4 fp32 limit, and fp32 is not on the serve path):
 // 64-row q sub-tiles and 64-key K/V chunks staged in fp32 shared memory, a
@@ -107,7 +113,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int HD>
+template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_cc_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o, int S,
@@ -160,7 +166,8 @@ flash_cc_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int d = 0; d < DPT; ++d) acc[i][d] = 0.f;
 
-    const int q_last = q0 + QT - 1;
+    // the last key a row of this sub-tile sees
+    const int q_last = CAUSAL ? q0 + QT - 1 : S - 1;
     const int kv_end = min(S, q_last + 1);
     for (int k0 = 0; k0 < kv_end; k0 += bkv) {
       // scores of the tile, one 64-key chunk at a time
@@ -203,7 +210,7 @@ flash_cc_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const bool masked = kc + sc + j > q0 + sr + i;
+            const bool masked = CAUSAL && kc + sc + j > q0 + sr + i;
             Ss[(sr + i) * bkv + c0 + sc + j] = masked ? NEG_INF : s[i][j] * scale;
           }
       }
@@ -276,7 +283,7 @@ flash_cc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int HD, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int H, int KVH, int bq, int bkv,
                    cudaStream_t stream) {
@@ -288,12 +295,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                                dev);
   if (err != cudaSuccess) return err;
   if (smem > (size_t)optin) return cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(flash_cc_kernel<HD>,
+  err = cudaFuncSetAttribute(flash_cc_kernel<HD, CAUSAL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(S / bq, H, B);
-  flash_cc_kernel<HD><<<grid, THREADS, smem, stream>>>(
+  flash_cc_kernel<HD, CAUSAL><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H, KVH, bq,
       bkv, 1.0f / sqrtf((float)HD));
@@ -451,7 +458,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int HD, int NWG>
+template <int HD, int NWG, bool CAUSAL>
 __global__ void __launch_bounds__(NWG * WG, 1)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
@@ -494,21 +501,25 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
-  // The block's bq / QT sub-tiles. An even count is taken in pairs from
-  // both ends of the sequence (sub-tiles p and NT-1-p), so that every
+  // The block's bq / QT sub-tiles. Causal: an even count is taken in pairs
+  // from both ends of the sequence (sub-tiles p and NT-1-p), so that every
   // block has the same causal work; an odd count is a contiguous run, the
-  // blocks with the longest rows scheduled first (reversed y index).
+  // blocks with the longest rows scheduled first (reversed y index). Full
+  // attention gives every row the same work: a contiguous run.
   const int ns = bq / QT, nt_all = S / QT;
   for (int i = 0; i < ns; ++i) {
     int st;
-    if (ns % 2 == 0) {
+    if (!CAUSAL) {
+      st = blockIdx.y * ns + i;
+    } else if (ns % 2 == 0) {
       const int pair = blockIdx.y * (ns / 2) + i / 2;
       st = i % 2 == 0 ? nt_all - 1 - pair : pair;
     } else {
       st = (gridDim.y - 1 - blockIdx.y) * ns + i;
     }
     const int q0 = st * QT;
-    const int ntiles = (q0 + QT) / TK;   // key tiles up to the diagonal
+    // key tiles up to the diagonal, or all of them
+    const int ntiles = CAUSAL ? (q0 + QT) / TK : S / TK;
     __syncthreads();                     // the last sub-tile's reads are done
     for (int e = tid; e < QT * CH; e += THREADS) {
       const int r = e / CH, c = e % CH;
@@ -541,7 +552,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
         cp_async_commit();
       }
       const int kc = t * TK;
-      if (kc > wq0 + TQ - 1) continue;   // wholly above this warpgroup's diagonal
+      if (CAUSAL && kc > wq0 + TQ - 1) continue;  // wholly above this warpgroup's diagonal
       const uint32_t ks = KVs + (t % stages) * 2 * TILE_BYTES;
       const uint32_t vs = ks + TILE_BYTES;
 
@@ -561,7 +572,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       reg_fence(s);
 
       // scale (log2 domain), mask, row max over the 4 lanes of each row
-      const bool diag = kc + TK - 1 > wq0;
+      const bool diag = CAUSAL && kc + TK - 1 > wq0;
       float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -653,7 +664,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HD, int NWG>
+template <int HD, int NWG, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int H, int KVH, int bq, int bkv,
                    cudaStream_t stream) {
@@ -665,12 +676,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                                dev);
   if (err != cudaSuccess) return err;
   if (smem > (size_t)optin) return cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(flash_tc_kernel<HD, NWG>,
+  err = cudaFuncSetAttribute(flash_tc_kernel<HD, NWG, CAUSAL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, S / bq);
-  flash_tc_kernel<HD, NWG><<<grid, NWG * WG, smem, stream>>>(
+  flash_tc_kernel<HD, NWG, CAUSAL><<<grid, NWG * WG, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -678,13 +689,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool CAUSAL>
 cudaError_t launch_nwg(const void* q, const void* k, const void* v, void* o,
                        int B, int S, int H, int KVH, int bq, int bkv,
                        cudaStream_t stream) {
   return bq % (2 * TQ) == 0
-             ? launch<HD, 2>(q, k, v, o, B, S, H, KVH, bq, bkv, stream)
-             : launch<HD, 1>(q, k, v, o, B, S, H, KVH, bq, bkv, stream);
+             ? launch<HD, 2, CAUSAL>(q, k, v, o, B, S, H, KVH, bq, bkv, stream)
+             : launch<HD, 1, CAUSAL>(q, k, v, o, B, S, H, KVH, bq, bkv, stream);
 }
 
 }  // namespace tc
@@ -694,54 +705,87 @@ bool bad_args(int B, int S, int H, int KVH, int bq, int bkv) {
          bkv <= 0 || bq % 64 || bkv % 64 || S % bq || S % bkv;
 }
 
-template <int HD>
+template <int HD, bool CAUSAL>
 cudaError_t attrs_of(int dtype, int nwg, cudaFuncAttributes* attr) {
-  if (dtype == 0) return cudaFuncGetAttributes(attr, cc::flash_cc_kernel<HD>);
-  return nwg == 2 ? cudaFuncGetAttributes(attr, tc::flash_tc_kernel<HD, 2>)
-                  : cudaFuncGetAttributes(attr, tc::flash_tc_kernel<HD, 1>);
+  if (dtype == 0)
+    return cudaFuncGetAttributes(attr, cc::flash_cc_kernel<HD, CAUSAL>);
+  return nwg == 2
+             ? cudaFuncGetAttributes(attr, tc::flash_tc_kernel<HD, 2, CAUSAL>)
+             : cudaFuncGetAttributes(attr, tc::flash_tc_kernel<HD, 1, CAUSAL>);
+}
+
+// One launcher per head dim and mask: hd 64, 128 or 256; causal or full.
+template <int HD>
+cudaError_t cc_launch(bool causal, const void* q, const void* k,
+                      const void* v, void* o, int B, int S, int H, int KVH,
+                      int bq, int bkv, cudaStream_t s) {
+  return causal ? cc::launch<HD, true>(q, k, v, o, B, S, H, KVH, bq, bkv, s)
+                : cc::launch<HD, false>(q, k, v, o, B, S, H, KVH, bq, bkv, s);
+}
+
+template <int HD>
+cudaError_t tc_launch(bool causal, const void* q, const void* k,
+                      const void* v, void* o, int B, int S, int H, int KVH,
+                      int bq, int bkv, cudaStream_t s) {
+  return causal
+             ? tc::launch_nwg<HD, true>(q, k, v, o, B, S, H, KVH, bq, bkv, s)
+             : tc::launch_nwg<HD, false>(q, k, v, o, B, S, H, KVH, bq, bkv, s);
 }
 
 }  // namespace
 
 extern "C" {
 
+// causal: 1 masks keys above the diagonal, 0 is full attention.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int H, int KVH, int hd, int bq, int bkv,
-                        void* stream) {
+                        int causal, void* stream) {
   if (bad_args(B, S, H, KVH, bq, bkv)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool c = causal != 0;
   switch (hd) {
-    case 64: return cc::launch<64>(q, k, v, o, B, S, H, KVH, bq, bkv, s);
-    case 128: return cc::launch<128>(q, k, v, o, B, S, H, KVH, bq, bkv, s);
-    case 256: return cc::launch<256>(q, k, v, o, B, S, H, KVH, bq, bkv, s);
+    case 64: return cc_launch<64>(c, q, k, v, o, B, S, H, KVH, bq, bkv, s);
+    case 128: return cc_launch<128>(c, q, k, v, o, B, S, H, KVH, bq, bkv, s);
+    case 256: return cc_launch<256>(c, q, k, v, o, B, S, H, KVH, bq, bkv, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          int B, int S, int H, int KVH, int hd, int bq, int bkv,
-                         void* stream) {
+                         int causal, void* stream) {
   if (bad_args(B, S, H, KVH, bq, bkv)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool c = causal != 0;
   switch (hd) {
-    case 64: return tc::launch_nwg<64>(q, k, v, o, B, S, H, KVH, bq, bkv, s);
-    case 128: return tc::launch_nwg<128>(q, k, v, o, B, S, H, KVH, bq, bkv, s);
-    case 256: return tc::launch_nwg<256>(q, k, v, o, B, S, H, KVH, bq, bkv, s);
+    case 64: return tc_launch<64>(c, q, k, v, o, B, S, H, KVH, bq, bkv, s);
+    case 128: return tc_launch<128>(c, q, k, v, o, B, S, H, KVH, bq, bkv, s);
+    case 256: return tc_launch<256>(c, q, k, v, o, B, S, H, KVH, bq, bkv, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // Registers per thread and local (spill) bytes of one instance: dtype 0 =
 // fp32 (the CUDA-core kernel), 1 = bf16 (the tensor-core kernel with nwg =
-// 1 or 2 warpgroups); hd 64, 128 or 256.
-int flash_attention_attrs(int dtype, int hd, int nwg, int* regs,
+// 1 or 2 warpgroups); hd 64, 128 or 256; causal 1 or 0 (full).
+int flash_attention_attrs(int dtype, int hd, int nwg, int causal, int* regs,
                           int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t err;
+  const bool c = causal != 0;
   switch (hd) {
-    case 64: err = attrs_of<64>(dtype, nwg, &attr); break;
-    case 128: err = attrs_of<128>(dtype, nwg, &attr); break;
-    case 256: err = attrs_of<256>(dtype, nwg, &attr); break;
+    case 64:
+      err = c ? attrs_of<64, true>(dtype, nwg, &attr)
+              : attrs_of<64, false>(dtype, nwg, &attr);
+      break;
+    case 128:
+      err = c ? attrs_of<128, true>(dtype, nwg, &attr)
+              : attrs_of<128, false>(dtype, nwg, &attr);
+      break;
+    case 256:
+      err = c ? attrs_of<256, true>(dtype, nwg, &attr)
+              : attrs_of<256, false>(dtype, nwg, &attr);
+      break;
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;

@@ -1,4 +1,4 @@
-"""Causal flash attention (prefill), as a hand-written CUDA kernel.
+"""Flash attention (prefill), causal or full, as a hand-written CUDA kernel.
 
 Port of ``repro/kernels/flash_attention.py``. The kernel is
 ``csrc/flash_attention.cu`` (its header gives the bound and the design):
@@ -54,11 +54,12 @@ def flash_smem_bytes(block_q: int, block_kv: int, hd: int,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    block_q: int = 128, block_kv: int = 128) -> torch.Tensor:
-    """Causal attention. q (B,S,H,hd); k, v (B,S,KV,hd) with KV dividing H
+                    block_q: int = 128, block_kv: int = 128,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention, causal (the reference's default) or full with
+    ``causal=False``. q (B,S,H,hd); k, v (B,S,KV,hd) with KV dividing H
     (KV == H is the reference's MHA core). fp32 or bf16, all three alike;
-    fp32 softmax; result (B,S,H,hd) in q's dtype. The reference's
-    ``causal=False`` is cut: every caller of prefill attention is causal."""
+    fp32 softmax; result (B,S,H,hd) in q's dtype."""
     global launches
     B, S, H, hd = q.shape
     if k.shape != v.shape or k.shape[:2] != (B, S) or k.shape[3] != hd:
@@ -77,7 +78,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention operands on different devices")
     if q.device.type == "cpu":
-        return ref.attention(q, k, v)
+        return ref.attention(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
@@ -93,9 +94,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         code = getattr(lib, _ENTRY[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, S, H, KV, hd, block_q, block_kv,
+            B, S, H, KV, hd, block_q, block_kv, int(causal),
             _build.stream_of(q))
     _build.check(code, f"flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
-                       f"blocks ({block_q},{block_kv})")
+                       f"blocks ({block_q},{block_kv}) causal={causal}")
     launches += 1
     return o

@@ -33,7 +33,10 @@ COMBINE_STRATEGIES = ("torch", "kernel")
 
 #: Launches of the kernel: every launch counts in ``split_launches``, and
 #: those that carry the fused combine (``flash_decode(combine="kernel")``)
-#: also in ``combine_launches``. The plain versions count nothing.
+#: also in ``combine_launches``. The plain versions count nothing. A call
+#: inside a CUDA graph capture counts here too; the capturer moves those
+#: counts to the graph, which adds them at each replay
+#: (``launch/serve.DecodeServer``).
 split_launches = 0
 combine_launches = 0
 
@@ -51,7 +54,9 @@ FILL_BLOCKS = 132
 #: Arrival counters of the kernel, per (device, stream, fused): per split
 #: in partials mode, per head group in fused mode, two buffers so that
 #: launches of both modes on one stream never share a counter. Zeroed once,
-#: and reset by the kernel after each use.
+#: and reset by the kernel after each use, so a graph replays them as it
+#: captured them. They are made by a launch outside any capture: a graph
+#: captures on a stream where the kernel has run once already.
 _counters: Dict[Tuple[int, int, bool], torch.Tensor] = {}
 
 
@@ -103,6 +108,11 @@ def _arrival_counters(device: torch.device, stream: int, fused: bool,
     key = (device.index, stream, fused)
     cnt = _counters.get(key)
     if cnt is None or cnt.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "flash decode's arrival counters for this stream and mode do "
+                "not exist yet: launch once on the capture stream before "
+                "capturing (a graph must not create and zero them)")
         cnt = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _counters[key] = cnt
     return cnt

@@ -82,8 +82,9 @@ def gemm_valid(cfg: Dict, dtype_bytes: int = 4) -> bool:
 
 # -- flash attention -----------------------------------------------------
 
-def flash_attention(q, k, v, block_q=128, block_kv=128):
-    return _fa.flash_attention(q, k, v, block_q=block_q, block_kv=block_kv)
+def flash_attention(q, k, v, block_q=128, block_kv=128, causal=True):
+    return _fa.flash_attention(q, k, v, block_q=block_q, block_kv=block_kv,
+                               causal=causal)
 
 
 def flash_config_space(S: int = 4096) -> SearchSpace:

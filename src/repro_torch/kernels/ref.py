@@ -28,21 +28,24 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 # -- flash attention ---------------------------------------------------------
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-              ) -> torch.Tensor:
-    """Causal attention. q (B,S,H,hd), k/v (B,S,KV,hd) with KV dividing H
-    (KV == H is the reference's MHA core; a smaller KV is expanded, head h
-    reading KV head h // G as ``jnp.repeat`` does). fp32 softmax,
-    probabilities cast to v's dtype before the product, result in q's
-    dtype. The reference's ``causal=False`` is cut with the kernel's."""
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True) -> torch.Tensor:
+    """Attention, causal unless ``causal=False`` (the reference's
+    default and its full mode). q (B,S,H,hd), k/v (B,S,KV,hd) with KV
+    dividing H (KV == H is the reference's MHA core; a smaller KV is
+    expanded, head h reading KV head h // G as ``jnp.repeat`` does). fp32
+    softmax, probabilities cast to v's dtype before the product, result in
+    q's dtype."""
     B, S, H, hd = q.shape
     G = H // k.shape[2]
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(hd)
-    mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
-    s = s.masked_fill(~mask[None, None], -math.inf)
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+        s = s.masked_fill(~mask[None, None], -math.inf)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).to(q.dtype)
 

@@ -137,8 +137,11 @@ def gemm_cell(M: int = 512, N: int = 512, K: int = 512,
 
 def flash_cell(B: int = 1, S: int = 1024, H: int = 4, hd: int = 64,
                KV: Optional[int] = None, dtype=torch.float32,
-               device=None, seed: int = 0) -> KernelCell:
-    """Causal prefill attention at one shape. ``KV`` (default H) is the
+               causal: bool = True, device=None,
+               seed: int = 0) -> KernelCell:
+    """Prefill attention at one shape, causal unless ``causal=False``
+    (the reference's full mode; as there, the shape key does not name
+    it). ``KV`` (default H) is the
     number of KV heads the kernel reads; the shape key is the reference's, plus
     ``_KV{KV}`` when KV < H. The default {128, 128} fits every head dim the
     kernel takes (the reference's 512 / 512 needs 590 KB at hd 256)."""
@@ -152,7 +155,7 @@ def flash_cell(B: int = 1, S: int = 1024, H: int = 4, hd: int = 64,
 
     def run(cfg):
         return ops.flash_attention(q, k, v, block_q=cfg["block_q"],
-                                   block_kv=cfg["block_kv"])
+                                   block_kv=cfg["block_kv"], causal=causal)
 
     def valid(cfg):
         aligned = S % cfg["block_q"] == 0 and S % cfg["block_kv"] == 0
@@ -164,7 +167,8 @@ def flash_cell(B: int = 1, S: int = 1024, H: int = 4, hd: int = 64,
         space=ops.flash_config_space(S), run=run, valid=valid,
         default={"block_q": 128, "block_kv": 128}, device=dev,
         meta={"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
-              "dtype_bytes": dtype_bytes, "inputs": (q, k, v)})
+              "causal": causal, "dtype_bytes": dtype_bytes,
+              "inputs": (q, k, v)})
 
 
 def decode_cell(B: int = 4, S: int = 2048, H: int = 8, KV: int = 2,

@@ -9,6 +9,7 @@ frontend raise ``NotImplementedError`` (``models/params.check_supported``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -37,6 +38,16 @@ def init_cache(cfg: ArchConfig, batch: int, cap: int, device=None
             for _ in range(cfg.num_layers)]
 
 
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """sqrt(d_model) rounded to the model dtype first, as the reference
+    does (in bf16 sqrt(2048) becomes 45.25), as a Python number: the
+    product then takes no host-to-device copy, which a captured CUDA graph
+    refuses, and rounds as the product with a tensor of the dtype does
+    (the factor is exact in the dtype, the product computed in fp32)."""
+    return float(torch.tensor(math.sqrt(d_model), dtype=dtype))
+
+
 def forward(params: Tree, *, cfg: ArchConfig, pcfg: ParallelConfig,
             mode: str, tokens: torch.Tensor, positions: torch.Tensor,
             cache: Optional[List[Tree]] = None
@@ -44,10 +55,7 @@ def forward(params: Tree, *, cfg: ArchConfig, pcfg: ParallelConfig,
     """Returns (hidden (B,S,d) before the final norm, new cache)."""
     x = params["embed"]["table"][tokens]
     if cfg.scale_embeddings:
-        # the factor is rounded to the model dtype first, as the reference
-        # does: in bf16 sqrt(2048) becomes 45.25
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
+        x = x * _embed_scale(cfg.d_model, x.dtype)
     new_cache = [] if cache is not None else None
     for i, p in enumerate(params["layers"]):
         lc = cache[i] if cache is not None else None

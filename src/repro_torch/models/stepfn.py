@@ -4,7 +4,10 @@ Port of ``repro/models/stepfn.py``: ``make_prefill_step`` and
 ``make_decode_step``. ``loss_fn``, ``chunked_xent`` and the train step wait
 for the training slice. Eager PyTorch has no ``jit``: a step is the plain
 function, and the kernel dispatch is read from ``pcfg.kernel`` at every
-call (``models/layers.py``), so swapping kernel blocks needs no re-derive.
+call (``models/layers.py``). The decode step takes its position as a
+device tensor, as the reference's jitted step takes a traced scalar, so a
+captured CUDA graph of it (``launch/serve.DecodeServer``) reads the
+position each replay instead of the one it was captured at.
 """
 from __future__ import annotations
 
@@ -41,15 +44,16 @@ def make_prefill_step(cfg: ArchConfig, pcfg: ParallelConfig, cache_cap: int):
 def make_decode_step(cfg: ArchConfig, pcfg: ParallelConfig):
     """decode_step(params, cache, batch, pos) -> (logits (B,V), cache).
 
-    ``pos`` is the position of the incoming token; the cache holds the
-    positions before it and is updated in place."""
+    ``pos`` is the position of the incoming token, an int64 tensor of one
+    element on the tokens' device (a Python int is copied there); the cache
+    holds the positions before it and is updated in place."""
 
     @torch.inference_mode()
-    def decode_step(params: Tree, cache: List[Tree], batch: Tree, pos: int):
+    def decode_step(params: Tree, cache: List[Tree], batch: Tree, pos):
         tokens = batch["tokens"]
         B = tokens.shape[0]
-        positions = torch.full((B, 1), int(pos), dtype=torch.long,
-                               device=tokens.device)
+        pos = torch.as_tensor(pos, dtype=torch.long, device=tokens.device)
+        positions = pos.reshape(1, 1).expand(B, 1)
         x, new_cache = M.forward(params, cfg=cfg, pcfg=pcfg, mode="decode",
                                  tokens=tokens, positions=positions,
                                  cache=cache)

@@ -50,3 +50,6 @@ class ParallelConfig:
     """The serving field of the reference's ParallelConfig."""
 
     kernel: Optional[KernelConfig] = None
+
+    def replace(self, **kw) -> "ParallelConfig":
+        return dataclasses.replace(self, **kw)

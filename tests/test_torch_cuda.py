@@ -235,6 +235,42 @@ def test_flash_kernel_matches_plain(card, dtype, B, S, H, KV, hd, bq, bkv):
     _check(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,bq,bkv", [
+    (1, 256, 4, 2, 64, 128, 64),          # small, block_q != block_kv
+    (4, 1024, 8, 1, 256, 128, 128),       # gemma-2b prefill shape
+    (4, 1024, 8, 1, 256, 256, 128),       # two sub-tiles a block
+    (2, 192, 4, 2, 128, 64, 64),          # one warpgroup, S 192
+])
+def test_flash_kernel_full_attention_matches_plain(card, dtype, B, S, H, KV,
+                                                   hd, bq, bkv):
+    """causal=False (the reference's full mode): every key for every row."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(size=(B, S, H, hd))).to(card, dtype)
+    k, v = (torch.from_numpy(rng.normal(size=(B, S, KV, hd))).to(card, dtype)
+            for _ in range(2))
+    kfa.launches = 0
+    got = kfa.flash_attention(q, k, v, block_q=bq, block_kv=bkv,
+                              causal=False)
+    want = ref.attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert kfa.launches == 1 and got.dtype == dtype
+    if dtype == torch.float32:
+        _check(got, want, dtype)
+    else:
+        # the plain version rounds the scores to bf16 (the reference's
+        # ref.attention does); the kernel keeps them in fp32: held to it at
+        # the reference's bf16 tolerance (tests/test_kernels.py:55), and to
+        # the plain version in fp32 on the same inputs at one output ulp
+        torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                                   atol=3e-2)
+        _bf16_close(got, ref.attention(q.float(), k.float(), v.float(),
+                                       causal=False).to(dtype))
+    # the first row sees the whole sequence: not the causal answer
+    causal = ref.attention(q, k, v)
+    assert float((want[:, 0] - causal[:, 0]).float().abs().max()) > 1e-2
+
+
 def test_flash_refused_config_raises_launch_refused(card):
     """bf16 block_kv 256 at hd 256 is a ring of 4 stages of 64 keys, 321
     KB of shared memory with the 128-row q sub-tile: the resource model
@@ -373,8 +409,9 @@ def test_decode_server_on_the_card_launches_the_kernels(card):
             srv.decode_step()
         runs[name] = (srv, serve.kernel_launches())
     launches = runs["kernels"][1]
-    assert launches == {"flash_attention": 2, "flash_decode_split": 8,
-                        "flash_decode_combine": 8}
+    # 2 layers x (4 steps replayed + the capture's warm-up step)
+    assert launches == {"flash_attention": 2, "flash_decode_split": 10,
+                        "flash_decode_combine": 10}
     assert runs["plain"][1] == {"flash_attention": 0,
                                 "flash_decode_split": 0,
                                 "flash_decode_combine": 0}
@@ -403,3 +440,103 @@ def test_decode_server_on_the_card_refuses_what_the_kernels_do_not_take(card):
     kc = serve.serving_kernel_config(cfg, device=card, prompt_len=192,
                                      cache_cap=194)
     assert (kc.flash_block_q, kc.flash_block_kv) == (64, 64)
+
+
+# -- the decode step as a captured CUDA graph ---------------------------------
+
+_KC_A = dict(use_flash=True, flash_block_q=128, flash_block_kv=64,
+             use_decode=True, decode_block_kv=128, decode_num_splits=2,
+             decode_combine="kernel")
+_KC_B = {"block_kv": 256, "num_splits": 1, "combine": "kernel"}
+
+
+def _graph_server(card, prompt_len=128, steps=8, keep=8, **kw):
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.parallel.sharding import KernelConfig, ParallelConfig
+    cfg = smoke_config("gemma-2b").replace(head_dim=64, **kw)
+    return serve.DecodeServer(cfg, ParallelConfig(kernel=KernelConfig(
+        **_KC_A)), batch=2, prompt_len=prompt_len, decode_steps=steps,
+        device=card, keep_logits=keep)
+
+
+def _eager_logits(srv):
+    """The eager step function on the server's state, for the token the
+    next step decodes (it writes the cache slot that step rewrites)."""
+    logits, _ = srv.decode(srv.params, srv.cache,
+                           {"tokens": srv.toks[:, None]}, srv.pos)
+    return logits.float().cpu()
+
+
+def test_graph_replay_equals_eager_step(card):
+    srv = _graph_server(card)
+    srv.prefill_batch(srv.input_batch())
+    eager = []
+    for _ in range(8):
+        eager.append(_eager_logits(srv))
+        srv.decode_step()
+    assert srv.captures == 1 and "CUDA graph" in srv.decode_dispatch
+    for e, g in zip(eager, srv.kept[1:]):
+        torch.testing.assert_close(g, e, rtol=0, atol=2.0 ** -7 * float(
+            e.abs().max()))
+
+
+def test_graph_swap_back_is_a_cache_hit(card):
+    """A -> B -> A: two captures, the return replays A's graph."""
+    from repro_torch.kernels.cache import config_key
+    srv = _graph_server(card)
+    srv.prefill_batch(srv.input_batch())
+    srv.decode_step()
+    first = config_key(_KC_A)
+    srv.apply_kernel_config(_KC_B)
+    srv.decode_step()
+    srv.apply_kernel_config({"block_kv": 128, "num_splits": 2,
+                             "combine": "kernel"})
+    srv.decode_step()
+    assert config_key(_KC_A) == first and srv.captures == 2
+    assert srv.kernel_cache.stats() == {"hits": 1, "misses": 2,
+                                        "evictions": 0, "entries": 2}
+    assert srv.kernel_swaps == 2
+
+
+def test_graph_launch_counts_include_replays(card):
+    from repro_torch.launch import serve
+    srv = _graph_server(card)
+    srv.prefill_batch(srv.input_batch())
+    serve.reset_kernel_launches()
+    for _ in range(5):
+        srv.decode_step()
+    n_layers = srv.cfg.num_layers
+    # 5 replays and the capture's one warm-up step, each a launch a layer
+    assert serve.kernel_launches() == {
+        "flash_attention": 0, "flash_decode_split": 6 * n_layers,
+        "flash_decode_combine": 6 * n_layers}
+
+
+def test_graph_survives_a_second_prefill(card):
+    """prefill -> decode -> prefill (another prompt) -> decode through the
+    graph captured in the first sequence, against the eager step functions
+    on a cache of their own: a graph that read the first prefill's cache
+    buffers would disagree."""
+    from repro_torch.models.stepfn import make_decode_step, make_prefill_step
+    srv = _graph_server(card, steps=4, keep=4, dtype="float32")
+    srv.prefill_batch(srv.input_batch())
+    for _ in range(4):
+        srv.decode_step()
+    gen = torch.Generator().manual_seed(7)
+    other = {"tokens": torch.randint(0, srv.cfg.vocab_size, (2, 128),
+                                     generator=gen).to(card)}
+    srv.prefill_batch(other)
+    for _ in range(4):
+        srv.decode_step()
+    assert srv.captures == 1
+    prefill = make_prefill_step(srv.cfg, srv.pcfg, cache_cap=srv.cache_cap)
+    decode = make_decode_step(srv.cfg, srv.pcfg)
+    logits, cache = prefill(srv.params, other)
+    want = [logits.float().cpu()]
+    for i in range(4):
+        logits, cache = decode(srv.params, cache,
+                               {"tokens": srv.out[i][:, None]}, 128 + i)
+        want.append(logits.float().cpu())
+    for g, w in zip(srv.kept, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
