@@ -56,6 +56,21 @@ Phases, in order; any failure exits non-zero and prints no result:
      reason to keep its config), a forced swap back that must be a graph-
      cache hit, prod records, every decode launch fused, and the last steps
      against the plain attention path;
+ 11. slice 7's main path, the paper's comparison set: (a) Fig. 1's seven
+     strategies, Fig. 5's two framework analogues and BO on the padded GP
+     (engine="jax") over the GTX Titan X GEMM space (17,956 configs) at
+     the paper's budget of 220, BO's surrogate on the GP kernel and the
+     padded GPs on the card: MAE, best, evaluations, wall and tuner time,
+     GP launches; each baseline against its run on the CPU, each padded
+     GP's last state against the CPU and float64, its fit + predict ms;
+     (b) pool BO, its surrogate on the GP kernel, over a 1.07e9-config
+     generative space beside the numpy surrogate's run (feasible, no
+     revisit, the same initial sample, the posterior at pool sizes that do
+     not tile the kernel's block), and the wide qwen3-moe sharding space
+     (size, feasible-fraction estimate, first sample); (c) the four
+     baselines and the two frameworks tune phase 4's GEMM cell with its
+     budget, journaled into the store (best, evaluations to it, static and
+     runtime invalids);
   6. yardsticks at the blocks phases 4 and 8 ran: kernel, plain-version
      and library times (CUDA events around one call) beside each kernel's
      bound (GEMM and GP: on the path the kernel takes, the tensor cores,
@@ -70,7 +85,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      combine's time is the fused launch's less the partials-mode launch's,
      on the same inputs, timed in turns.
 The line before the last holds the kernels' JSON summary (times are the
-phase-9 device times, the phase-6 event times where the profiler saw none),
+phase-9 device times, the phase-6 event times where the profiler saw none;
+the GEMM's and the GP kernel's launches are phases 4 and 11 together),
 the one before it the card's name and power limit; the last line is the
 device JSON.
 """
@@ -152,6 +168,16 @@ DECODE_FILL = 0.97
 # paper's init repairs invalid draws until ``init`` are valid, so the budget
 # leaves room for both the repairs and the BO iterations
 GEMM_BUDGET = 40
+# phase 11: the paper's comparison (Fig. 1's seven strategies, Fig. 5's two
+# framework analogues, and BO on the padded GP) on the GTX Titan X GEMM
+# space at the paper's budget; pool BO over a 1e9 generative space; the
+# wide MoE sharding space
+PAPER_GPU, PAPER_BUDGET = "gtx_titan_x", 220
+PAPER_RUNS = ("advanced_multi", "multi", "ei", "genetic_algorithm", "mls",
+              "simulated_annealing", "random", "bayesopt_ucb",
+              "skopt_gphedge", "ei engine=jax")
+GEN_BUDGET = 60
+WIDE_ARCH = "qwen3-moe-30b-a3b"
 
 
 def log(*a):
@@ -551,11 +577,12 @@ def evals_to_best(result) -> int:
 
 
 def invalid_split(result, cell):
-    """(static, runtime) invalid counts of a kernel-tuning run's journal."""
+    """(static, runtime) invalid counts of a kernel-tuning run's journal; a
+    config outside the space counts as static."""
     static = runtime = 0
     for o in result.journal:
         if not math.isfinite(o.value):
-            if cell.valid(cell.space.config(o.idx)):
+            if o.idx is not None and cell.valid(cell.space.config(o.idx)):
                 runtime += 1
             else:
                 static += 1
@@ -1012,6 +1039,250 @@ def online_gemma(sdir: str, dev, params, gp_block_n: int) -> dict:
     return {"parity": worst, "launches": served, "steps": n_steps}
 
 
+# -- phase 11 ------------------------------------------------------------------
+
+
+def paper_comparison(dev) -> int:
+    """Phase 11(a): the paper's comparison on the GTX Titan X GEMM space at
+    its budget, each strategy once at seed 0, BO's surrogate on the GP
+    kernel and the padded GPs on the card. Returns the GP-kernel launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import gp as G
+    from repro_torch.core.metrics import mae
+    from repro_torch.core.runner import run_strategy
+    from repro_torch.core.spaces import make_objective
+    from repro_torch.core.strategies import (ALL_BASELINES, ALL_FRAMEWORKS,
+                                             BO_NAMES, make_strategy)
+    from repro_torch.kernels import matern_gp as kgp
+    from repro_torch.launch import compare
+    obj = make_objective("gemm", PAPER_GPU)
+    cap = PAPER_BUDGET * 50                    # the engine's total-call cap
+    gp_launches = 0
+    framework_gps = {}
+    for label in PAPER_RUNS:
+        name = label.split()[0]
+        kw = ({"engine": "jax", "gp_device": str(dev)} if "jax" in label
+              else compare.strategy_kwargs(name, dev))
+        strat = compare.TimedStrategy(make_strategy(name, **kw))
+        kgp.launches = 0
+        t0 = time.perf_counter()
+        res = run_strategy(strat, obj, budget=PAPER_BUDGET, seed=0)
+        wall = time.perf_counter() - t0
+        gp_launches += kgp.launches
+        keys = [o.key for o in res.journal]
+        n_inv = sum(not math.isfinite(o.value) for o in res.journal)
+        log(f"[11a] {label}: MAE {mae(res.trace, obj.optimum):.4f}, best "
+            f"{res.best_value:.4f} (optimum {obj.optimum:.4f}), "
+            f"{res.unique_evals} unique evals of {strat.proposals} "
+            f"proposals, {n_inv} invalid, {wall:.2f} s, tuner "
+            f"{1e3 * strat.seconds / max(strat.proposals, 1):.3f} ms a "
+            f"proposal, {kgp.launches} GP-kernel launches")
+        if res.unique_evals != PAPER_BUDGET and strat.proposals < cap:
+            fail(f"{label}: {res.unique_evals} of {PAPER_BUDGET} evals "
+                 "before the total-call cap")
+        if len(set(keys)) != len(keys):
+            fail(f"{label}: a config was evaluated twice")
+        bo = name in BO_NAMES
+        if bo and strat.proposals > res.unique_evals + 1:
+            fail(f"{label}: BO proposed an evaluated config "
+                 f"({strat.proposals} proposals, {res.unique_evals} evals)")
+        if bo and "jax" not in label and kgp.launches < PAPER_BUDGET - 20:
+            fail(f"{label}: {kgp.launches} GP-kernel launches, want one a "
+                 "BO iteration")
+        if name in ALL_BASELINES:
+            cpu = run_strategy(make_strategy(
+                name, **compare.strategy_kwargs(name, "cpu")), obj,
+                budget=PAPER_BUDGET, seed=0)
+            if [o.key for o in cpu.journal] != keys:
+                fail(f"{label}: trace differs from the same run on the CPU")
+        if name in ALL_FRAMEWORKS:
+            framework_gps[name] = strat.inner.gp
+        if "jax" in label:
+            framework_gps[label] = strat.inner.gp.gp
+
+    # the padded GPs at their last state: card against CPU against float64
+    # (the CPU tests' rule: the card within 8x the CPU's fp32 error plus
+    # 1e-5 of the scale), and fit + predict ms on the card
+    rng = np.random.default_rng(0)
+    for label, g in framework_gps.items():
+        cand = (obj.space.X_norm if "jax" in label else
+                rng.random((2048, g.dim)).astype(np.float32))
+        cpu = G.GP(g.dim, g.max_obs, g.kernel, g.ell, g.noise, device="cpu")
+        cpu.X[:], cpu.y[:], cpu.mask[:], cpu.n = g.X, g.y, g.mask, g.n
+        got = [t.double().cpu().numpy() for t in g.predict(cand)]
+        want = [t.double().numpy() for t in cpu.predict(cand)]
+        st = G.gp_fit(torch.from_numpy(g.X).double(),
+                      torch.from_numpy(g.y).double(),
+                      torch.from_numpy(g.mask), kernel=g.kernel, ell=g.ell,
+                      noise=g.noise)
+        exact = [t.numpy() for t in G.gp_predict(
+            st, torch.from_numpy(cand).double(), kernel=g.kernel, ell=g.ell)]
+        cand_dev = g.upload(cand)
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            g.fit()
+            mu, _ = g.predict(cand_dev)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - s0)
+        for what, a, b, e in zip(("mean", "std"), got, want, exact):
+            err_c, err_p = np.abs(a - e).max(), np.abs(b - e).max()
+            bound = 8 * err_p + 1e-5 * np.abs(e).max()
+            log(f"[11a] {label} padded GP at {g.n} observations, {what} "
+                f"over {len(cand)} candidates: card {err_c:.3e}, CPU "
+                f"{err_p:.3e} from float64 (bound {bound:.3e})")
+            if not (np.isfinite(a).all() and err_c <= bound):
+                fail(f"{label}: the padded GP on the card disagrees with "
+                     "the CPU")
+        log(f"[11a] {label} padded GP fit + predict on the card: "
+            f"{1e3 * statistics.median(times):.3f} ms (median of 20, "
+            f"{g.max_obs} padded rows)")
+    return gp_launches
+
+
+def _bowl(cfg) -> float:
+    import numpy as np
+    vals = np.array([cfg[f"p{j}"] for j in range(6)], np.float64)
+    return float(0.01 + np.sum((vals / 31.0 - 0.4) ** 2))
+
+
+def generative_on_card(dev) -> int:
+    """Phase 11(b): pool-mode BO, its surrogate on the GP kernel, over a
+    constrained space of 1.07e9 cartesian configs, beside the numpy
+    surrogate's run of the same seed; and the wide MoE sharding space.
+    Returns the GP-kernel launches of the kernel-backed run."""
+    import numpy as np
+    from repro_torch.core.gp_fast import IncrementalGP
+    from repro_torch.core.objectives import CallableObjective
+    from repro_torch.core.runner import run_strategy
+    from repro_torch.core.searchspace import (GenerativeSpace, Param,
+                                              SearchSpace, VectorConstraint)
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.core.tuning_targets import sharding_space
+    from repro_torch.kernels import matern_gp as kgp
+    space = SearchSpace([Param(f"p{j}", tuple(range(32))) for j in range(6)],
+                        [VectorConstraint(
+                            lambda c: (c["p0"] + c["p1"]) % 2 == 0)],
+                        name="gen1e9")
+    if not isinstance(space, GenerativeSpace):
+        fail("a 1e9 cartesian space did not build as a GenerativeSpace")
+    obj = CallableObjective(space, _bowl, name="gen1e9_bowl")
+    runs = {}
+    for backend in ("cuda", "numpy"):
+        kw = ({"gp_backend": "cuda", "gp_device": str(dev)}
+              if backend == "cuda" else {})
+        strat = make_strategy("ei", **kw)
+        kgp.launches = 0
+        t0 = time.perf_counter()
+        res = run_strategy(strat, obj, budget=GEN_BUDGET, seed=0)
+        runs[backend] = (res, strat, kgp.launches,
+                         time.perf_counter() - t0)
+    res, strat, n_gp, wall = runs["cuda"]
+    ref = runs["numpy"][0]
+    codes = np.array([o.idx for o in res.journal], np.int64)
+    keys = [o.key for o in res.journal]
+    agree = next((i for i, (a, b) in enumerate(zip(keys, [
+        o.key for o in ref.journal])) if a != b), len(keys))
+    log(f"[11b] {space.name} (cartesian {space.cartesian_size:,}): ei, "
+        f"gp_backend cuda, {res.unique_evals} evals in {wall:.2f} s, "
+        f"{n_gp} GP-kernel launches, best {res.best_value:.5f}; numpy "
+        f"surrogate best {ref.best_value:.5f} in {runs['numpy'][3]:.2f} s; "
+        f"the first {agree} suggestions agree")
+    if res.unique_evals != GEN_BUDGET or len(set(keys)) != len(keys):
+        fail("generative BO did not spend its budget without revisits")
+    if not space._feasible_mask(codes).all():
+        fail("generative BO suggested an infeasible config")
+    if agree < strat.cfg.initial_samples:
+        fail(f"the initial sample differs from the numpy run at {agree}")
+    if n_gp < GEN_BUDGET - strat.cfg.initial_samples:
+        fail(f"{n_gp} GP-kernel launches for "
+             f"{GEN_BUDGET - strat.cfg.initial_samples} BO iterations: a "
+             "pool fell back to numpy")
+    # the kernel-backed posterior at the final state, at pool sizes that do
+    # not tile block_n, against the numpy surrogate on the same state
+    # (phase 2's rule for the GP kernel: the mean within 3% of its range
+    # over the largest pool, here the std too)
+    gp = strat.gp.gp
+    plain = IncrementalGP.from_state(gp.state())
+    rng = np.random.default_rng(3)
+    pools = [space.X_norm[space.sample_feasible(rng, m)]
+             for m in (2049, 777, 1)]
+    mu_n, sd_n = plain.predict_at(pools[0])
+    scale_mu = float(mu_n.max() - mu_n.min())
+    scale_sd = float(sd_n.max() - sd_n.min())
+    for X in pools:
+        before = kgp.launches
+        mu, sd = gp.predict_at(X)
+        mu_n, sd_n = plain.predict_at(X)
+        e_mu = float(np.abs(mu - mu_n).max())
+        e_sd = float(np.abs(sd - sd_n).max())
+        log(f"[11b] pool of {len(X)}: kernel against numpy, mean "
+            f"{e_mu:.3e} ({e_mu / scale_mu:.2e} of its range), std "
+            f"{e_sd:.3e} ({e_sd / scale_sd:.2e}); "
+            f"{kgp.launches - before} launch")
+        if (kgp.launches != before + 1 or e_mu > 0.03 * scale_mu
+                or e_sd > 0.03 * scale_sd):
+            fail(f"pool of {len(X)}: the kernel-backed posterior disagrees "
+                 "with numpy or did not launch")
+    # the wide MoE sharding space the port could not build before
+    t0 = time.perf_counter()
+    wide = sharding_space(WIDE_ARCH, "train_4k", wide=True)
+    built = time.perf_counter() - t0
+    est = wide.feasible_fraction_interval()
+    t0 = time.perf_counter()
+    first = wide.sample_feasible(np.random.default_rng(0), 1)
+    drawn = time.perf_counter() - t0
+    log(f"[11b] {wide.name}: {type(wide).__name__}, cartesian "
+        f"{wide.cartesian_size:,}, built in {1e3 * built:.2f} ms; feasible "
+        f"fraction estimate {est['point']:.3g} ({est['method']} "
+        f"[{est['lo']:.2g}, {est['hi']:.2g}]); first feasible sample in "
+        f"{1e3 * drawn:.2f} ms")
+    if not (isinstance(wide, GenerativeSpace)
+            and wide._feasible_mask(first).all()):
+        fail(f"{wide.name}: not generative or its first sample infeasible")
+    return n_gp
+
+
+def live_comparison(cell, sdir: str, phase4: str) -> int:
+    """Phase 11(c): the baselines and the frameworks tune phase 4's cell
+    with phase 4's budget, journaled into the same store. Returns the GEMM
+    launches."""
+    from repro_torch.core.runner import run_strategy
+    from repro_torch.core.strategies import (ALL_BASELINES, ALL_FRAMEWORKS,
+                                             make_strategy)
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels import tuning
+    from repro_torch.launch import compare
+    log(f"[11c] beside phase 4's BO: {phase4}")
+    n_gemm = 0
+    for name in ALL_BASELINES + ALL_FRAMEWORKS:
+        obj = tuning.KernelObjective(cell, reps=3, device=cell.device)
+        strat = compare.TimedStrategy(make_strategy(
+            name, **compare.strategy_kwargs(name, obj.device)))
+        kg.launches = 0
+        t0 = time.perf_counter()
+        res = run_strategy(strat, obj, budget=GEMM_BUDGET, seed=0,
+                           store=sdir, warm_start=False,
+                           run_id=f"{name}_{cell.kernel}_{cell.shape_sig}-s0")
+        n_gemm += kg.launches
+        n_static, n_runtime = invalid_split(res, cell)
+        best = (f"{cell.space.config(res.best_idx)} "
+                f"{res.best_value * 1e3:.4f} ms after {evals_to_best(res)} "
+                "evals" if math.isfinite(res.best_value) else "none valid")
+        log(f"[11c] {name}: best {best}; {res.unique_evals} evals of "
+            f"{strat.proposals} proposals, invalid {n_static} static, "
+            f"{n_runtime} runtime; {kg.launches} gemm launches; "
+            f"{time.perf_counter() - t0:.1f} s")
+        # the budget, or the engine's total-call cap (a walk that keeps
+        # proposing evaluated configs, as simulated annealing does)
+        if (res.unique_evals != GEMM_BUDGET
+                and strat.proposals < 50 * GEMM_BUDGET):
+            fail(f"{name}: {res.unique_evals} of {GEMM_BUDGET} evals")
+    return n_gemm
+
+
 def serve_cases(kc, dev, card: str) -> dict:
     """The serve kernels at gemma-2b's shapes with the blocks phase 8 ran:
     name -> (label, kernel fn, plain fn, library fn or None, bound ms,
@@ -1390,6 +1661,21 @@ def main() -> int:
     t0 = time.perf_counter()
     online = online_gemma(sdir, dev, served["server"].params, best_bn)
     log(f"[10] done in {time.perf_counter() - t0:.1f} s")
+
+    # 11. this slice's main path: the paper's comparison on the card, the
+    # generative backend, and the live comparison on phase 4's cell
+    t0 = time.perf_counter()
+    n_gp11 = paper_comparison(dev) + generative_on_card(dev)
+    n_gemm11 = live_comparison(
+        cell, sdir, f"best {best_cfg} {res.best_value * 1e3:.4f} ms after "
+        f"{evals_to_best(res)} evals; invalid {n_static} static, "
+        f"{n_runtime} runtime")
+    log(f"[11] launches: gp {n_gp11}, gemm {n_gemm11}; done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if n_gp11 <= 0 or n_gemm11 <= 0:
+        fail("phase 11 launched a kernel of its path no time")
+    launches["gemm"] += n_gemm11
+    launches["matern_gp"] += n_gp11
     store_tmp.cleanup()
 
     # 6. yardsticks at the main-path shapes: CUDA events around one call

@@ -1,21 +1,41 @@
-"""Search strategies of the port: the paper's BO in ask/tell form
-(base.Strategy), driven by repro_torch.core.engine.ParallelTuningEngine.
-
-Cut from this port: the Kernel Tuner baselines (random, simulated
-annealing, MLS, genetic algorithm) and the BayesOpt/scikit-optimize
-framework analogues; ``make_strategy`` raises ``KeyError`` for their names
-as it does for any unknown name."""
+"""Search strategies: the paper's BO + Kernel Tuner baselines + framework
+analogues. All implement the ask/tell protocol (base.Strategy); they are
+driven by repro_torch.core.engine.ParallelTuningEngine, never run
+standalone. Port of ``repro/core/strategies/__init__.py``, whole: the same
+names build the same strategies."""
 from repro_torch.core.strategies.base import (GeneratorStrategy, Proposal,
                                               Strategy, StrategyContext)
+from repro_torch.core.strategies.baselines import (GeneticAlgorithm,
+                                                   MultiStartLocalSearch,
+                                                   RandomSearch,
+                                                   SimulatedAnnealing)
 from repro_torch.core.strategies.bo import BOConfig, BOStrategy
+from repro_torch.core.strategies.frameworks import GPHedgeSnapBO, UCBSnapBO
 
-#: the BO acquisitions the paper evaluates (the reference's tuple);
-#: ``make_strategy`` also takes ``poi`` and ``lcb`` by name
-ALL_BO = ("ei", "multi", "advanced_multi")
+
+#: the names that build a BOStrategy, one per acquisition
+BO_NAMES = ("ei", "poi", "lcb", "multi", "advanced_multi")
 
 
 def make_strategy(name: str, **kw):
-    """BO strategy by acquisition name; ``kw`` are ``BOConfig`` fields."""
-    if name in ("ei", "poi", "lcb", "multi", "advanced_multi"):
+    """Factory used by benchmarks/examples/CLI. ``kw`` are ``BOConfig``
+    fields for the BO names, constructor arguments otherwise (the
+    frameworks take ``device`` for their GP)."""
+    if name in BO_NAMES:
         return BOStrategy(BOConfig(acquisition=name, **kw))
-    raise KeyError(f"unknown strategy {name!r}")
+    table = {
+        "random": RandomSearch,
+        "simulated_annealing": SimulatedAnnealing,
+        "mls": MultiStartLocalSearch,
+        "genetic_algorithm": GeneticAlgorithm,
+        "bayesopt_ucb": UCBSnapBO,
+        "skopt_gphedge": GPHedgeSnapBO,
+    }
+    if name not in table:
+        raise KeyError(f"unknown strategy {name!r}")
+    return table[name](**kw)
+
+
+ALL_BO = ("ei", "multi", "advanced_multi")
+ALL_BASELINES = ("random", "simulated_annealing", "mls", "genetic_algorithm")
+ALL_FRAMEWORKS = ("bayesopt_ucb", "skopt_gphedge")

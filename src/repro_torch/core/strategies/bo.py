@@ -27,9 +27,10 @@ panel). Small spaces keep the full-space path untouched, so paper-parity
 results are unchanged.
 
 Port notes: the surrogate's posterior can run on the card through the
-hand-written CUDA Matérn-GP kernel (``gp_backend="cuda"``). The reference's
-``engine="jax"`` branch (its padded jit GP, ``repro/core/gp.py``) is cut
-until that module is ported: ``engine="jax"`` raises.
+hand-written CUDA Matérn-GP kernel (``gp_backend="cuda"``). ``engine="jax"``
+keeps the reference's name, so a ``BOConfig`` means the same in both
+packages; here it selects the padded torch GP (``repro_torch.core.gp``, the
+port of the reference's padded jit GP) on ``gp_device``.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core import acquisition as A
+from repro_torch.core.gp import GP
 from repro_torch.core.gp_fast import IncrementalGP
 from repro_torch.core.lhs import initial_sample, lhs_unit
 from repro_torch.core.strategies.base import Proposal, Strategy, StrategyContext
@@ -62,13 +64,15 @@ class BOConfig:
     af_order: Sequence[str] = ("ei", "poi", "lcb")
     noise: float = 1e-6
     # "fast": incremental-Cholesky exact GP (beyond-paper, ~100x less work);
-    # "jax" (the reference's padded jit GP) is not ported and raises
+    # "jax": the padded GP (the reference's padded jit GP; in the port, its
+    # torch counterpart on ``gp_device``)
     engine: str = "fast"
     # -- self-hosted posterior scoring (DESIGN.md §14) -----------------------
-    # "numpy" | "cuda": backend for the §III-G exhaustive prediction loop;
-    # "cuda" runs it through the hand-written matern_gp kernel on the card
-    # (on ``gp_device``, default the card), block_n ideally from the
-    # kernel-tuning store (tuned_gp_block_n)
+    # "numpy" | "cuda": fast-engine backend for the §III-G exhaustive
+    # prediction loop; "cuda" runs it through the hand-written matern_gp
+    # kernel, block_n ideally from the kernel-tuning store
+    # (tuned_gp_block_n). ``gp_device`` is where the "cuda" backend and the
+    # "jax" engine's padded GP run: the card unless it says "cpu"
     gp_backend: str = "numpy"
     gp_block_n: int = 512
     gp_device: Optional[str] = None
@@ -87,6 +91,7 @@ class BOConfig:
     pool_refine_topk: int = 3             # posterior-mean incumbents refined
     pool_refine_steps: int = 2            # exchange sweeps per incumbent
     pool_refine_max: int = 256            # refined-candidate cap per round
+    predict_chunk: int = 8192             # jax-engine pool prediction chunk
     # -- transfer-aware warm start (DESIGN.md §11) ---------------------------
     warm_topk: int = 5                    # prior best configs re-evaluated first
     warm_min_init: int = 3                # LHS floor kept under warm priors
@@ -153,19 +158,25 @@ def _flag_indices(flags) -> np.ndarray:
 
 class _EngineAdapter:
     """Uniform .add / .predict_all / .predict_at / .y_std / .mark /
-    .rollback over the GP engine. ``X_cand=None`` selects candidate-pool
+    .rollback over both GP engines. ``X_cand=None`` selects candidate-pool
     mode: no fixed candidate panel, prediction only at requested points."""
 
     def __init__(self, cfg: BOConfig, X_cand: Optional[np.ndarray],
                  max_obs: int, ell: float, dim: Optional[int] = None):
-        if cfg.engine != "fast":
-            raise ValueError(
-                f"BOConfig.engine={cfg.engine!r}: only the 'fast' engine is "
-                "ported; the padded jit GP behind 'jax' (core/gp.py) is not")
-        self.gp = IncrementalGP(X_cand, max_obs=max_obs, kernel=cfg.kernel,
-                                ell=ell, noise=cfg.noise, dim=dim,
-                                backend=cfg.gp_backend,
-                                block_n=cfg.gp_block_n, device=cfg.gp_device)
+        self.jax_mode = cfg.engine == "jax"
+        self.X_cand = X_cand
+        self._chunk = cfg.predict_chunk
+        if self.jax_mode:
+            d = X_cand.shape[1] if X_cand is not None else dim
+            self.gp = GP(d, max_obs=max_obs, kernel=cfg.kernel,
+                         ell=ell, noise=cfg.noise, device=cfg.gp_device)
+            self._Xc_dev = None   # the panel, uploaded once at first predict
+        else:
+            self.gp = IncrementalGP(X_cand, max_obs=max_obs, kernel=cfg.kernel,
+                                    ell=ell, noise=cfg.noise, dim=dim,
+                                    backend=cfg.gp_backend,
+                                    block_n=cfg.gp_block_n,
+                                    device=cfg.gp_device)
 
     def add(self, x, y, extra_noise: float = 0.0):
         self.gp.add(x, y, extra_noise)
@@ -177,13 +188,24 @@ class _EngineAdapter:
         self.gp.rollback()
 
     def predict_all(self):
+        if self.jax_mode:
+            if self._Xc_dev is None:
+                self._Xc_dev = self.gp.upload(self.X_cand)
+            mu, sigma = self.gp.predict(self._Xc_dev)
+            return (mu.double().cpu().numpy(), sigma.double().cpu().numpy())
         return self.gp.predict()
 
     def predict_at(self, X: np.ndarray):
+        if self.jax_mode:
+            return self.gp.predict_chunked(X, chunk=self._chunk)
         return self.gp.predict_at(X)
 
     @property
     def y_std(self) -> float:
+        if self.jax_mode:
+            if self.gp.state is None:
+                self.gp.fit()
+            return float(self.gp.state.y_std)
         return self.gp.y_std
 
 

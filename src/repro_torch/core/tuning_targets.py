@@ -3,11 +3,13 @@
 Port of ``repro/core/tuning_targets.py``, cut to ``sharding_space`` in its
 narrow and wide forms: the grids, constraint names and space names are the
 reference's, so a cell's ``dryrun[arch×shape×mesh]`` fingerprint is the
-same digest in both packages and one store serves both. The serve control
-plane (``store/watch.py``, ``store/resolve.py``) keys sharding cells and
-prod telemetry on it. Cut: ``DryRunObjective`` (a multi-pod XLA dry-run
-compile, which has no meaning on one card) and the ``hard`` variant (the
-TPU's VMEM residency model); both wait for the distribution tooling.
+same digest in both packages and one store serves both. The wide MoE grids
+(cartesian 9·10^7 to 1.1·10^9) build as a ``GenerativeSpace``, as the
+reference's do. The serve control plane (``store/watch.py``,
+``store/resolve.py``) keys sharding cells and prod telemetry on it. Cut:
+``DryRunObjective`` (a multi-pod XLA dry-run compile, which has no meaning
+on one card) and the ``hard`` variant (the TPU's VMEM residency model);
+both wait for the distribution tooling.
 """
 from __future__ import annotations
 
@@ -28,12 +30,12 @@ def sharding_space(arch: str, shape: str, wide: bool = False,
     unchanged, so existing tuning caches and journals stay valid.
 
     ``hard=True`` (the reference's VMEM-coupled variant) is cut: it needs
-    the TPU residency model and the generative space backend.
+    the TPU's VMEM residency model.
     """
     if hard:
         raise ValueError("sharding_space(hard=True) is cut from the port: it "
-                         "waits for the distribution tooling (ROADMAP Queue 1)"
-                         " and GenerativeSpace")
+                         "needs the TPU's VMEM residency model and waits for "
+                         "the distribution tooling (ROADMAP Queue 1)")
     if not wide:
         params = [
             Param("remat", ("none", "dots", "full")),

@@ -115,7 +115,7 @@ def flash_valid(cfg: Dict, hd: int, dtype: torch.dtype) -> bool:
 # -- flash decode (single-token cache attention) --------------------------
 
 def decode_attention(q, k_cache, v_cache, cache_pos, cur_pos, window=None,
-                     block_kv=512, num_splits=1, combine="kernel"):
+                     block_kv=512, num_splits=1, combine="kernel", bias=None):
     """Split-KV flash decode over the cache, semantics-matched to
     ``models.layers._decode_attention``: q (B, 1, H, hd), caches
     (B, S, KV, hd), ``cache_pos`` (B, S) absolute positions (-1 = empty
@@ -124,8 +124,10 @@ def decode_attention(q, k_cache, v_cache, cache_pos, cur_pos, window=None,
     fp32 bias row (0 / -inf). A capacity that does not tile into
     ``num_splits × block_kv`` is padded with masked slots: the reference
     pads K and V too; here only the bias is padded, and the kernel reads no
-    slot past the cache. Returns (B, 1, H, hd)."""
-    bias = decode_bias(cache_pos, cur_pos, window, num_splits * block_kv)
+    slot past the cache. ``bias``, when given, is that row already built
+    by :func:`decode_bias` for this cache and tile. Returns (B, 1, H, hd)."""
+    if bias is None:
+        bias = decode_bias(cache_pos, cur_pos, window, num_splits * block_kv)
     out = _fd.flash_decode(q[:, 0], k_cache, v_cache, bias,
                            block_kv=block_kv, num_splits=num_splits,
                            combine=combine)

@@ -20,8 +20,8 @@ Entry points run on the card unless the caller passes ``device="cpu"``
 (the plain kernel versions, for tests); left at the default with no CUDA
 device present they raise. The serve path reads tuned flash and decode
 blocks back with ``kernel_config_from_store`` and
-``decode_kernel_config_from_store``. Cut from this port: ``default_cells``
-(the reference benchmark's matrix; no benchmark is ported yet).
+``decode_kernel_config_from_store``. ``default_cells`` is the reference
+benchmark's four-cell matrix at the reference's shapes.
 """
 from __future__ import annotations
 
@@ -190,12 +190,18 @@ def decode_cell(B: int = 4, S: int = 2048, H: int = 8, KV: int = 2,
     cur_pos = torch.full((B,), cur, dtype=torch.long, device=dev)
     dtype_bytes = torch.empty((), dtype=dtype).element_size()
     G = H // max(KV, 1)
+    #: the validity bias is an input of the cell, built once per tile
+    biases: Dict[int, torch.Tensor] = {}
 
     def run(cfg):
+        tile = cfg["block_kv"] * cfg["num_splits"]
+        if tile not in biases:
+            biases[tile] = ops.decode_bias(cache_pos, cur_pos, window, tile)
         return ops.decode_attention(q, k, v, cache_pos, cur_pos,
                                     window=window, block_kv=cfg["block_kv"],
                                     num_splits=cfg["num_splits"],
-                                    combine=cfg["combine"])
+                                    combine=cfg["combine"],
+                                    bias=biases[tile])
 
     def valid(cfg):
         # padding tiles any capacity, but splits past the cache are pure
@@ -245,7 +251,44 @@ def gp_cell(N: int = 4096, T: int = 128, d: int = 15, t_obs: int = 37,
               "inputs": args})
 
 
+def default_cells(smoke: bool = False, device=None) -> Tuple[KernelCell, ...]:
+    """The reference's standard four-cell matrix (its
+    ``benchmarks/kernel_tuning.py`` runs it), at its shapes: all of them hd
+    64 and at most 2 query heads per KV head, so every cell runs on the
+    CUDA kernels."""
+    if smoke:
+        return (gemm_cell(256, 256, 256, device=device),
+                flash_cell(1, 512, 2, 64, device=device),
+                decode_cell(1, 512, 4, 2, 64, device=device),
+                gp_cell(2048, 128, 15, device=device))
+    return (gemm_cell(512, 512, 512, device=device),
+            flash_cell(1, 1024, 4, 64, device=device),
+            decode_cell(4, 2048, 8, 2, 64, device=device),
+            gp_cell(4096, 128, 15, device=device))
+
+
 # -- the measured objective --------------------------------------------------
+
+_spin_rates: Dict[int, float] = {}
+
+
+def _spin_rate(device: torch.device) -> float:
+    """Cycles a second of ``torch.cuda._sleep`` on ``device``, timed once
+    with CUDA events."""
+    idx = torch.cuda._get_device_index(device, optional=True)
+    if idx not in _spin_rates:
+        cycles = 1 << 22
+        with torch.cuda.device(idx):
+            torch.cuda._sleep(cycles)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            torch.cuda._sleep(cycles)
+            t1.record()
+            t1.synchronize()
+        _spin_rates[idx] = cycles / (t0.elapsed_time(t1) * 1e-3)
+    return _spin_rates[idx]
+
 
 
 class KernelObjective(Objective):
@@ -260,10 +303,24 @@ class KernelObjective(Objective):
     error is raised, never journaled: a fault such as an illegal address
     poisons the context.
 
-    On the card each rep is timed with CUDA events after ``warmup`` runs,
-    best of ``reps``; on the CPU (``device="cpu"``, tests) the plain
-    version is timed with the host clock.
+    The value is one call's time, as the reference's is. On the card, after
+    ``warmup`` runs, each of ``reps`` reps times ``n`` back-to-back launches
+    between one pair of CUDA events and divides by ``n``; the best rep
+    counts. One launch timed alone is mostly the host's launch for kernels
+    of 0.01-0.2 ms, so ``n`` is taken from one more timed launch: enough to
+    fill about ``TARGET_S``, at least 1 and at most ``MAX_LAUNCHES`` (a
+    2.4 ms GEMM keeps n = 1). The n launches queue behind a spin on the
+    card (``torch.cuda._sleep``) twice as long as the host takes to issue
+    them, so the events see the card's time and not the host's pace. On
+    the CPU (``device="cpu"``, tests) each rep times one call of the plain
+    version with the host clock.
     """
+
+    #: the span a rep's back-to-back launches should fill, and their cap
+    TARGET_S = 1e-3
+    MAX_LAUNCHES = 64
+    #: the shortest spin the launches queue behind
+    LEAD_MIN_S = 5e-5
 
     def __init__(self, cell: KernelCell, *, reps: int = 3, warmup: int = 1,
                  device=None, verbose: bool = False):
@@ -282,18 +339,38 @@ class KernelObjective(Objective):
         #: concurrent launches would share the card's time
         self.in_process_only = dev.type == "cuda"
 
-    def _time_once(self, cfg) -> float:
+    def _time_once(self, cfg, n: int = 1, lead_s: float = 0.0) -> float:
+        """One rep: seconds per call over ``n`` back-to-back launches
+        between one pair of CUDA events, queued behind a spin of ``lead_s``
+        seconds; on the CPU, one call."""
         if self.device.type == "cuda":
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
+            if lead_s > 0:
+                torch.cuda._sleep(int(lead_s * _spin_rate(self.device)))
             t0.record()
-            self.cell.run(cfg)
+            for _ in range(n):
+                self.cell.run(cfg)
             t1.record()
             t1.synchronize()
-            return t0.elapsed_time(t1) * 1e-3
+            return t0.elapsed_time(t1) * 1e-3 / n
         t0 = time.perf_counter()
         self.cell.run(cfg)
         return time.perf_counter() - t0
+
+    def _rep_plan(self, cfg) -> Tuple[int, float]:
+        """``(n, lead_s)`` for the card's reps: ``n`` from one timed launch
+        after the warm-up, the spin from the host's time to issue a call."""
+        if self.device.type != "cuda":
+            return 1, 0.0
+        h0 = time.perf_counter()
+        self.cell.run(cfg)
+        host = time.perf_counter() - h0
+        torch.cuda.synchronize(self.device)
+        one = self._time_once(cfg)
+        n = max(1, min(self.MAX_LAUNCHES,
+                       math.ceil(self.TARGET_S / max(one, 1e-9))))
+        return n, 2.0 * host * n + self.LEAD_MIN_S
 
     def __call__(self, idx: int) -> float:
         cfg = self.space.config(int(idx))
@@ -306,13 +383,16 @@ class KernelObjective(Objective):
                 self.cell.run(cfg)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            best = min(self._time_once(cfg) for _ in range(self.reps))
+            n, lead = self._rep_plan(cfg)
+            best = min(self._time_once(cfg, n, lead)
+                       for _ in range(self.reps))
         except _build.LaunchRefused as e:         # runtime-discovered invalid
             if self.verbose:
                 print(f"  [kernel-tune] {cfg} -> INVALID ({e})")
             return math.nan
         if self.verbose:
-            print(f"  [kernel-tune] {cfg} -> {best*1e3:.3f} ms")
+            print(f"  [kernel-tune] {cfg} -> {best*1e3:.3f} ms "
+                  f"({n} launches a rep)")
         return best
 
 

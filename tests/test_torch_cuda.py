@@ -17,6 +17,9 @@ from repro_torch.kernels import flash_decode as kfd
 from repro_torch.kernels import gemm as kgemm
 from repro_torch.kernels import matern_gp as kgp
 
+# a sibling module: on the card's host `tests` may name another package
+from test_torch_gp64 import posterior64
+
 
 @pytest.fixture
 def card():
@@ -388,6 +391,69 @@ def test_fused_and_partials_launches_on_one_stream_repeat_bitwise(card):
     assert all(torch.equal(a, b) for a, b in zip(parts, again))
     want = ref.combine_partials(*parts).reshape(4, 8, 256).to(torch.bfloat16)
     _check(first, want, torch.bfloat16)
+
+
+def test_kernel_objective_times_back_to_back_fused_decode_launches(card):
+    """The tuning objective times n back-to-back launches per rep (n from
+    one timed launch: a 0.02 ms kernel gets more than one), queued behind a
+    spin, so it reads the card's time (0.0165 ms for this call) and not the
+    host's pace (0.11-0.19 ms a call). The fused decode kernel resets its
+    own arrival counters, so the last of n launches on one stream still
+    agrees with the plain version."""
+    from repro_torch.kernels import tuning
+    cell = tuning.decode_cell(4, 1088, 8, 1, 256, fill=0.97,
+                              dtype=torch.bfloat16, device=card)
+    cfg = {"block_kv": 256, "num_splits": 4, "combine": "kernel"}
+    obj = tuning.KernelObjective(cell, reps=2, device=card)
+    kfd.split_launches = 0
+    t = obj(cell.space.index_of(cfg))
+    n, lead = obj._rep_plan(cfg)
+    assert 1 < n <= obj.MAX_LAUNCHES and lead > obj.LEAD_MIN_S
+    assert 0 < t < 5e-5
+    first = cell.run(cfg)
+    for _ in range(n - 1):
+        last = cell.run(cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(first, last)
+    q, k, v, cp, cu = cell.meta["inputs"]
+    bias = ops.decode_bias(cp, cu, None, 4 * 256)
+    want = ref.combine_partials(*ref.decode_split(q[:, 0], k, v, bias, 4)
+                                ).reshape(last.shape).to(torch.bfloat16)
+    _check(last, want, torch.bfloat16)
+    # a 2.4 ms GEMM keeps one launch a rep
+    gcell = tuning.gemm_cell(4096, 4096, 4096, device=card)
+    gcfg = {"block_m": 128, "block_n": 128, "block_k": 64}
+    gobj = tuning.KernelObjective(gcell, device=card)
+    assert gobj(gcell.space.index_of(gcfg)) > 1e-3
+    assert gobj._rep_plan(gcfg)[0] == 1
+
+
+def test_padded_gp_on_the_card_matches_the_cpu(card):
+    """The frameworks' padded GP (Matérn-5/2, ℓ=1, noise 1e-4) with
+    duplicate snapped rows and an imputed penalty, on the card and on the
+    CPU: the card's posterior is within 8x the CPU's fp32 error against
+    the float64 yardstick ``posterior64`` (plus 1e-5 of the scale)."""
+    from repro_torch.core import gp as G
+    rng = np.random.default_rng(11)
+    d, t = 15, 220
+    pool = rng.random((160, d)).astype(np.float32)
+    gps = {dev: G.GP(d, max_obs=t + 8, kernel="matern52", ell=1.0,
+                     noise=1e-4, device=dev) for dev in (str(card), "cpu")}
+    for i in range(t):
+        x = pool[rng.integers(len(pool))]
+        y = 5e3 if i % 17 == 0 else float(rng.normal(10, 2))
+        for g in gps.values():
+            g.add(x, y)
+    cand = rng.random((2048, d)).astype(np.float32)
+    got = [t_.cpu().double().numpy() for t_ in gps[str(card)].predict(cand)]
+    cpu = [t_.double().numpy() for t_ in gps["cpu"].predict(cand)]
+    g = gps["cpu"]
+    exact = posterior64(g.X, g.y, g.mask, cand, kernel="matern52", ell=1.0,
+                        noise=1e-4)[:2]
+    for a, b, e in zip(got, cpu, exact):
+        assert np.isfinite(a).all()
+        bound = 8 * np.abs(b - e).max() + 1e-5 * np.abs(e).max()
+        assert np.abs(a - e).max() <= bound
 
 
 def test_decode_server_on_the_card_launches_the_kernels(card):

@@ -297,5 +297,7 @@ def test_all_bo_is_the_references():
     assert ALL_BO == JAX_ALL_BO == ("ei", "multi", "advanced_multi")
     for name in ("poi", "lcb"):
         assert make_strategy(name).cfg.acquisition == name
+    # the baselines are ported now: "random" builds, an unknown name raises
+    assert make_strategy("random").name == "random"
     with pytest.raises(KeyError):
-        make_strategy("random")
+        make_strategy("nope")
