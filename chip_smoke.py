@@ -15,16 +15,18 @@ Phases, in order; any failure exits non-zero and prints no result:
      Matérn-GP posterior for all four ν at (t,N,d) = (13,512,6),
      (37,1024,15) and the paper's panel (220,18432,15) padded to T = 256;
      flash attention in fp32 (CUDA cores) and bf16 (tensor cores), causal
-     and full (causal=False), at small shapes, S 192, and gemma-2b's
-     prefill (B 4, S 1,024, H 8, KV 1, hd 256) under several blocks:
-     block_q != block_kv, one and two warpgroups, block_kv > 64 (successive
-     64-key updates); flash decode,
-     every config both ways (one launch with the combine fused in, and the
-     partials mode + the tensor-op combine), in fp32 and bf16 at gemma-2b's
-     decode (B 4, capacity 1,088, H 8, KV 1, hd 256) and at its widths with
-     B 1, at G = 1 and 2, with one block a head group, and on a mostly
-     empty cache, a capacity that does not tile, windows with and without
-     wrap-around, and a row with no valid slot (exact zeros), the
+     and full (causal=False), at small shapes, S 192, gemma-2b's prefill
+     (B 4, S 1,024, H 8, KV 1, hd 256), stablelm-3b's (H 32, KV 32, hd 80)
+     and qwen3-moe's (H 32, KV 4, hd 128) under several blocks: block_q !=
+     block_kv, one and two warpgroups, block_kv > 64 (successive 64-key
+     updates); flash decode, every config both ways (one launch with the
+     combine fused in, and the partials mode + the tensor-op combine), in
+     fp32 and bf16 at gemma-2b's decode (B 4, capacity 1,088, H 8, KV 1,
+     hd 256) and at its widths with B 1, at G = 1 and 2, at qwen3-moe's
+     decode (H 32, KV 4), mistral-large's (G 12) and stablelm-3b's (hd 80),
+     at G 12 and 16 with hd 80 and 128, with one block a head group, and on
+     a mostly empty cache, a capacity that does not tile, windows with and
+     without wrap-around, and a row with no valid slot (exact zeros), the
      partials held against the plain version's too (splits of padding only
      exactly m = -inf, l = 0, o = 0);
   3. the self-hosting cell: BO tunes the GP kernel's block_n at the paper's
@@ -36,8 +38,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      GEMM space (17,956 configs) for 220 evaluations with gp_backend="cuda",
      beside a gp_backend="numpy" run of the same seed;
   7. BO, its surrogate on the GP kernel, tunes the serve kernels at
-     gemma-2b's shapes in bf16: the decode cell, then the flash cell,
-     journaled into the same store;
+     gemma-2b's shapes and at qwen3-moe-30b-a3b's in bf16: the decode cell,
+     then the flash cell, journaled into the same store;
   8. slice 2's main path: launch/serve.py's DecodeServer serves gemma-2b
      at full width and depth (random bf16 weights from a seed): prefill of
      4 x 1,024 tokens, 64 greedy decode steps, each a replay of the decode
@@ -83,10 +85,29 @@ Phases, in order; any failure exits non-zero and prints no result:
      kernel's full-attention instance beside SDPA(is_causal=False) among
      them; the fused decode call launches one kernel. The
      combine's time is the fused launch's less the partials-mode launch's,
-     on the same inputs, timed in turns.
+     on the same inputs, timed in turns;
+ 12. slice 8's main path, after the gemma-2b server is freed: DecodeServer
+     serves qwen3-moe-30b-a3b at full width and depth (48 layers, 30.5 B
+     random bf16 parameters from a seed), blocks resolved from the phase-7
+     store, prefill 4 x 1,024 and 64 graph replays: prefill ms, ms/step,
+     tokens/s, peak memory, launches (one fused decode launch a layer and
+     step, no call of a plain attention core), the logits against the
+     plain attention path teacher-forced (2e-2 x max|logits|), the share of
+     top-k routing choices that differ between the kernel and plain paths
+     (where the limit is missed through them: each kernel call held to its
+     plain version on its own inputs, and the rows whose routing agreed in
+     every layer to the limit), the step beside its byte bounds (every
+     expert read, the routed only); then internlm2-1.8b and stablelm-3b at
+     full depth, mistral-large-123b at 4 layers and chameleon-34b at 8, each
+     at full width, 8 graph steps, the same limit; each model's two
+     attention kernels at its shapes against their plain versions, timed
+     (events and device) beside their bounds and SDPA; each model freed
+     before the next.
 The line before the last holds the kernels' JSON summary (times are the
 phase-9 device times, the phase-6 event times where the profiler saw none;
-the GEMM's and the GP kernel's launches are phases 4 and 11 together),
+the GEMM's and the GP kernel's launches are phases 4 and 11 together; the
+entries named ``kernel@arch`` are phase 12's instances, with that model's
+launches and times),
 the one before it the card's name and power limit; the last line is the
 device JSON.
 """
@@ -123,7 +144,9 @@ MAIN_GP = (220, 18432, 15)          # 17,956 candidates padded to a tile multipl
 MAIN_T = 256
 # flash attention: (B, S, H, KV, hd) and (block_q, block_kv)
 FLASH_SHAPES = ((1, 256, 4, 4, 64), (2, 512, 4, 2, 128), (4, 1024, 8, 1, 256),
-                (2, 192, 4, 2, 128))
+                (2, 192, 4, 2, 128), (2, 192, 4, 2, 80),
+                # stablelm-3b's prefill (hd 80, MHA) and qwen3-moe's (G 8)
+                (4, 1024, 32, 32, 80), (4, 1024, 32, 4, 128))
 # bf16: block_kv > 64 is successive 64-key updates, block_q a multiple of
 # 128 puts two warpgroups in a block, block_q 64 one
 FLASH_BLOCKS = ((128, 128), (128, 64), (64, 128), (256, 128), (128, 256),
@@ -142,6 +165,20 @@ DECODE_CASES = (
     ("window, no wrap", 2, 768, 4, 1, 128, 400, 128, False),
     ("one block a group", 33, 256, 8, 4, 64, 200, None, False),
     ("no valid slot in row 0", 2, 1088, 8, 1, 256, (-1, 1054), None, False),
+    # head dim 80 and query groups of 9 to 16 rows (the 16-row instance)
+    ("qwen3-moe decode", 4, 1088, 32, 4, 128, 1054, None, False),
+    ("mistral-large decode, G=12", 4, 1088, 96, 8, 128, 1054, None, False),
+    ("stablelm-3b decode, hd 80", 4, 1088, 32, 32, 80, 1054, None, False),
+    ("G=16", 2, 1088, 16, 1, 128, 1054, None, False),
+    ("G=16 hd 80", 2, 512, 32, 2, 80, 300, None, False),
+    ("G=12 hd 80 mostly empty", 2, 1024, 24, 2, 80, 5, None, False),
+    ("G=12 mostly empty", 2, 1024, 24, 2, 128, 5, None, False),
+    ("G=16 window, no wrap", 2, 768, 16, 1, 64, 400, 128, False),
+    ("G=12 hd 80 rolling window", 2, 512, 12, 1, 80, 1500, 200, True),
+    ("G=16 no valid slot in row 0", 2, 1088, 16, 1, 256, (-1, 1054), None,
+     False),
+    ("G=12 hd 80 no valid slot in row 1", 2, 1088, 12, 1, 80, (1054, -1),
+     None, False),
 )
 # (block_kv, splits), each run with both combines
 DECODE_CONFIGS = ((128, 8), (256, 4), (512, 2), (1024, 1), (512, 1), (128, 1))
@@ -178,6 +215,22 @@ PAPER_RUNS = ("advanced_multi", "multi", "ei", "genetic_algorithm", "mls",
               "skopt_gphedge", "ei engine=jax")
 GEN_BUDGET = 60
 WIDE_ARCH = "qwen3-moe-30b-a3b"
+# phase 12: the MoE model at full width and depth, its kernel cells tuned
+# in phase 7 ((B, S, H, KV, hd) of its prefill and its decode), and the
+# dense configs at full width, depth cut where one card cannot hold them
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_FLASH = (4, 1024, 32, 4, 128)
+MOE_DECODE = (4, 1088, 32, 4, 128)
+DENSE_RUNS = (("internlm2-1.8b", None), ("stablelm-3b", None),
+              ("mistral-large-123b", 4), ("chameleon-34b", 8))
+DENSE_STEPS = 8
+# the dense parity rule's margin: the kernel path may sit at most this much
+# of max|logits| farther from the fp32 model than the plain bf16 path does
+# (worst step against worst step; PERF.md section 6 gives the readings)
+FP32_MARGIN = 5e-3
+# the dense config whose bf16 paths are also run with sqrt(d)-scaled
+# embeddings, and with the head tied to them (gemma-2b's logits path)
+CONTROL_ARCH = "internlm2-1.8b"
 
 
 def log(*a):
@@ -591,16 +644,19 @@ def invalid_split(result, cell):
 
 def tune_serve_kernels(sdir: str, gp_block_n: int) -> None:
     """Phase 7: BO tunes the decode cell, then the flash cell, at gemma-2b's
-    serving shapes in bf16, the surrogate on the GP kernel."""
+    serving shapes and at qwen3-moe's in bf16, the surrogate on the GP
+    kernel."""
     import torch
     from repro_torch.kernels import tuning
-    B, S, H, KV, hd = GEMMA_DECODE
-    fB, fS, fH, fKV, fhd = GEMMA_FLASH
-    cells = (
-        (tuning.decode_cell(B, S, H, KV, hd, fill=DECODE_FILL,
-                            dtype=torch.bfloat16), 12, 4, 5),
-        (tuning.flash_cell(fB, fS, fH, fhd, KV=fKV, dtype=torch.bfloat16),
-         8, 3, 3))
+    cells = []
+    for dec, fl in ((GEMMA_DECODE, GEMMA_FLASH), (MOE_DECODE, MOE_FLASH)):
+        B, S, H, KV, hd = dec
+        fB, fS, fH, fKV, fhd = fl
+        cells += [
+            (tuning.decode_cell(B, S, H, KV, hd, fill=DECODE_FILL,
+                                dtype=torch.bfloat16), 12, 4, 5),
+            (tuning.flash_cell(fB, fS, fH, fhd, KV=fKV,
+                               dtype=torch.bfloat16), 8, 3, 3)]
     for cell, budget, init, reps in cells:
         t0 = time.perf_counter()
         res = tuning.run_kernel_tuning(cell, sdir, budget=budget, init=init,
@@ -678,7 +734,8 @@ def serve_gemma(sdir: str, dev) -> dict:
     cfg = get_arch("gemma-2b")
     cap = SERVE_PROMPT + SERVE_STEPS
     kc = serve.serving_kernel_config(cfg, device=dev, prompt_len=SERVE_PROMPT,
-                                     cache_cap=cap, store=sdir, log=log)
+                                     cache_cap=cap, store=sdir, batch=SERVE_B,
+                                     log=log)
     if not (kc.use_flash and kc.use_decode):
         fail(f"serving config {kc} leaves a kernel off")
     torch.cuda.reset_peak_memory_stats(dev)
@@ -891,7 +948,8 @@ def online_gemma(sdir: str, dev, params, gp_block_n: int) -> dict:
     if source.refresh() is not None:
         fail("the sharding cell has a record in a store of kernel cells")
     kc = serve.serving_kernel_config(cfg, device=dev, prompt_len=SERVE_PROMPT,
-                                     cache_cap=cap, store=odir, log=log)
+                                     cache_cap=cap, store=odir, batch=SERVE_B,
+                                     log=log)
     ksrc = serve.kernel_sources(odir, cfg, batch=SERVE_B,
                                 prompt_len=SERVE_PROMPT, cache_cap=cap,
                                 device=dev, log=log)
@@ -1454,6 +1512,479 @@ def timed(timer, fn, what: str):
     return ma - mb
 
 
+# -- phase 12 ------------------------------------------------------------------
+
+
+class Probe:
+    """Hooks on the port's attention cores and MoE router while a run is
+    inside ``with``: the calls of the plain attention cores, each kernel
+    call's output against its plain version on the same inputs (``check``:
+    the kernel's max|err| over max|plain|, bf16 held as phase 2 holds it),
+    and each MoE layer's top-k choice (``record``), in call order. The
+    hooks replace module attributes that ``gqa_attention`` and
+    ``moe_block`` look up at each call; a captured graph replays what its
+    capture called. ``check`` and ``record`` read back to the host, so
+    they stay off while a graph is captured."""
+
+    NAMES = ("_direct_attention", "_decode_attention",
+             "_kernel_flash_attention", "_kernel_decode_attention",
+             "moe_route")
+
+    def __init__(self, check: bool = False, record: bool = False):
+        self.check, self.record = check, record
+        self.plain_calls = 0
+        self.core_err = 0.0
+        self.core_calls = 0
+        self.routes = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ops, ref
+        from repro_torch.models import layers as L
+        self.L = L
+        orig = self.saved = {n: getattr(L, n) for n in self.NAMES}
+        probe = self
+
+        def held(got, want):
+            want = want.float()
+            probe.core_err = max(probe.core_err, float(
+                (got.float() - want).abs().max() / want.abs().max()))
+            probe.core_calls += 1
+
+        def direct(*a, **kw):
+            probe.plain_calls += 1
+            return orig["_direct_attention"](*a, **kw)
+
+        def decode(*a, **kw):
+            probe.plain_calls += 1
+            return orig["_decode_attention"](*a, **kw)
+
+        def kflash(q, k, v, kc):
+            out = orig["_kernel_flash_attention"](q, k, v, kc)
+            if probe.check:      # the plain version in fp32 (phase 2's rule)
+                held(out, ref.attention(q.float(), k.float(), v.float()
+                                        ).to(q.dtype))
+            return out
+
+        def kdecode(q, k_cache, v_cache, *, cache_pos, cur_pos, window, kc):
+            out = orig["_kernel_decode_attention"](
+                q, k_cache, v_cache, cache_pos=cache_pos, cur_pos=cur_pos,
+                window=window, kc=kc)
+            if probe.check:
+                ns = kc.decode_num_splits
+                bias = ops.decode_bias(cache_pos, cur_pos, window,
+                                       ns * kc.decode_block_kv)
+                held(out, ref.combine_partials(*ref.decode_split(
+                    q[:, 0], k_cache, v_cache, bias, ns)).reshape(
+                        out.shape).to(q.dtype))
+            return out
+
+        def route(p, xg, *, cfg, C):
+            out = orig["moe_route"](p, xg, cfg=cfg, C=C)
+            if probe.record:
+                probe.routes.append(torch.sort(out[0], dim=-1).values.cpu())
+            return out
+
+        for n, f in zip(self.NAMES, (direct, decode, kflash, kdecode, route)):
+            setattr(L, n, f)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.L, n, f)
+
+
+def routing_flips(a_routes, b_routes, B: int, S: int):
+    """Top-k choices of two runs, layer by layer and call by call: the
+    share of (token, k) choices that differ, the share of (layer, token)
+    rows whose top-k sets differ, and the batch rows whose every token in
+    every layer so far chose alike, after each call (prefill calls hold
+    B x S tokens row-major, decode calls B)."""
+    import torch
+    if len(a_routes) != len(b_routes):
+        fail(f"the two runs routed {len(a_routes)} and {len(b_routes)} "
+             "times")
+    diff = rows = n = n_rows = 0
+    agree = torch.ones(B, dtype=torch.bool)
+    agree_after = []
+    for a, b in zip(a_routes, b_routes):
+        miss = ~(a[:, :, None] == b[:, None, :]).any(-1)        # (T, K)
+        diff += int(miss.sum())
+        n += miss.numel()
+        bad = miss.any(-1)
+        rows += int(bad.sum())
+        n_rows += bad.numel()
+        agree &= ~bad.reshape(B, -1).any(-1)
+        agree_after.append(agree.clone())
+    return diff / max(n, 1), rows / max(n_rows, 1), agree_after
+
+
+def family_cases(cfg, kc, dev, card):
+    """The two attention kernels at a served model's shapes and blocks, on
+    inputs from a seed: the flash kernel at its prefill (B 4 x 1,024) and
+    the fused decode launch on a cache of 1,088 slots 97% full. name ->
+    (label, kernel fn, plain fn, library fn, bound ms, bound_by, max|err|
+    of the kernel against the plain version, phase 2's rule)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.roofline import bound_ms
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(3)
+    B, S, H, KV = SERVE_B, SERVE_PROMPT, cfg.num_heads, cfg.num_kv_heads
+    hd, G = cfg.resolved_head_dim, H // KV
+    q = torch.from_numpy(rng.normal(size=(B, S, H, hd))).to(dev, bf16)
+    k, v = (torch.from_numpy(rng.normal(size=(B, S, KV, hd))).to(dev, bf16)
+            for _ in range(2))
+    bq, bkv = kc.flash_block_q, kc.flash_block_kv
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    flash = (lambda: kfa.flash_attention(q, k, v, block_q=bq, block_kv=bkv))
+    plain = (lambda: ref.attention(q, k, v))
+    err_f = _agree(flash().float(), plain().float(), bf16,
+                   f"{cfg.name} flash B{B} S{S} H{H} KV{KV} hd{hd} bf16 "
+                   f"({bq},{bkv})")
+    cases = {"flash_attention": (
+        f"flash B{B} S{S} H{H} KV{KV} hd{hd} bf16 ({bq},{bkv}); library "
+        "SDPA(is_causal, enable_gqa)", flash, plain,
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True),
+        *bound_ms(4.0 * B * H * hd * S * (S + 1) / 2,
+                  2.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd), card,
+                  "bfloat16"), err_f)}
+    Sd = SERVE_PROMPT + SERVE_STEPS
+    ns, dbkv = kc.decode_num_splits, kc.decode_block_kv
+    cur = int(Sd * DECODE_FILL) - 1
+    qd = torch.from_numpy(rng.normal(size=(B, H, hd))).to(dev, bf16)
+    kd, vd = (torch.from_numpy(rng.normal(size=(B, Sd, KV, hd))).to(dev, bf16)
+              for _ in range(2))
+    cp = torch.from_numpy(np.broadcast_to(_cache_positions(Sd, cur, False),
+                                          (B, Sd)).copy()).to(dev)
+    cu = torch.full((B,), cur, dtype=torch.long, device=dev)
+    bias = ops.decode_bias(cp, cu, None, ns * dbkv)
+    n_valid = int((bias == 0).sum())
+    mask = bias[:, :Sd].to(bf16)[:, None, None, :]
+    fused = (lambda: kfd.flash_decode(qd, kd, vd, bias, block_kv=dbkv,
+                                      num_splits=ns,
+                                      combine=kc.decode_combine))
+    dplain = (lambda: ref.combine_partials(*ref.decode_split(
+        qd, kd, vd, bias, ns)).reshape(B, H, hd).to(bf16))
+    err_d = _agree(fused().float(), dplain().float(), bf16,
+                   f"{cfg.name} decode B{B} S{Sd} ({n_valid} valid) H{H} "
+                   f"KV{KV} G{G} hd{hd} bf16 ({dbkv},{ns}) "
+                   f"{kc.decode_combine}")
+    cases["flash_decode_split"] = (
+        f"decode B{B} S{Sd} ({n_valid} valid slots) H{H} KV{KV} "
+        f"G{G} hd{hd} bf16 ({dbkv},{ns}), combine {kc.decode_combine} (one "
+        "launch where fused); library SDPA(the bias as its additive mask, "
+        "enable_gqa)", fused, dplain,
+        lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True),
+        *bound_ms(4.0 * hd * G * KV * n_valid,
+                  2.0 * 2 * n_valid * KV * hd + 2.0 * 2 * B * H * hd
+                  + 4.0 * B * bias.shape[1], card, "bfloat16"), err_d)
+    return cases
+
+
+def moe_step_bounds(cfg, routes, card):
+    """Byte bounds of one qwen3-moe decode step at batch 4 (weights read
+    once, the KV cache's valid slots, the embedding rows): every expert
+    read, as the reference's dense (E, C, d) dispatch reads them; the
+    routed experts only at their most (B x k of E per layer); and the
+    routed experts this run's decode steps chose (distinct experts per
+    layer and step, measured). (ms, ms, ms, distinct experts a layer)."""
+    from repro_torch.launch.roofline import bound_ms
+    from repro_torch.models.params import count_params
+    mo, L = cfg.moe, cfg.num_layers
+    expert = 3 * mo.num_experts * cfg.d_model * mo.d_expert     # a layer's
+    other = count_params(cfg) - L * expert - cfg.vocab_size * cfg.d_model
+    cache = (2 * 2 * SERVE_B * (SERVE_PROMPT + SERVE_STEPS // 2) * L
+             * cfg.num_kv_heads * cfg.resolved_head_dim)
+    base = 2.0 * (other + SERVE_B * cfg.d_model) + cache
+    dec = [r for r in routes if r.shape[0] == SERVE_B]
+    distinct = (sum(len(set(r.flatten().tolist())) for r in dec)
+                / max(len(dec), 1))
+    most = min(mo.num_experts, SERVE_B * mo.top_k)
+    return (bound_ms(0, base + 2.0 * L * expert, card)[0],
+            bound_ms(0, base + 2.0 * L * expert * most / mo.num_experts,
+                     card)[0],
+            bound_ms(0, base + 2.0 * L * expert * distinct / mo.num_experts,
+                     card)[0], distinct)
+
+
+def serve_family(name: str, layers, steps: int, sdir: str, dev,
+                 card: str) -> dict:
+    """Phase 12, one model: DecodeServer at full width (depth cut to
+    ``layers`` where given) with blocks from the store; prefill 4 x 1,024
+    (a cold one, then the timed one), ``steps`` graph replays; launches of
+    each kernel and no call of a plain attention core; the logits held
+    against the plain attention path, teacher-forced on the served tokens,
+    at 2e-2 x max|logits|; a dense model whose two bf16 paths differ by
+    more is held against the same weights in fp32 (``FP32_MARGIN``), and
+    ``CONTROL_ARCH`` is also run with scaled and with scaled and tied
+    embeddings, to show what sets that distance. An MoE model's routing is
+    held too: the kernel
+    path's eager run and the plain path record each layer's top-k; where
+    the end-to-end limit is missed and routing differs, each kernel call is
+    held to its plain version on its own inputs (the unit the kernels
+    change) and the logits of the batch rows whose routing agreed in every
+    layer to the limit. Then its two kernels at its shapes
+    (``family_cases``), and the model is freed."""
+    import gc
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models.params import leaves
+    from repro_torch.models.stepfn import make_decode_step, make_prefill_step
+    from repro_torch.parallel.sharding import ParallelConfig
+    full = get_arch(name)
+    cfg = full if layers is None else full.replace(num_layers=layers)
+    tag = f"[12] {name}" + ("" if layers is None else
+                           f" ({layers} of {full.num_layers} layers)")
+    cap = SERVE_PROMPT + steps
+    parity = min(PARITY_STEPS, steps)
+    kc = serve.serving_kernel_config(cfg, device=dev, prompt_len=SERVE_PROMPT,
+                                     cache_cap=cap, store=sdir, batch=SERVE_B,
+                                     log=log)
+    if not (kc.use_flash and kc.use_decode):
+        fail(f"{name}: serving config {kc} leaves a kernel off")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with Probe() as probe:
+        t0 = time.perf_counter()
+        server = serve.DecodeServer(
+            cfg, ParallelConfig(kernel=kc), batch=SERVE_B,
+            prompt_len=SERVE_PROMPT, decode_steps=steps, seed=0, device=dev,
+            keep_logits=parity)
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for _, t in leaves(server.params))
+        batch = server.input_batch()
+        serve.reset_kernel_launches()
+        cold_s = server.prefill_batch(batch)
+        prefill_s = server.prefill_batch(batch)
+        step_s = [server.decode_step() for _ in range(steps)]
+        launches = serve.kernel_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    med = statistics.median(step_s)
+    log(f"{tag}: {n_params:,} parameters (bf16, {2 * n_params / 1e9:.2f} GB)"
+        f" initialised in {init_s:.3f} s; blocks {kc}")
+    log(f"{tag}: prefill {SERVE_B} x {SERVE_PROMPT}: {prefill_s * 1e3:.3f} ms "
+        f"(first call {cold_s * 1e3:.3f} ms; {server.prefill_dispatch}); "
+        f"decode {steps} steps: median {med * 1e3:.4f} ms/step (min "
+        f"{min(step_s) * 1e3:.4f}, max {max(step_s) * 1e3:.4f}), "
+        f"{SERVE_B / med:.1f} tokens/s ({server.decode_dispatch}); peak "
+        f"memory {peak / 2 ** 30:.3f} GiB; launches {launches}; plain "
+        f"attention calls {probe.plain_calls}")
+    fused = kc.decode_combine == "kernel"
+    n_dec = cfg.num_layers * (steps + server.captures)
+    want = {"flash_attention": 2 * cfg.num_layers,
+            "flash_decode_split": n_dec,
+            "flash_decode_combine": n_dec * fused}
+    if server.captures != 1 or launches != want or probe.plain_calls:
+        fail(f"{name}: {server.captures} captures, launches {launches} "
+             f"(want {want}), {probe.plain_calls} plain attention calls")
+    if not all(bool(torch.isfinite(x).all()) for x in server.kept) or \
+            torch.stack(server.out, 1).shape != (SERVE_B, steps + 1):
+        fail(f"{name}: served tokens or logits malformed")
+
+    moe = cfg.moe is not None
+
+    def forced(label, run_cfg, params, kcx):
+        """Prefill + ``parity`` decode steps teacher-forced on the served
+        tokens, eager, under a Probe: (logits per step, probe)."""
+        pcfg = ParallelConfig(kernel=kcx)
+        with Probe(check=kcx is not None, record=moe) as pr:
+            logits, cache = make_prefill_step(run_cfg, pcfg, cache_cap=cap)(
+                params, batch)
+            out = [logits.float().cpu()]
+            decode = make_decode_step(run_cfg, pcfg)
+            for i in range(parity):
+                logits, cache = decode(params, cache,
+                                       {"tokens": server.out[i][:, None]},
+                                       SERVE_PROMPT + i)
+                out.append(logits.float().cpu())
+            del cache, logits
+        return out, pr
+
+    def dist(a_steps, b_steps):
+        return [float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(a_steps, b_steps)]
+
+    runs = {"kernels": forced("kernels", cfg, server.params, kc),
+            "plain": forced("plain", cfg, server.params, None)}
+    plain = runs["plain"][0]
+    rel = dist(server.kept, plain)
+    same = sum(int(torch.equal(a.argmax(-1), b.argmax(-1)))
+               for a, b in zip(server.kept, plain))
+    log(f"{tag}: served vs plain attention path, prefill + {parity} "
+        f"teacher-forced steps: max|err| / max|logits| per step "
+        f"{[round(x, 5) for x in rel]} (limit 2e-2); greedy tokens equal at "
+        f"{same} of {len(plain)}")
+    result = {"cfg": cfg, "kc": kc, "launches": launches,
+              "prefill_ms": prefill_s * 1e3, "step_ms": med * 1e3,
+              "tokens_s": SERVE_B / med, "peak": peak, "parity": max(rel),
+              "params": n_params}
+    if moe:
+        kr, pr = runs["kernels"][1], runs["plain"][1]
+        share, row_share, agree = routing_flips(kr.routes, pr.routes,
+                                                SERVE_B, SERVE_PROMPT)
+        eager = [float((a - b).abs().max()) / float(b.abs().max())
+                 for a, b in zip(runs["kernels"][0], plain)]
+        n_moe = sum(1 for _ in kr.routes) // (parity + 1)
+        # agreement after each step's last MoE layer
+        rows_ok = [agree[(i + 1) * n_moe - 1] for i in range(parity + 1)]
+        log(f"{tag}: routing, kernel path against plain path on the same "
+            f"tokens: {100 * share:.3f}% of top-{cfg.moe.top_k} choices "
+            f"differ, {100 * row_share:.3f}% of (layer, token) rows; batch "
+            f"rows agreeing in every layer after each step "
+            f"{[int(r.sum()) for r in rows_ok]} of {SERVE_B}; the kernel "
+            f"path's eager logits against plain "
+            f"{[round(x, 5) for x in eager]}; each kernel call against its "
+            f"plain version on its inputs: max|err| / max|plain| "
+            f"{kr.core_err:.3e} over {kr.core_calls} calls (limit 2^-7)")
+        bounds = moe_step_bounds(cfg, pr.routes, card)
+        log(f"{tag}: decode step {med * 1e3:.4f} ms against byte bounds: "
+            f"every expert read {bounds[0]:.4f} ms, the routed only at "
+            f"most ({min(cfg.moe.num_experts, SERVE_B * cfg.moe.top_k)} of "
+            f"{cfg.moe.num_experts} a layer) {bounds[1]:.4f} ms, the "
+            f"{bounds[3]:.2f} distinct experts a layer this run's steps "
+            f"chose {bounds[2]:.4f} ms ({smi_line()})")
+        result.update(flip_share=share, flip_rows=row_share,
+                      core_err=kr.core_err, bounds=bounds, eager=max(eager))
+        if kr.core_calls < 2 * cfg.num_layers or kr.core_err > 2.0 ** -7:
+            fail(f"{name}: a kernel call disagrees with its plain version "
+                 f"on its own inputs ({kr.core_err:.3e} over "
+                 f"{kr.core_calls} calls)")
+        if max(rel) > 2e-2:
+            if share == 0:
+                fail(f"{name}: logits {max(rel):.3e} x max|logits| from the "
+                     "plain path with the same routing")
+            worst, n_rows = 0.0, 0
+            for i, ok in enumerate(rows_ok):
+                if bool(ok.any()):
+                    n_rows += int(ok.sum())
+                    a, b = server.kept[i][ok], plain[i][ok]
+                    worst = max(worst, float((a - b).abs().max())
+                                / float(b.abs().max()))
+            rows = (f"{n_rows} (row, step) logits whose routing agreed in "
+                    f"every layer: max|err| / max|logits| {worst:.3e}"
+                    if n_rows else "no batch row whose routing agreed in "
+                    "every layer to hold")
+            log(f"{tag}: the end-to-end limit is missed where routing "
+                f"differs; held instead per kernel call (above), and {rows}"
+                " (limit 2e-2)")
+            if worst > 2e-2:
+                fail(f"{name}: rows with equal routing {worst:.3e} x "
+                     "max|logits| from the plain path")
+            result["parity_rows"] = worst
+        # where a step's time goes: a prefill, then PROFILE_STEPS graph
+        # replays (no logits kept)
+        server.keep_logits = 0
+        profile_window(lambda: server.prefill_batch(batch),
+                       f"{name}: a prefill", top=12)
+        profile_window(lambda: [server.decode_step()
+                                for _ in range(PROFILE_STEPS)],
+                       f"{name}: {PROFILE_STEPS} decode steps", top=12)
+    else:
+        # the same weights in fp32, fp32 activations, plain attention: how
+        # far each bf16 path sits from the model it rounds
+        from repro_torch.models.params import map_tree
+
+        def fp32_of(run_cfg, params):
+            p32 = map_tree(lambda t: t.float(), params)
+            out = forced("fp32", run_cfg.replace(dtype="float32"), p32,
+                         None)[0]
+            del p32
+            return out
+
+        f32 = fp32_of(cfg, server.params)
+        d_served, d_plain = dist(server.kept, f32), dist(plain, f32)
+        kr = runs["kernels"][1]
+        log(f"{tag}: against the same weights in fp32 (plain attention, "
+            f"teacher-forced): served {[round(x, 5) for x in d_served]}, "
+            f"plain bf16 path {[round(x, 5) for x in d_plain]}; each kernel "
+            f"call against its plain version on its inputs: max|err| / "
+            f"max|plain| {kr.core_err:.3e} over {kr.core_calls} calls "
+            "(limit 2^-7)")
+        result.update(fp32_served=max(d_served), fp32_plain=max(d_plain),
+                      core_err=kr.core_err)
+        if kr.core_calls < 2 * cfg.num_layers or kr.core_err > 2.0 ** -7:
+            fail(f"{name}: a kernel call disagrees with its plain version "
+                 f"on its own inputs ({kr.core_err:.3e} over "
+                 f"{kr.core_calls} calls)")
+        if max(rel) > 2e-2:
+            # two bf16 paths of this model differ by more than the serve
+            # limit: the kernel path is held to the plain path's own
+            # distance from the fp32 model, plus FP32_MARGIN
+            ok = max(d_served) <= max(d_plain) + FP32_MARGIN
+            log(f"{tag}: the end-to-end limit is missed by the plain bf16 "
+                f"path's own rounding ({max(d_plain):.5f} of max|logits| "
+                "from fp32); held instead: served at most the plain path's "
+                f"distance from fp32 + {FP32_MARGIN:g}, worst steps: "
+                f"{max(d_served):.5f} against {max(d_plain):.5f} + "
+                f"{FP32_MARGIN:g} ({'met' if ok else 'missed'})")
+            if not ok:
+                fail(f"{name}: served logits {max(d_served):.5f} of "
+                     "max|logits| from the fp32 model, the plain path "
+                     f"{max(d_plain):.5f} (+ {FP32_MARGIN:g} allowed)")
+        if name == CONTROL_ARCH:
+            # what sets the bf16 paths' distance: the same weights with
+            # sqrt(d)-scaled embeddings, then also with the head tied to
+            # them (the embedding table stands in for lm_head)
+            tied = {k: t for k, t in server.params.items() if k != "lm_head"}
+            control = {}
+            for label, ccfg, cp in (
+                    ("scaled embeddings",
+                     cfg.replace(scale_embeddings=True), server.params),
+                    ("scaled and tied embeddings",
+                     cfg.replace(scale_embeddings=True, tie_embeddings=True),
+                     tied)):
+                k_out, k_pr = forced("kernels", ccfg, cp, kc)
+                p_out = forced("plain", ccfg, cp, None)[0]
+                c32 = fp32_of(ccfg, cp)
+                row = (max(dist(k_out, p_out)), max(dist(p_out, c32)),
+                       max(dist(k_out, c32)),
+                       max(float(x.abs().max()) for x in c32))
+                control[label] = row
+                log(f"{tag}, control with {label}: worst step, max|err| / "
+                    f"max|logits|: kernels against plain {row[0]:.5f}, "
+                    f"plain against fp32 {row[1]:.5f}, kernels against fp32 "
+                    f"{row[2]:.5f}; fp32 max|logits| {row[3]:.3f} (this "
+                    f"config's {max(float(x.abs().max()) for x in f32):.3f})"
+                    f"; kernel calls {k_pr.core_err:.3e} over "
+                    f"{k_pr.core_calls}")
+                del k_out, p_out, c32
+            result["control"] = control
+            del tied
+    del runs, server, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cases = family_cases(cfg, kc, dev, card)
+    times = {}
+    for kname, (label, *fns, bound, by, err) in cases.items():
+        ev = [timed(event_ms, f, f"{tag} {kname} events") for f in fns]
+        dv = [timed(device_ms, f, f"{tag} {kname} device") for f in fns]
+        k_ms, p_ms, l_ms = (e if d is None else d for d, e in zip(dv, ev))
+        log(f"{tag} {label}: kernel {k_ms:.4f} ms (events {ev[0]:.4f}), "
+            f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound "
+            f"{bound:.6f} ms ({by}); kernel / library {k_ms / l_ms:.3f}; "
+            f"max|err| {err:.3e}")
+        times[kname] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                        "bound_ms": bound, "bound_by": by,
+                        "max_abs_err": err}
+    result["kernels"] = times
+    del cases
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1493,7 +2024,7 @@ def main() -> int:
               lambda: lib.gemm_attrs(1, regs, local)),
              ("gp (3xTF32 mma.sync, L^-1 ring)",
               lambda: lib.gp_attrs(regs, local))]
-    for hd in (64, 128, 256):
+    for hd in (64, 80, 128, 256):
         for causal, mask in ((1, "causal"), (0, "full")):
             attrs.append((f"flash hd{hd} fp32 {mask} (CUDA cores)",
                           lambda hd=hd, c=causal: lib.flash_attention_attrs(
@@ -1506,9 +2037,12 @@ def main() -> int:
                                                         local)))
         for dt, dname in ((0, "fp32"), (1, "bf16")):
             for mode, mname in ((0, "partials"), (1, "combine fused in")):
-                attrs.append((f"decode split hd{hd} {dname}, {mname}",
-                              lambda hd=hd, dt=dt, mode=mode: lib.decode_attrs(
-                                  mode, dt, hd, regs, local)))
+                for G in (8, 16):
+                    attrs.append((f"decode split hd{hd} G<={G} {dname}, "
+                                  f"{mname}",
+                                  lambda hd=hd, dt=dt, mode=mode, G=G:
+                                  lib.decode_attrs(mode, dt, hd, G, regs,
+                                                   local)))
     for name, get in attrs:
         _build.check(get(), f"{name} attributes")
         log(f"[1] {name}: {regs.value} registers/thread, "
@@ -1676,7 +2210,6 @@ def main() -> int:
         fail("phase 11 launched a kernel of its path no time")
     launches["gemm"] += n_gemm11
     launches["matern_gp"] += n_gp11
-    store_tmp.cleanup()
 
     # 6. yardsticks at the main-path shapes: CUDA events around one call
     a, b = cell.meta["inputs"]
@@ -1761,6 +2294,19 @@ def main() -> int:
         log(f"[9] {label}: device time kernel {k_ms}, plain {p_ms}, library "
             f"{l_ms}, bound {bound:.6f} ms ({by}){ratio}")
 
+    # 12. the MoE family and the dense configs at full width, each served
+    # from the phase-7 store after the gemma-2b server is freed (qwen3-moe's
+    # 61 GB of weights beside it would leave little room)
+    served["server"] = server = None
+    t0 = time.perf_counter()
+    families = [(MOE_ARCH, serve_family(MOE_ARCH, None, SERVE_STEPS, sdir,
+                                        dev, card))]
+    for name, depth in DENSE_RUNS:
+        families.append((name, serve_family(name, depth, DENSE_STEPS, sdir,
+                                            dev, card)))
+    store_tmp.cleanup()
+    log(f"[12] done in {time.perf_counter() - t0:.1f} s")
+
     summary = {"kernels": []}
     for name, src, line in (
             ("gemm", "gemm.cu", "gemm.py:21"),
@@ -1780,6 +2326,19 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": cases[name][-2], "bound_by": cases[name][-1],
             "library_ms": l_ms})
+    # every instance phase 12 served: the flash kernel at each model's
+    # prefill, the decode kernel at its decode (one launch a layer and
+    # step, the combine fused in where the blocks say so)
+    for arch, res in families:
+        for name, src, line in (
+                ("flash_attention", "flash_attention.cu",
+                 "flash_attention.py:22"),
+                ("flash_decode_split", "flash_decode.cu", "flash_decode.py:37")):
+            summary["kernels"].append({
+                "name": f"{name}@{arch}", "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}",
+                "replaces": f"src/repro/kernels/{line}",
+                "launches": res["launches"][name], **res["kernels"][name]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
     log(smi)

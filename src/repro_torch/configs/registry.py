@@ -1,29 +1,34 @@
 """Registry of the ported architectures + reduced smoke variants.
 
-Port of ``repro/configs/registry.py``, holding gemma-2b only: the port's
-model code runs dense attention so far. The reference's other nine configs
-wait for their family's slice, and ``get_arch`` names that slice.
+Port of ``repro/configs/registry.py``, holding the families the port's
+model code runs: the dense decoders (gemma-2b, internlm2-1.8b,
+stablelm-3b, mistral-large-123b, chameleon-34b) and MoE
+(qwen3-moe-30b-a3b). The reference's other four configs wait for their
+family's slice, and ``get_arch`` names that slice. ``smoke_config`` is the
+reference's, field for field, with the branches of the families ported.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
-from repro_torch.configs import gemma_2b
+from repro_torch.configs import (chameleon_34b, gemma_2b, internlm2_1_8b,
+                                 mistral_large_123b, qwen3_moe_30b_a3b,
+                                 stablelm_3b)
 from repro_torch.configs.arch import ArchConfig
 
-ARCHS: Dict[str, ArchConfig] = {gemma_2b.CONFIG.name: gemma_2b.CONFIG}
+ARCHS: Dict[str, ArchConfig] = {
+    m.CONFIG.name: m.CONFIG
+    for m in (qwen3_moe_30b_a3b, gemma_2b, mistral_large_123b,
+              internlm2_1_8b, stablelm_3b, chameleon_34b)
+}
 
 #: Reference configs not yet ported, and the slice each waits for.
 PENDING: Dict[str, str] = {
     "deepseek-v3-671b": "MLA + MoE",
-    "qwen3-moe-30b-a3b": "MoE",
     "recurrentgemma-9b": "windowed attention + RG-LRU",
     "xlstm-1.3b": "mLSTM/sLSTM",
     "musicgen-large": "cross-attention + embeddings frontend",
-    "chameleon-34b": "qk-norm dense",
-    "mistral-large-123b": "other dense configs",
-    "internlm2-1.8b": "other dense configs",
-    "stablelm-3b": "other dense configs",
 }
 
 
@@ -38,10 +43,11 @@ def get_arch(name: str) -> ArchConfig:
 
 def smoke_config(name: str) -> ArchConfig:
     """A reduced config of the same family, runnable on CPU in seconds:
-    the reference's dense reduction (2 layers, tiny widths, same pattern
-    and attention type)."""
+    the reference's reduction (tiny widths, same pattern, attention type
+    and MoE-ness; 2 layers, or 3 for an MoE config with dense first
+    layers; 8 experts, top 2, d_expert 96)."""
     cfg = get_arch(name)
-    return cfg.replace(
+    kw = dict(
         name=cfg.name + "-smoke",
         d_model=64,
         num_heads=4,
@@ -51,5 +57,13 @@ def smoke_config(name: str) -> ArchConfig:
         dense_d_ff=96 if cfg.dense_d_ff else None,
         vocab_size=256,
         cross_seq=8,
-        num_layers=2,
     )
+    if cfg.moe is not None:
+        kw["num_layers"] = 3 if cfg.moe_dense_first else 2
+        kw["moe_dense_first"] = 1 if cfg.moe_dense_first else 0
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=8, top_k=2, d_expert=96,
+        )
+    else:
+        kw["num_layers"] = 2
+    return cfg.replace(**kw)

@@ -136,7 +136,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p] * 12 + [i] * 10 + [p]
         fn.restype = i
-    lib.decode_attrs.argtypes = [i, i, i, ctypes.POINTER(i),
+    lib.decode_attrs.argtypes = [i, i, i, i, ctypes.POINTER(i),
                                  ctypes.POINTER(i)]
     lib.decode_attrs.restype = i
     lib.repro_cuda_error_string.argtypes = [i]

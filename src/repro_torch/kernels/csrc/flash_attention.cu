@@ -16,6 +16,12 @@
 // causal half); against the 989 TFLOP/s bf16 tensor-core peak that is
 // 17 us, the 25 MB of q, k, v and o take 8 us: bound by operations.
 // Full attention at the same shape does 4*B*H*hd*S*S = 34.4 GFLOP: 35 us.
+// At head dim 80 (stablelm-3b: B 4, S 1,024, H 32, KV 32, bf16, causal)
+// the work is 4*B*H*80*S*(S+1)/2 = 21.5 GFLOP, 22 us; q, k, v and o are
+// 4*B*S*H*80*2 = 84 MB, 25 us: bound by bytes. The kernel below does the
+// QK^T product at 80 (5 k16 steps) and P V at 128 columns (two 64-column
+// panels, the last half zeros): 1.3x the bound's operations, and shared
+// memory as at hd 128.
 //
 // bf16 (the serving dtype): the products on the tensor cores.
 //   * A warpgroup (4 warps) owns 64 query rows; a block holds two
@@ -44,10 +50,21 @@
 //     tensor map needs cuTensorMapEncodeTiled, which the library (linked
 //     against the CUDA runtime alone) does not reach; cp.async needs none.
 //   * Shared memory: 1 KB of alignment slack, the Q sub-tile (64 or 128
-//     rows x hd bf16) and the ring (stages x 2 x 64 x hd bf16); at hd 256
-//     with 128 rows and 2 stages that is 193 KB, and block_kv 256 (4
-//     stages) does not fit. kernels/flash_attention.py flash_smem_bytes
-//     mirrors the sum.
+//     rows x hdp bf16) and the ring (stages x 2 x 64 x hdp bf16), hdp the
+//     head dim rounded up to whole 64-column panels; at hd 256 with 128
+//     rows and 2 stages that is 193 KB, and block_kv 256 (4 stages) does
+//     not fit. kernels/flash_attention.py flash_smem_bytes mirrors the sum.
+//   * A head dim that is not a whole number of panels (hd 80: 10 16-byte
+//     chunks a row, 160 bytes) is staged as hdp = 128: chunks 8 and 9 land
+//     in the second panel at their swizzled places, so every cp.async
+//     vector and every descriptor address stays 16-byte aligned within its
+//     128-byte panel row, and the 1024-byte panels keep the swizzle's
+//     alignment. QK^T stops at hd (5 k16 steps: the last reads the second
+//     panel's first 32 bytes of each row, which are chunks 8 and 9), so the
+//     padded Q and K columns are never read. P V runs N = 64 on both V
+//     panels; the V columns 80..127 of every ring stage are zeroed once at
+//     the start of the kernel (cp.async never writes them), so the padded
+//     output columns sum zeros, and they are never written back.
 //   * A warpgroup skips the tiles wholly above its own diagonal; tiles
 //     astride it are masked per element.
 //   * Full (non-causal) attention is the same kernel instanced with
@@ -58,7 +75,8 @@
 // would break the 2e-4 fp32 limit, and fp32 is not on the serve path):
 // 64-row q sub-tiles and 64-key K/V chunks staged in fp32 shared memory, a
 // 64 x block_kv fp32 score tile, 4x4 register tiles for the scores, 8 rows x
-// hd/32 dims of accumulators per lane for p.v.
+// ceil(hd/32) dims of accumulators per lane for p.v (at hd 80, 3 dims: lanes
+// 0..26 cover the 80, the dims past hd are neither read nor written).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -126,7 +144,8 @@ flash_cc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* l_s = m_s + QT;           // [QT] running sum
   float* c_s = l_s + QT;           // [QT] this tile's correction
   constexpr int VEC = 4;
-  constexpr int DPT = HD / 32;     // output dims per lane
+  constexpr int DPT = (HD + 31) / 32;   // output dims per lane
+  constexpr bool FULL = HD % 32 == 0;   // every lane's dims lie below HD
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -261,7 +280,13 @@ flash_cc_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll 2
         for (int j = 0; j < KT; ++j) {
           float vv[DPT];
-          load_smem<DPT>(KV + j * HD + pd, vv);
+          if constexpr (FULL) {
+            load_smem<DPT>(KV + j * HD + pd, vv);
+          } else {
+#pragma unroll
+            for (int d = 0; d < DPT; ++d)
+              vv[d] = pd + d < HD ? KV[j * HD + pd + d] : 0.f;
+          }
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             const float p = Ss[(pr + i) * bkv + c0 + j];
@@ -278,7 +303,8 @@ flash_cc_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float denom = fmaxf(l_s[pr + i], 1e-30f);
       float* orow = ob + (size_t)(q0 + pr + i) * q_step + pd;
 #pragma unroll
-      for (int d = 0; d < DPT; ++d) orow[d] = acc[i][d] / denom;
+      for (int d = 0; d < DPT; ++d)
+        if (FULL || pd + d < HD) orow[d] = acc[i][d] / denom;
     }
   }
 }
@@ -325,9 +351,13 @@ __host__ __device__ inline int stages_for(int bkv) {
   return s < 2 ? 2 : (s > MAX_STAGES ? MAX_STAGES : s);
 }
 
+// the head dim as staged: whole 64-column panels
+__host__ __device__ constexpr int padded_hd(int hd) { return (hd + 63) / 64 * 64; }
+
 __host__ __device__ inline size_t smem_bytes(int hd, int nwg, int bkv) {
-  return 1024 + (size_t)nwg * TQ * hd * 2 +
-         (size_t)stages_for(bkv) * 2 * TK * hd * 2;
+  const int hdp = padded_hd(hd);
+  return 1024 + (size_t)nwg * TQ * hdp * 2 +
+         (size_t)stages_for(bkv) * 2 * TK * hdp * 2;
 }
 
 // Byte offset of 16-byte chunk c (8 bf16 columns) of row r (< 64) in a run
@@ -468,10 +498,11 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   extern __shared__ __align__(1024) unsigned char smraw[];
   constexpr int THREADS = NWG * WG;
   constexpr int QT = NWG * TQ;           // query rows per sub-tile
-  constexpr int CH = HD / 8;             // 16-byte chunks per row
-  constexpr int NP = HD / 64;            // 64-dim panels of the output
-  constexpr int Q_WG_BYTES = TQ * HD * 2;
-  constexpr int TILE_BYTES = TK * HD * 2;
+  constexpr int CH = HD / 8;             // 16-byte chunks per row loaded
+  constexpr int HDP = padded_hd(HD);     // columns staged: whole panels
+  constexpr int NP = HDP / 64;           // 64-dim panels of the output
+  constexpr int Q_WG_BYTES = TQ * HDP * 2;
+  constexpr int TILE_BYTES = TK * HDP * 2;
   const uint32_t base = (smem_u32(smraw) + 1023u) & ~1023u;
   const uint32_t Qs = base;                          // [NWG][NP panels]
   const uint32_t KVs = base + NWG * Q_WG_BYTES;      // [stages][K, V]
@@ -500,6 +531,22 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async16(vs + swz(j, c), vb + g);
     }
   };
+
+  if constexpr (HDP != HD) {
+    // V's columns HD..HDP-1 in the last panel of every ring stage: zeros,
+    // written once (cp.async fills only the chunks below HD); the first
+    // tile's proxy fence orders them before any wgmma reads them
+    constexpr int C0 = CH % 8;           // first padded chunk of the panel
+    for (int e = tid; e < stages * TK * (8 - C0); e += THREADS) {
+      const int st = e / (TK * (8 - C0));
+      const int j = (e / (8 - C0)) % TK, c = C0 + e % (8 - C0);
+      const uint32_t vs = KVs + st * 2 * TILE_BYTES + TILE_BYTES;
+      asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(
+                       vs + swz(j, (NP - 1) * 8 + c)),
+                   "r"(0)
+                   : "memory");
+    }
+  }
 
   // The block's bq / QT sub-tiles. Causal: an even count is taken in pairs
   // from both ends of the sequence (sub-tiles p and NT-1-p), so that every
@@ -656,6 +703,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int col = p * 64 + 8 * i + 2 * (lane & 3);
+        if (HDP != HD && col >= HD) continue;   // a padded column
         *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
             __floats2bfloat162_rn(acc[p][4 * i] / d0, acc[p][4 * i + 1] / d0);
         *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
@@ -714,7 +762,7 @@ cudaError_t attrs_of(int dtype, int nwg, cudaFuncAttributes* attr) {
              : cudaFuncGetAttributes(attr, tc::flash_tc_kernel<HD, 1, CAUSAL>);
 }
 
-// One launcher per head dim and mask: hd 64, 128 or 256; causal or full.
+// One launcher per head dim and mask: hd 64, 80, 128 or 256; causal or full.
 template <int HD>
 cudaError_t cc_launch(bool causal, const void* q, const void* k,
                       const void* v, void* o, int B, int S, int H, int KVH,
@@ -745,6 +793,7 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
   const bool c = causal != 0;
   switch (hd) {
     case 64: return cc_launch<64>(c, q, k, v, o, B, S, H, KVH, bq, bkv, s);
+    case 80: return cc_launch<80>(c, q, k, v, o, B, S, H, KVH, bq, bkv, s);
     case 128: return cc_launch<128>(c, q, k, v, o, B, S, H, KVH, bq, bkv, s);
     case 256: return cc_launch<256>(c, q, k, v, o, B, S, H, KVH, bq, bkv, s);
     default: return cudaErrorInvalidValue;
@@ -759,6 +808,7 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
   const bool c = causal != 0;
   switch (hd) {
     case 64: return tc_launch<64>(c, q, k, v, o, B, S, H, KVH, bq, bkv, s);
+    case 80: return tc_launch<80>(c, q, k, v, o, B, S, H, KVH, bq, bkv, s);
     case 128: return tc_launch<128>(c, q, k, v, o, B, S, H, KVH, bq, bkv, s);
     case 256: return tc_launch<256>(c, q, k, v, o, B, S, H, KVH, bq, bkv, s);
     default: return cudaErrorInvalidValue;
@@ -767,7 +817,7 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
 
 // Registers per thread and local (spill) bytes of one instance: dtype 0 =
 // fp32 (the CUDA-core kernel), 1 = bf16 (the tensor-core kernel with nwg =
-// 1 or 2 warpgroups); hd 64, 128 or 256; causal 1 or 0 (full).
+// 1 or 2 warpgroups); hd 64, 80, 128 or 256; causal 1 or 0 (full).
 int flash_attention_attrs(int dtype, int hd, int nwg, int causal, int* regs,
                           int* local_bytes) {
   cudaFuncAttributes attr;
@@ -777,6 +827,10 @@ int flash_attention_attrs(int dtype, int hd, int nwg, int causal, int* regs,
     case 64:
       err = c ? attrs_of<64, true>(dtype, nwg, &attr)
               : attrs_of<64, false>(dtype, nwg, &attr);
+      break;
+    case 80:
+      err = c ? attrs_of<80, true>(dtype, nwg, &attr)
+              : attrs_of<80, false>(dtype, nwg, &attr);
       break;
     case 128:
       err = c ? attrs_of<128, true>(dtype, nwg, &attr)

@@ -53,19 +53,38 @@
 //     (one where two do not fit: fp32 at hd 256); a masked slot is neither
 //     loaded nor read, and a thread reads the bias of all its slots before
 //     it issues any copy.
-//   * 256 threads. Scores: a thread owns one slot of the tile and 2 of the
-//     G <= 8 query rows, over the whole head dim: its dot products need no
+//   * 256 threads. Scores: a thread owns one slot of the tile and RPT of
+//     the query rows, over the whole head dim: its dot products need no
 //     shuffle, K is read once from shared memory, q (fp32 in shared
-//     memory) is a broadcast. The online softmax reduces each query row
-//     once per tile (a warp per row). p.v: a thread owns 2 dims of all G
-//     rows, reading V from the staged tile and p as two 16-byte loads;
-//     512/hd slot groups are summed at the end.
+//     memory) is a broadcast. A block holds all G rows of its KV head: the
+//     kernel is instanced for G <= 8 (2 rows a thread, a 64 x 8 score tile)
+//     and for 8 < G <= 16 (4 rows a thread, a 64 x 16 tile), so a head
+//     group's K and V are read once whatever G is; splitting G over two
+//     blocks instead would read them twice, and the decode is bound by
+//     those bytes. The 8-row instance stays for G <= 8: there the 16-row
+//     one (245 registers a thread against about 156) takes 1.2-1.4x its
+//     time on an H100 SXM (scripts/decode_rows_instance.py). The online
+//     softmax reduces each query row once per tile
+//     (a warp per row). p.v: a thread owns 2 dims of all G rows, reading V
+//     from the staged tile and p as 16-byte loads; SG = 256 / (hd/2) slot
+//     groups (hd 80: 6, the 16 threads left over idle in p.v) are summed
+//     at the end.
+//   * At mistral-large's decode (B 4, capacity 1,088 at 1,054 valid slots,
+//     KV 8, G 12, hd 128, bf16) the bytes are K and V of the valid slots,
+//     2 x 4 x 1,054 x 8 x 128 x 2 = 17.3 MB, with q, bias and the output:
+//     5.2 us at 3.35 TB/s. The kernel reads each slot's K and V once per
+//     head group (the G 12 rows share the block), so it moves the bound's
+//     bytes; its scratch adds (o, m, l) of each chunk in fp32.
+//   * Staged rows are padded to whole 128-byte groups of 8 chunks, so the
+//     XOR swizzle by slot % 8 stays inside a row: hd 80 in bf16 is 10
+//     chunks (160 bytes) staged in 256, in fp32 20 chunks staged in 384.
 //   * The fold reads each (chunk, row)'s m and l once into shared memory,
 //     computes the weights there, and each thread sums its 2 dims of its
 //     rows over the chunks with the loads unrolled.
-//   * Shared memory: the ring, q, the 64 x 8 score tile, the slot groups'
-//     end reduction and the per-row (m, l, corr): at most 158 KB (hd 256,
-//     G 8); kernels/flash_decode.py decode_smem_bytes mirrors it.
+//   * Shared memory: the ring, q, the 64 x GM score tile (GM = 8 or 16),
+//     the slot groups' end reduction and the per-row (m, l, corr): at most
+//     181 KB (hd 256, G 16; 158 KB at G <= 8); kernels/flash_decode.py
+//     decode_smem_bytes mirrors it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,19 +96,36 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAXG = 8;              // query rows per KV head a block holds
+constexpr int MAXG = 16;             // query rows per KV head the kernel takes
 constexpr int TILE = 64;             // slots per staged tile
 constexpr int RG = THREADS / TILE;   // row groups of the score pass
-constexpr int RPT = MAXG / RG;       // query rows a thread scores
+
+// rows of the instance that holds G query rows: 8 or 16
+__host__ __device__ inline int group_rows(int G) { return G <= 8 ? 8 : 16; }
+
+// bytes of a staged K or V row: whole 128-byte groups of 16-byte chunks
+__host__ __device__ constexpr int row_bytes(int hd, int esize) {
+  return (hd * esize / 16 + 7) / 8 * 8 * 16;
+}
 
 __host__ __device__ inline int split_stages(int hd, int esize) {
-  return 4 * TILE * hd * esize <= 131072 ? 2 : 1;
+  return 4 * TILE * row_bytes(hd, esize) <= 131072 ? 2 : 1;
+}
+
+// floats of the slot groups' end reduction, which the fold reuses for the
+// chunks' l (TILE x GM)
+__host__ __device__ inline size_t red_floats(int hd, int G) {
+  const size_t sums = (size_t)(THREADS / (hd / 2)) * G * hd;
+  const size_t lc = (size_t)TILE * group_rows(G);
+  return sums > lc ? sums : lc;
 }
 
 __host__ __device__ inline size_t split_smem_bytes(int hd, int esize, int G) {
-  const size_t ring = (size_t)split_stages(hd, esize) * 2 * TILE * hd * esize;
-  const size_t floats = (size_t)G * hd + MAXG * TILE + 3 * MAXG +
-                        (size_t)(2 * THREADS / hd) * G * hd;
+  const int gm = group_rows(G);
+  const size_t ring =
+      (size_t)split_stages(hd, esize) * 2 * TILE * row_bytes(hd, esize);
+  const size_t floats =
+      (size_t)G * hd + gm * TILE + 3 * gm + red_floats(hd, G);
   return ring + 4 * floats + 4 * (TILE + 4);
 }
 
@@ -184,7 +220,7 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <typename T, int HD, bool FUSED>
+template <typename T, int HD, int GM, bool FUSED>
 __global__ void __launch_bounds__(THREADS, 1)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ bias,
@@ -197,18 +233,19 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int ES = sizeof(T);
   constexpr int EPC = 16 / ES;          // elements per 16-byte chunk
   constexpr int CH = HD / EPC;          // 16-byte chunks per row
-  constexpr int ROW = HD * ES;          // bytes per staged row
+  constexpr int ROW = row_bytes(HD, ES);  // bytes per staged row (padded)
   constexpr int TILE_BYTES = TILE * ROW;
   constexpr int NDT = HD / 2;           // p.v: threads over one slot's dims
-  constexpr int SG = THREADS / NDT;     //      slot groups (1, 2 or 4)
+  constexpr int SG = THREADS / NDT;     //      slot groups (2 to 8)
+  constexpr int RPT = GM / RG;          // query rows a thread scores
   unsigned char* ring = smraw;                            // [stages][K, V]
   float* qs = reinterpret_cast<float*>(ring + stages * 2 * TILE_BYTES);
-  float* Ss = qs + G * HD;              // [TILE][MAXG]: scores, then p
-  float* m_s = Ss + MAXG * TILE;        // [MAXG] running max
-  float* l_s = m_s + MAXG;              // [MAXG] running sum
-  float* c_s = l_s + MAXG;              // [MAXG] this tile's correction
-  float* red = c_s + MAXG;              // [SG][G][HD] slot groups' sums
-  int* vld = reinterpret_cast<int*>(red + SG * G * HD);   // [TILE]
+  float* Ss = qs + G * HD;              // [TILE][GM]: scores, then p
+  float* m_s = Ss + GM * TILE;          // [GM] running max
+  float* l_s = m_s + GM;                // [GM] running sum
+  float* c_s = l_s + GM;                // [GM] this tile's correction
+  float* red = c_s + GM;                // [SG][G][HD] slot groups' sums
+  int* vld = reinterpret_cast<int*>(red + red_floats(HD, G));   // [TILE]
   int* last = vld + TILE;
 
   const int tid = threadIdx.x;
@@ -250,7 +287,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // the bias of a thread's slots is read first, all at once: a read
   // between two copies would wait for its own round trip each time
-  constexpr int PER = TILE * CH / THREADS;   // 16-byte chunks a thread copies
+  // 16-byte chunks a thread copies (the last round partly, at hd 80)
+  constexpr int PER = (TILE * CH + THREADS - 1) / THREADS;
   auto load = [&](int t, int st) {
     unsigned char* ks = ring + st * 2 * TILE_BYTES;
     unsigned char* vs = ks + TILE_BYTES;
@@ -258,8 +296,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     uint32_t live = 0;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
-      const int slot = t0 + (tid + i * THREADS) / CH;
-      live |= (uint32_t)(slot < hi && __ldg(brow + slot) != -INFINITY) << i;
+      const int e = tid + i * THREADS;
+      const int slot = t0 + e / CH;
+      live |= (uint32_t)(e < TILE * CH && slot < hi &&
+                         __ldg(brow + slot) != -INFINITY) << i;
     }
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
@@ -277,7 +317,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_commit();
   for (int e = tid; e < G * HD; e += THREADS)
     qs[e] = to_f(q[((size_t)b * H + (size_t)kvh * G) * HD + e]);
-  if (tid < MAXG) {
+  if (tid < GM) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
   }
@@ -285,9 +325,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ga = (tid / TILE) * RPT;    //         and its first query row
   const int dp = (tid % NDT) * 2;       // p.v: dims dp, dp+1
   const int sg = tid / NDT;             //      and the slot group
-  float acc[MAXG][2];
+  const bool pv = sg < SG;              // false: idle in p.v (hd 80)
+  float acc[GM][2];
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) acc[g][0] = acc[g][1] = 0.f;
+  for (int g = 0; g < GM; ++g) acc[g][0] = acc[g][1] = 0.f;
 
   for (int t = 0; t < ntiles; ++t) {
     if (stages > 1 && t + 1 < ntiles) load(t + 1, (t + 1) & 1);
@@ -326,16 +367,20 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
       const float bj = ok ? brow[slot] : 0.f;
-      *reinterpret_cast<float2*>(Ss + ja * MAXG + ga) =
-          ok ? make_float2(sc[0] * scale + bj, sc[1] * scale + bj)
-             : make_float2(-INFINITY, -INFINITY);
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) sc[r] = ok ? sc[r] * scale + bj : -INFINITY;
+      if constexpr (RPT == 2)
+        *reinterpret_cast<float2*>(Ss + ja * GM + ga) = make_float2(sc[0], sc[1]);
+      else
+        *reinterpret_cast<float4*>(Ss + ja * GM + ga) =
+            make_float4(sc[0], sc[1], sc[2], sc[3]);
       if (ga == 0) vld[ja] = ok;
     }
     __syncthreads();
 
     for (int g = warp; g < G; g += WARPS) {
-      float* ra = Ss + lane * MAXG + g;
-      float* rz = Ss + (lane + 32) * MAXG + g;
+      float* ra = Ss + lane * GM + g;
+      float* rz = Ss + (lane + 32) * GM + g;
       const float a = *ra, z = *rz;
       const float mx = warp_max(fmaxf(a, z));
       const float m_prev = m_s[g];
@@ -355,21 +400,24 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g)
+    for (int g = 0; g < GM; ++g)
       if (g < G) {
         acc[g][0] *= c_s[g];
         acc[g][1] *= c_s[g];
       }
     const int boff = dp * ES;           // byte of dim dp in a row
-    for (int j = sg; j < TILE; j += SG) {
+    for (int j = sg; pv && j < TILE; j += SG) {
       if (!vld[j]) continue;            // p == 0, V not loaded
       const float2 vv = load2(vs + j * ROW + ((((boff >> 4) ^ (j & 7))) << 4) +
                                   (boff & 15), v);
-      const float4 p0 = *reinterpret_cast<const float4*>(Ss + j * MAXG);
-      const float4 p1 = *reinterpret_cast<const float4*>(Ss + j * MAXG + 4);
-      const float p[MAXG] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      float p[GM];
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g)
+      for (int u = 0; u < GM / 4; ++u) {
+        const float4 p4 = *reinterpret_cast<const float4*>(Ss + j * GM + 4 * u);
+        p[4 * u] = p4.x; p[4 * u + 1] = p4.y; p[4 * u + 2] = p4.z; p[4 * u + 3] = p4.w;
+      }
+#pragma unroll
+      for (int g = 0; g < GM; ++g)
         if (g < G) {
           acc[g][0] = fmaf(p[g], vv.x, acc[g][0]);
           acc[g][1] = fmaf(p[g], vv.y, acc[g][1]);
@@ -381,15 +429,15 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (SG > 1) {
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g)
-      if (g < G) {
+    for (int g = 0; g < GM; ++g)
+      if (pv && g < G) {
         red[(sg * G + g) * HD + dp] = acc[g][0];
         red[(sg * G + g) * HD + dp + 1] = acc[g][1];
       }
     __syncthreads();
     if (sg == 0) {
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g)
+      for (int g = 0; g < GM; ++g)
         if (g < G)
           for (int r = 1; r < SG; ++r) {
             acc[g][0] += red[(r * G + g) * HD + dp];
@@ -419,7 +467,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (FUSED && direct) {                // the one live block: normalize
     if (sg == 0) {
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g)
+      for (int g = 0; g < GM; ++g)
         if (g < G)
           store_normalized(ob + g * HD + dp, acc[g][0], acc[g][1], l_s[g]);
     }
@@ -431,7 +479,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ld = (direct ? l_part : l_scr) + cpart * G;
   if (sg == 0) {
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g)
+    for (int g = 0; g < GM; ++g)
       if (g < G)
         *reinterpret_cast<float2*>(od + g * HD + dp) =
             make_float2(acc[g][0], acc[g][1]);
@@ -456,25 +504,25 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // exp(m_i - max m) (0 where m_i = -inf), then each thread's 2 dims of
   // its rows, the chunks' loads unrolled so that they are in flight
   // together.
-  float* lc = red;                      // [TILE][MAXG]: the chunks' l
+  float* lc = red;                      // [TILE][GM]: the chunks' l
   auto load_ml = [&](int cb, int nb) {
     for (int e = tid; e < nb * G; e += THREADS) {
-      Ss[(e / G) * MAXG + e % G] = __ldcg(m_scr + (c0 + cb) * G + e);
-      lc[(e / G) * MAXG + e % G] = __ldcg(l_scr + (c0 + cb) * G + e);
+      Ss[(e / G) * GM + e % G] = __ldcg(m_scr + (c0 + cb) * G + e);
+      lc[(e / G) * GM + e % G] = __ldcg(l_scr + (c0 + cb) * G + e);
     }
   };
-  if (tid < MAXG) m_s[tid] = -INFINITY;
+  if (tid < GM) m_s[tid] = -INFINITY;
   for (int cb = 0; cb < n_fold; cb += TILE) {
     const int nb = min(TILE, n_fold - cb);
     __syncthreads();
     load_ml(cb, nb);
     __syncthreads();
     if (tid < G)
-      for (int i = 0; i < nb; ++i) m_s[tid] = fmaxf(m_s[tid], Ss[i * MAXG + tid]);
+      for (int i = 0; i < nb; ++i) m_s[tid] = fmaxf(m_s[tid], Ss[i * GM + tid]);
   }
-  float of[MAXG][2];
+  float of[GM][2];
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) of[g][0] = of[g][1] = 0.f;
+  for (int g = 0; g < GM; ++g) of[g][0] = of[g][1] = 0.f;
   float lt = 0.f;
   for (int cb = 0; cb < n_fold; cb += TILE) {
     const int nb = min(TILE, n_fold - cb);
@@ -485,20 +533,20 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     for (int e = tid; e < nb * G; e += THREADS) {
       const int i = e / G, g = e % G;
-      const float m = Ss[i * MAXG + g];
+      const float m = Ss[i * GM + g];
       const float mt = m_s[g];
-      Ss[i * MAXG + g] = finite(m) ? expf(m - (finite(mt) ? mt : 0.f)) : 0.f;
+      Ss[i * GM + g] = finite(m) ? expf(m - (finite(mt) ? mt : 0.f)) : 0.f;
     }
     __syncthreads();
     if (tid < G)
-      for (int i = 0; i < nb; ++i) lt += Ss[i * MAXG + tid] * lc[i * MAXG + tid];
+      for (int i = 0; i < nb; ++i) lt += Ss[i * GM + tid] * lc[i * GM + tid];
 #pragma unroll 4
     for (int i = 0; i < nb; ++i) {
       const float* oc = o_scr + (c0 + cb + i) * G * HD + dp;
 #pragma unroll
-      for (int g = 0; g < MAXG; ++g)
+      for (int g = 0; g < GM; ++g)
         if (g < G && g % SG == sg) {
-          const float w = Ss[i * MAXG + g];
+          const float w = Ss[i * GM + g];
           const float2 ov = __ldcg(reinterpret_cast<const float2*>(oc + g * HD));
           of[g][0] = fmaf(w, ov.x, of[g][0]);
           of[g][1] = fmaf(w, ov.y, of[g][1]);
@@ -509,12 +557,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (tid < G) l_s[tid] = lt;
     __syncthreads();
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g)
+    for (int g = 0; g < GM; ++g)
       if (g < G && g % SG == sg)
         store_normalized(ob + g * HD + dp, of[g][0], of[g][1], l_s[g]);
   } else {
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g)
+    for (int g = 0; g < GM; ++g)
       if (g < G && g % SG == sg)
         *reinterpret_cast<float2*>(o_part + (part * G + g) * HD + dp) =
             make_float2(of[g][0], of[g][1]);
@@ -526,14 +574,14 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (tid == 0) *cnt = 0;               // ready for the next launch
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int GM>
 cudaError_t launch_split(const void* q, const void* k, const void* v,
                          const void* bias, void* o, void* m, void* l,
                          void* out, void* o_scr, void* m_scr, void* l_scr,
                          void* counters, int B, int S, int Sp, int KVH, int G,
                          int nsplit, int C, int chunk, cudaStream_t stream) {
-  auto kernel = decode_split_kernel<T, HD, false>;
-  if (out) kernel = decode_split_kernel<T, HD, true>;
+  auto kernel = decode_split_kernel<T, HD, GM, false>;
+  if (out) kernel = decode_split_kernel<T, HD, GM, true>;
   const size_t smem = split_smem_bytes(HD, sizeof(T), G);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -558,6 +606,22 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The instance of head dim HD that holds G rows (8 or 16 a block).
+template <typename T, int HD>
+cudaError_t launch_group(const void* q, const void* k, const void* v,
+                         const void* bias, void* o, void* m, void* l,
+                         void* out, void* o_scr, void* m_scr, void* l_scr,
+                         void* counters, int B, int S, int Sp, int KVH, int G,
+                         int nsplit, int C, int chunk, cudaStream_t s) {
+  return G <= 8
+             ? launch_split<T, HD, 8>(q, k, v, bias, o, m, l, out, o_scr,
+                                      m_scr, l_scr, counters, B, S, Sp, KVH,
+                                      G, nsplit, C, chunk, s)
+             : launch_split<T, HD, 16>(q, k, v, bias, o, m, l, out, o_scr,
+                                       m_scr, l_scr, counters, B, S, Sp, KVH,
+                                       G, nsplit, C, chunk, s);
+}
+
 // `out` null: partials mode (o, m, l needed); else fused (o, m, l unused).
 // The scratch and counters are needed where a fold may take more than one
 // block's partials: C > 1 (partials), splits * C > 1 (fused).
@@ -576,21 +640,29 @@ int split_dispatch(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 64: return launch_split<T, 64>(q, k, v, bias, o, m, l, out, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
-    case 128: return launch_split<T, 128>(q, k, v, bias, o, m, l, out, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
-    case 256: return launch_split<T, 256>(q, k, v, bias, o, m, l, out, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
+    case 64: return launch_group<T, 64>(q, k, v, bias, o, m, l, out, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
+    case 80: return launch_group<T, 80>(q, k, v, bias, o, m, l, out, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
+    case 128: return launch_group<T, 128>(q, k, v, bias, o, m, l, out, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
+    case 256: return launch_group<T, 256>(q, k, v, bias, o, m, l, out, o_scr, m_scr, l_scr, counters, B, S, Sp, KVH, G, nsplit, C, chunk, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int GM, bool FUSED>
+cudaError_t split_attrs_gm(int hd, cudaFuncAttributes* attr) {
+  switch (hd) {
+    case 64: return cudaFuncGetAttributes(attr, decode_split_kernel<T, 64, GM, FUSED>);
+    case 80: return cudaFuncGetAttributes(attr, decode_split_kernel<T, 80, GM, FUSED>);
+    case 128: return cudaFuncGetAttributes(attr, decode_split_kernel<T, 128, GM, FUSED>);
+    case 256: return cudaFuncGetAttributes(attr, decode_split_kernel<T, 256, GM, FUSED>);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T, bool FUSED>
-cudaError_t split_attrs_of(int hd, cudaFuncAttributes* attr) {
-  switch (hd) {
-    case 64: return cudaFuncGetAttributes(attr, decode_split_kernel<T, 64, FUSED>);
-    case 128: return cudaFuncGetAttributes(attr, decode_split_kernel<T, 128, FUSED>);
-    case 256: return cudaFuncGetAttributes(attr, decode_split_kernel<T, 256, FUSED>);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t split_attrs_of(int hd, int G, cudaFuncAttributes* attr) {
+  return G <= 8 ? split_attrs_gm<T, 8, FUSED>(hd, attr)
+                : split_attrs_gm<T, 16, FUSED>(hd, attr);
 }
 
 }  // namespace
@@ -617,18 +689,21 @@ int decode_split_bf16(const void* q, const void* k, const void* v,
                                        G, hd, bkv, nsplit, C, chunk, stream);
 }
 
-// Registers per thread and local (spill) bytes of the kernel at hd: mode 0 =
+// Registers per thread and local (spill) bytes of the kernel at hd, in the
+// instance that holds G query rows (G <= 8, or 8 < G <= 16): mode 0 =
 // partials, 1 = fused (the combine in its last block); dtype 0 = fp32,
 // 1 = bf16.
-int decode_attrs(int mode, int dtype, int hd, int* regs, int* local_bytes) {
+int decode_attrs(int mode, int dtype, int hd, int G, int* regs,
+                 int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t err;
+  if (G <= 0 || G > MAXG) return cudaErrorInvalidValue;
   if (mode == 0)
-    err = dtype == 0 ? split_attrs_of<float, false>(hd, &attr)
-                     : split_attrs_of<__nv_bfloat16, false>(hd, &attr);
+    err = dtype == 0 ? split_attrs_of<float, false>(hd, G, &attr)
+                     : split_attrs_of<__nv_bfloat16, false>(hd, G, &attr);
   else
-    err = dtype == 0 ? split_attrs_of<float, true>(hd, &attr)
-                     : split_attrs_of<__nv_bfloat16, true>(hd, &attr);
+    err = dtype == 0 ? split_attrs_of<float, true>(hd, G, &attr)
+                     : split_attrs_of<__nv_bfloat16, true>(hd, G, &attr);
   if (err != cudaSuccess) return err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;

@@ -25,7 +25,7 @@ _ENTRY = {torch.float32: "flash_attention_f32",
 
 #: Head dims the kernel is built for, and the granularity of its blocks
 #: (query rows per warpgroup or sub-tile, keys per staged tile).
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)
 SUB_TILE = 64
 #: The bf16 kernel's ring: stages of SUB_TILE keys, block_kv / 64 of them
 #: within these bounds.
@@ -43,14 +43,16 @@ def flash_smem_bytes(block_q: int, block_kv: int, hd: int,
     """Shared memory one block needs. bf16 (``tc::smem_bytes`` in the
     source): 1 KB of alignment slack, the q sub-tile of one or two 64-row
     warpgroups (two when ``block_q`` is a multiple of 128), and the ring of
-    K and V stages. fp32 (``cc::smem_floats``): the q sub-tile and one
-    staged K or V chunk, the 64 x block_kv score tile, and the per-row
-    (m, l, corr)."""
+    K and V stages, rows staged in whole 64-column panels (hd 80 as 128).
+    fp32 (``cc::smem_floats``): the q sub-tile and one staged K or V chunk,
+    the 64 x block_kv score tile, and the per-row (m, l, corr)."""
     if dtype == torch.float32:
         return 4 * (hd * SUB_TILE + SUB_TILE * hd + SUB_TILE * block_kv
                     + 3 * SUB_TILE)
+    hdp = -(-hd // 64) * 64
     rows = 2 * SUB_TILE if block_q % (2 * SUB_TILE) == 0 else SUB_TILE
-    return 1024 + 2 * rows * hd + flash_stages(block_kv) * 2 * SUB_TILE * hd * 2
+    return (1024 + 2 * rows * hdp
+            + flash_stages(block_kv) * 2 * SUB_TILE * hdp * 2)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -42,11 +42,12 @@ combine_launches = 0
 
 _SPLIT = {torch.float32: "decode_split_f32", torch.bfloat16: "decode_split_bf16"}
 
-#: Head dims the split kernel is built for, query rows a block holds, its
-#: threads per block, the slots it stages per tile, and the blocks its grid
-#: aims for (one per SM of an H100).
-HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 8
+#: Head dims the split kernel is built for, the most query rows per KV
+#: head it takes (a block holds all of a head group's rows: instances of 8
+#: and of 16 rows), its threads per block, the slots it stages per tile,
+#: and the blocks its grid aims for (one per SM of an H100).
+HEAD_DIMS = (64, 80, 128, 256)
+MAX_GROUP = 16
 THREADS = 256
 TILE = 64
 FILL_BLOCKS = 132
@@ -60,19 +61,35 @@ FILL_BLOCKS = 132
 _counters: Dict[Tuple[int, int, bool], torch.Tensor] = {}
 
 
+def group_rows(G: int) -> int:
+    """Query rows of the kernel instance that holds ``G`` (``group_rows``
+    in the source): 8, or 16 above 8."""
+    return 8 if G <= 8 else 16
+
+
+def row_bytes(hd: int, dtype_bytes: int) -> int:
+    """Bytes of one staged K or V row (``row_bytes`` in the source): whole
+    128-byte groups of 16-byte chunks, so the slot swizzle stays inside the
+    row (hd 80: 256 in bf16, 384 in fp32)."""
+    return -(-hd * dtype_bytes // 128) * 128
+
+
 def decode_stages(hd: int, dtype_bytes: int) -> int:
     """Stages of the split kernel's K/V ring (``split_stages`` in the
     source): two where they take at most 128 KB, else one."""
-    return 2 if 4 * TILE * hd * dtype_bytes <= 131072 else 1
+    return 2 if 4 * TILE * row_bytes(hd, dtype_bytes) <= 131072 else 1
 
 
 def decode_smem_bytes(G: int, hd: int, dtype_bytes: int) -> int:
     """Shared memory of one split block (``split_smem_bytes`` in the
-    source): the K/V ring, q in fp32, the 64 x 8 score tile, the per-row
-    (m, l, corr), the slot groups' end reduction, the slots' valid flags."""
-    ring = decode_stages(hd, dtype_bytes) * 2 * TILE * hd * dtype_bytes
-    floats = (G * hd + MAX_GROUP * TILE + 3 * MAX_GROUP
-              + (2 * THREADS // hd) * G * hd)
+    source): the K/V ring, q in fp32, the 64 x 8 or 64 x 16 score tile, the
+    per-row (m, l, corr), the slot groups' end reduction (which the fold
+    reuses for 64 x rows), the slots' valid flags."""
+    gm = group_rows(G)
+    ring = decode_stages(hd, dtype_bytes) * 2 * TILE * row_bytes(
+        hd, dtype_bytes)
+    red = max((THREADS // (hd // 2)) * G * hd, TILE * gm)
+    floats = G * hd + gm * TILE + 3 * gm + red
     return ring + 4 * floats + 4 * (TILE + 4)
 
 

@@ -20,8 +20,10 @@ Entry points run on the card unless the caller passes ``device="cpu"``
 (the plain kernel versions, for tests); left at the default with no CUDA
 device present they raise. The serve path reads tuned flash and decode
 blocks back with ``kernel_config_from_store`` and
-``decode_kernel_config_from_store``. ``default_cells`` is the reference
-benchmark's four-cell matrix at the reference's shapes.
+``decode_kernel_config_from_store``: the server's own cell's record where
+the store has one, else, as the reference does, the best record over every
+cell of the kernel. ``default_cells`` is the
+reference benchmark's four-cell matrix at the reference's shapes.
 """
 from __future__ import annotations
 
@@ -135,6 +137,17 @@ def gemm_cell(M: int = 512, N: int = 512, K: int = 512,
               "inputs": (a, b)})
 
 
+def flash_shape_sig(B: int, S: int, H: int, hd: int, KV: int) -> str:
+    """The flash cell's shape key: the reference's, plus ``_KV{KV}`` when
+    KV < H."""
+    return f"B{B}_S{S}_H{H}_hd{hd}" + (f"_KV{KV}" if KV != H else "")
+
+
+def decode_shape_sig(B: int, S: int, H: int, KV: int, hd: int) -> str:
+    """The decode cell's shape key, the reference's."""
+    return f"B{B}_S{S}_H{H}_KV{KV}_hd{hd}"
+
+
 def flash_cell(B: int = 1, S: int = 1024, H: int = 4, hd: int = 64,
                KV: Optional[int] = None, dtype=torch.float32,
                causal: bool = True, device=None,
@@ -161,9 +174,8 @@ def flash_cell(B: int = 1, S: int = 1024, H: int = 4, hd: int = 64,
         aligned = S % cfg["block_q"] == 0 and S % cfg["block_kv"] == 0
         return aligned and ops.flash_valid(cfg, hd, dtype)
 
-    sig = f"B{B}_S{S}_H{H}_hd{hd}" + (f"_KV{KV}" if KV != H else "")
     return KernelCell(
-        kernel="flash", shape_sig=sig,
+        kernel="flash", shape_sig=flash_shape_sig(B, S, H, hd, KV),
         space=ops.flash_config_space(S), run=run, valid=valid,
         default={"block_q": 128, "block_kv": 128}, device=dev,
         meta={"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
@@ -210,7 +222,7 @@ def decode_cell(B: int = 4, S: int = 2048, H: int = 8, KV: int = 2,
         return covered and ops.decode_valid(cfg, G, hd)
 
     return KernelCell(
-        kernel="decode", shape_sig=f"B{B}_S{S}_H{H}_KV{KV}_hd{hd}",
+        kernel="decode", shape_sig=decode_shape_sig(B, S, H, KV, hd),
         space=ops.decode_config_space(S), run=run, valid=valid,
         default={"block_kv": 512, "num_splits": 1, "combine": "kernel"},
         device=dev,
@@ -476,42 +488,64 @@ def tuned_gp_block_n(store, N: Optional[int] = None, T: Optional[int] = None,
     return bn
 
 
+def _stored(store, kernel: str, shape_sig: str, device: Optional[str],
+            usable: Callable[[Dict], bool]):
+    """The best stored config of the server's own cell (``shape_sig``)
+    where the store has one that ``usable`` takes, else the best over every
+    cell of the kernel on this device, as the reference resolves it (times
+    of cells at other shapes are not comparable, so the own cell comes
+    first). None when neither is usable."""
+    for sig in (shape_sig, None):
+        hit = best_kernel_config(store, kernel, sig, device)
+        if hit is not None and usable(hit[0]):
+            return hit[0]
+    return None
+
+
 def kernel_config_from_store(store, *, S: int, hd: int, dtype: torch.dtype,
-                             device: Optional[str] = None, base=None):
+                             shape_sig: str, device: Optional[str] = None,
+                             base=None):
     """A ``KernelConfig`` with the best stored flash (prefill) blocks for a
     server's prompt length ``S``, head dim ``hd`` and activation ``dtype``,
-    overlaid on ``base``.
+    overlaid on ``base``: those of its own cell ``shape_sig`` where stored.
     None when the store has no record whose blocks tile ``S`` and pass the
     resource model on this device (the caller keeps its defaults)."""
     from repro_torch.parallel.sharding import KernelConfig
-    hit = best_kernel_config(store, "flash", None, device)
-    if hit is None:
-        return None
-    bq, bkv = int(hit[0]["block_q"]), int(hit[0]["block_kv"])
-    if S % bq or S % bkv:
-        return None             # tuned blocks don't tile this server's S
-    if not ops.flash_valid({"block_q": bq, "block_kv": bkv}, hd, dtype):
+
+    def usable(cfg):
+        bq, bkv = int(cfg["block_q"]), int(cfg["block_kv"])
+        # blocks that tile this server's S and pass the resource model
+        return (S % bq == 0 and S % bkv == 0 and ops.flash_valid(
+            {"block_q": bq, "block_kv": bkv}, hd, dtype))
+
+    cfg = _stored(store, "flash", shape_sig, device, usable)
+    if cfg is None:
         return None
     base = base if base is not None else KernelConfig()
-    return base.replace(use_flash=True, flash_block_q=bq, flash_block_kv=bkv)
+    return base.replace(use_flash=True, flash_block_q=int(cfg["block_q"]),
+                        flash_block_kv=int(cfg["block_kv"]))
 
 
 def decode_kernel_config_from_store(store, *, cache_cap: int, H: int, KV: int,
-                                    hd: int, device: Optional[str] = None,
-                                    base=None):
+                                    hd: int, shape_sig: str,
+                                    device: Optional[str] = None, base=None):
     """Tuned decode blocks for a server's cache shape, overlaid on ``base``
-    (so one ``KernelConfig`` carries tuned flash AND decode blocks). None
-    when no stored record is usable for this cache."""
+    (so one ``KernelConfig`` carries tuned flash AND decode blocks): those
+    of its own cell ``shape_sig`` where stored. None when no stored record
+    is usable for this cache."""
     from repro_torch.parallel.sharding import KernelConfig
-    hit = best_kernel_config(store, "decode", None, device)
-    if hit is None:
+
+    def usable(cfg):
+        bkv, ns = int(cfg["block_kv"]), int(cfg["num_splits"])
+        # splits that do not overhang this server's cache, blocks that pass
+        # the resource model
+        return (bkv * (ns - 1) < cache_cap and ops.decode_valid(
+            {"block_kv": bkv}, H // max(KV, 1), hd))
+
+    cfg = _stored(store, "decode", shape_sig, device, usable)
+    if cfg is None:
         return None
-    cfg = hit[0]
     bkv, ns = int(cfg["block_kv"]), int(cfg["num_splits"])
-    if bkv * (ns - 1) >= cache_cap:
-        return None             # tuned splits overhang this server's cache
-    if not ops.decode_valid({"block_kv": bkv}, H // max(KV, 1), hd):
-        return None
     base = base if base is not None else KernelConfig()
     return base.replace(use_decode=True, decode_block_kv=bkv,
                         decode_num_splits=ns,

@@ -6,6 +6,9 @@
         --smoke --device cpu --batch 2 --prompt-len 16 --decode-steps 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
         --smoke --device cpu --kernels --online --store DIR
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3-moe-30b-a3b --smoke --device cpu --kernels \\
+        --batch 2 --prompt-len 128 --decode-steps 8
 
 Port of ``repro/launch/serve.py``: ``DecodeServer`` and ``main``. It runs
 on the card unless given ``--device cpu``. On the card, prefill attention
@@ -32,9 +35,11 @@ blocks when a better record lands, writes its step latencies back as
 cell it serves was never tuned at its own shape (``stale``) or when
 latency drifts off the sharding cell's stored prediction, and the
 ``repro_torch.launch.retune`` daemon services the job. The sharding cell
-(``--tuned-shape``) resolves and hot-reloads as in the reference, but its
-fields do not apply on one card (``store/resolve.py``). Cut from the
-reference: the ``embeddings`` frontend.
+(``--tuned-shape``) resolves and hot-reloads as in the reference; of its
+fields only the MoE ``capacity_factor`` applies on one card
+(``store/resolve.py``). ``--arch`` takes the ported configs
+(``configs/registry.py``): the dense decoders and qwen3-moe-30b-a3b. Cut
+from the reference: the ``embeddings`` frontend.
 """
 from __future__ import annotations
 
@@ -179,13 +184,14 @@ class DecodeServer:
 
     def _stepfn_key(self):
         """Hashable identity of the step functions: the reference's key cut
-        to the fields the port's ParallelConfig has, the kernel block
-        config."""
+        to the fields the port's ParallelConfig has, the MoE capacity
+        factor and the kernel block config."""
         kc = self.pcfg.kernel
-        return (() if kc is None else
-                ("flash", kc.use_flash, kc.flash_block_q, kc.flash_block_kv,
-                 "decode", kc.use_decode, kc.decode_block_kv,
-                 kc.decode_num_splits, kc.decode_combine),)
+        return (self.pcfg.capacity_factor,) + (
+            () if kc is None else
+            ("flash", kc.use_flash, kc.flash_block_q, kc.flash_block_kv,
+             "decode", kc.use_decode, kc.decode_block_kv,
+             kc.decode_num_splits, kc.decode_combine),)
 
     def _derive(self) -> None:
         self._fns = self.kernel_cache.get(
@@ -340,23 +346,25 @@ def _fit_block(block: int, S: int) -> Optional[int]:
 
 
 def serving_kernel_config(cfg, *, device: torch.device, prompt_len: int,
-                          cache_cap: int, store: Optional[str] = None,
+                          cache_cap: int, batch: int,
+                          store: Optional[str] = None,
                           log=print) -> KernelConfig:
     """The kernel dispatch of a server: flash and decode on, with the
     built-in blocks or, from ``store``, the best tuned blocks for this
-    device that fit the server's shapes. On the card, flash blocks that do
-    not tile the prompt shrink to the largest that do, and a shape no
-    blocks serve raises ValueError; on the CPU the plain versions take any
-    blocks."""
+    device that fit the server's shapes (the records of its own cells at
+    ``batch`` first). On the card, flash blocks that do not tile the
+    prompt shrink to the largest that do, and a shape no blocks serve
+    raises ValueError; on the CPU the plain versions take any blocks."""
     hd = cfg.resolved_head_dim
-    G = cfg.num_heads // cfg.num_kv_heads
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    G = H // KV
     dtype = DTYPES[cfg.dtype]
     kc = KernelConfig(use_flash=True, use_decode=True)
     if store:
         kind = tuning.device_kind(device)
-        hit = tuning.kernel_config_from_store(store, S=prompt_len, hd=hd,
-                                              dtype=dtype, device=kind,
-                                              base=kc)
+        hit = tuning.kernel_config_from_store(
+            store, S=prompt_len, hd=hd, dtype=dtype, device=kind, base=kc,
+            shape_sig=tuning.flash_shape_sig(batch, prompt_len, H, hd, KV))
         if hit is None:
             log("[serve] no usable flash (prefill) kernel record in store — "
                 f"default blocks ({kc.flash_block_q}, {kc.flash_block_kv})")
@@ -365,8 +373,9 @@ def serving_kernel_config(cfg, *, device: torch.device, prompt_len: int,
             log(f"[serve] tuned flash (prefill) blocks from store: "
                 f"block_q={kc.flash_block_q} block_kv={kc.flash_block_kv}")
         hit = tuning.decode_kernel_config_from_store(
-            store, cache_cap=cache_cap, H=cfg.num_heads,
-            KV=cfg.num_kv_heads, hd=hd, device=kind, base=kc)
+            store, cache_cap=cache_cap, H=H, KV=KV, hd=hd, device=kind,
+            base=kc, shape_sig=tuning.decode_shape_sig(batch, cache_cap, H,
+                                                       KV, hd))
         if hit is None:
             log("[serve] no usable decode kernel record in store — default "
                 f"blocks (block_kv={kc.decode_block_kv}, "
@@ -527,7 +536,8 @@ def main(argv=None) -> Dict[str, object]:
     if device.type == "cuda" or args.kernels:
         pcfg = pcfg.replace(kernel=serving_kernel_config(
             cfg, device=device, prompt_len=args.prompt_len,
-            cache_cap=cache_cap, store=args.store if args.kernels else None))
+            cache_cap=cache_cap, store=args.store if args.kernels else None,
+            batch=args.batch))
     ksources = []
     if args.online and args.kernels:
         ksources = kernel_sources(args.store, cfg, batch=args.batch,

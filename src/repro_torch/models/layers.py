@@ -1,12 +1,12 @@
-"""Forward functions of the dense attention decoder layer.
+"""Forward functions of the dense and MoE attention decoder layers.
 
-Port of ``repro/models/layers.py``, cut to the dense GQA/MQA/MHA path:
-``rms_norm``, ``mlp``, RoPE, the plain attention cores ``_direct_attention``
-and ``_decode_attention``, ``gqa_attention`` with its kernel dispatch gates,
-and the KV-cache helpers. MLA, MoE, RG-LRU, mLSTM, sLSTM, cross-attention
-and the ``lax.scan`` blockwise ``_flash_attention`` wait for later slices:
-a prefill the flash kernel does not take runs ``_direct_attention`` at any
-length.
+Port of ``repro/models/layers.py``, cut to the GQA/MQA/MHA path and the
+mixture of experts: ``rms_norm``, ``mlp``, RoPE, the plain attention cores
+``_direct_attention`` and ``_decode_attention``, ``gqa_attention`` with its
+kernel dispatch gates, the KV-cache helpers, and ``moe_block``. MLA,
+RG-LRU, mLSTM, sLSTM, cross-attention and the ``lax.scan`` blockwise
+``_flash_attention`` wait for later slices: a prefill the flash kernel does
+not take runs ``_direct_attention`` at any length.
 
 Functions take ``(params, x, *, cfg, pcfg, mode, cache, positions)`` and
 return ``(y, new_cache)``; ``pcfg`` is the port's ``ParallelConfig`` (the
@@ -263,3 +263,105 @@ def _prefill_cache(k, v, positions, cap, window):
     vv = F.pad(v, (0, 0, 0, 0, 0, pad))
     pp = F.pad(positions, (0, pad), value=-1)
     return {"k": kk, "v": vv, "pos": pp}
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (capacity-based dispatch with static shapes)
+
+
+def moe_capacity(T: int, cfg: ArchConfig, pcfg: ParallelConfig) -> int:
+    """Slots per expert for T tokens in one dispatch group:
+    min(max(ceil(T k / E x capacity_factor), k), T), the factor from
+    ``pcfg`` where it is set, else the config's."""
+    mo = cfg.moe
+    cf = pcfg.capacity_factor or mo.capacity_factor
+    return min(int(max(math.ceil(T * mo.top_k / mo.num_experts * cf),
+                       mo.top_k)), T)
+
+
+def moe_route(p, xg: torch.Tensor, *, cfg: ArchConfig, C: int):
+    """The router and the dispatch plan of T tokens xg (T, d), as the
+    reference computes them: fp32 scores (T, E) (softmax, or sigmoid with
+    ``router_bias`` added for the choice only), the top_k experts of each
+    token (T, K) by a stable descending sort, so that ties go to the lower
+    expert index as ``lax.top_k`` breaks them, the gate weights renormalized
+    over the chosen k, and each (token, k) copy's slot in its expert from a
+    cumsum of one-hot rows over the copies in token-major order: slot C (the
+    drop slot) where the expert is full. Returns (top_idx, weights, slot
+    (T*K,), keep (T*K,), scores, one-hot (E, T*K) bool)."""
+    mo = cfg.moe
+    E, K = mo.num_experts, mo.top_k
+    logits = xg.float() @ p["router"].float()                  # (T, E)
+    if mo.router_score == "sigmoid":
+        scores = torch.sigmoid(logits)
+        sel = scores + p["router_bias"].float()[None, :]
+    else:
+        scores = torch.softmax(logits, dim=-1)
+        sel = scores
+    top_idx = torch.sort(sel, dim=-1, descending=True,
+                         stable=True).indices[:, :K]            # (T, K)
+    gate = torch.gather(scores, 1, top_idx)
+    weights = gate / (gate.sum(-1, keepdim=True) + 1e-9)
+    # one-hot rows expert-major, (E, T*K), so that the cumsum runs along
+    # the contiguous dim (a scan down the copies' dim of a (T*K, E) table
+    # takes most of a prefill on the card)
+    flat_e = top_idx.reshape(-1)
+    oh = torch.arange(E, device=xg.device)[:, None] == flat_e[None, :]
+    pos = torch.gather(torch.cumsum(oh, dim=1, dtype=torch.int32), 0,
+                       flat_e[None, :])[0].long() - 1
+    keep = pos < C
+    slot = torch.where(keep, pos, torch.full_like(pos, C))
+    return top_idx, weights, slot, keep, scores, oh
+
+
+def moe_block(p, x: torch.Tensor, *, cfg: ArchConfig, pcfg: ParallelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output (B,S,d), aux loss (fp32 scalar)). The reference's
+    ``moe_block`` whole, cut to one dispatch group: one card has no data
+    axis, so the reference's G = data x pod groups is 1 and every token of
+    the batch competes for the same C slots of each expert
+    (:func:`moe_capacity`).
+
+    The router and the plan are :func:`moe_route`. The dispatch is one
+    scatter of token ids into an (E, C + 1) table and one gather of the
+    activations: a dropped copy's id goes to column C, which is sliced
+    away before the gather, so which duplicate lands there (the scatter's
+    order is not fixed on the card) never reaches the output; the sentinel
+    id T reads a row of zeros for an unfilled slot. The experts are batched
+    products over (E, C, d), and the combine gathers each copy's row back
+    (the drop slot reads zeros), weighted by its gate. Every shape is
+    static and nothing is read back to the host, so a decode step that
+    holds this block is captured as a CUDA graph."""
+    mo = cfg.moe
+    B, S, d = x.shape
+    E, K = mo.num_experts, mo.top_k
+    T = B * S
+    C = moe_capacity(T, cfg, pcfg)
+    xg = x.reshape(T, d)
+    top_idx, weights, slot, keep, scores, oh = moe_route(p, xg, cfg=cfg, C=C)
+    pos_k, keep_k = slot.reshape(T, K), keep.reshape(T, K)
+
+    idx_buf = torch.full((E, C + 1), T, dtype=torch.long, device=x.device)
+    idx_buf[top_idx.reshape(-1), slot] = torch.arange(
+        T, device=x.device).repeat_interleave(K)
+    x_pad = torch.cat([xg, xg.new_zeros((1, d))], dim=0)
+    buf = x_pad[idx_buf[:, :C].reshape(E * C)].reshape(E, C, d)
+
+    h = _act(cfg.mlp_act)(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wu"])
+    out_buf = torch.bmm(h, p["wd"])                             # (E, C, d)
+    out_buf = F.pad(out_buf, (0, 0, 0, 1))                      # drop slot -> 0
+
+    y = torch.zeros_like(xg)
+    for j in range(K):
+        gathered = out_buf[top_idx[:, j], pos_k[:, j]]          # (T, d)
+        w = (weights[:, j] * keep_k[:, j]).to(x.dtype)
+        y = y + gathered * w[:, None]
+
+    if mo.num_shared_experts > 0:
+        y = y + mlp(p["shared"], xg, cfg)
+
+    # load-balance aux (Switch-style): E * sum_e f_e * p_e
+    me = oh.float().mean(dim=1)
+    ce = scores.mean(dim=0)
+    aux = torch.sum(me * ce) * E * mo.router_aux_weight
+    return y.reshape(B, S, d), aux

@@ -1,9 +1,10 @@
-"""Declarative parameter specs and initialisation for the dense decoders.
+"""Declarative parameter specs and initialisation for the decoders.
 
-Port of ``repro/models/params.py``, cut to the dense attention families
-(GQA/MQA/MHA attention + gated MLP): ``ParamSpec``, ``model_specs``,
-``count_params`` and ``init_params``. MLA, MoE, RG-LRU, xLSTM and
-cross-attention specs wait for their slices and raise
+Port of ``repro/models/params.py``, cut to the dense and MoE attention
+families (GQA/MQA/MHA attention + a gated MLP or a mixture of experts,
+``attn`` and ``attn_dense`` layers): ``ParamSpec``, ``layer_specs``,
+``model_specs``, ``count_params`` and ``init_params``. MLA, RG-LRU, xLSTM
+and cross-attention specs wait for their slices and raise
 ``NotImplementedError``; the sharding and ``ShapeDtypeStruct`` views of the
 spec tree have no use on one card and are cut.
 
@@ -66,10 +67,29 @@ def _gqa_specs(cfg: ArchConfig) -> Tree:
     return t
 
 
+def _moe_specs(cfg: ArchConfig) -> Tree:
+    """Router (fp32), the experts' stacked gated MLPs, a router bias for the
+    sigmoid router and the shared experts' MLP, as the reference's."""
+    mo = cfg.moe
+    d, e, f = cfg.d_model, mo.num_experts, mo.d_expert
+    t: Tree = {
+        "router": ParamSpec((d, e), dtype="float32"),
+        "wg": ParamSpec((e, d, f)),
+        "wu": ParamSpec((e, d, f)),
+        "wd": ParamSpec((e, f, d), scale=0.02 / math.sqrt(2 * cfg.num_layers)),
+    }
+    if mo.router_score == "sigmoid":
+        t["router_bias"] = ParamSpec((e,), init="zeros", dtype="float32")
+    if mo.num_shared_experts > 0:
+        t["shared"] = _mlp_specs(cfg, mo.num_shared_experts * mo.d_expert)
+    return t
+
+
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the parts of a config the port does not run yet."""
+    """Raise for the parts of a config the port does not run yet: MLA,
+    RG-LRU, mLSTM/sLSTM, cross-attention, the embeddings frontend and
+    local windows."""
     cut = [(cfg.attention != "gqa", f"attention={cfg.attention!r}"),
-           (cfg.moe is not None, "MoE"),
            (cfg.cross_attention, "cross-attention"),
            (cfg.frontend is not None, f"frontend={cfg.frontend!r}"),
            (set(cfg.block_pattern) != {"attn"},
@@ -79,13 +99,31 @@ def check_supported(cfg: ArchConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} not ported yet (the port runs "
-            "dense attention decoders)")
+            "dense and MoE attention decoders)")
 
 
-def layer_specs(cfg: ArchConfig) -> Tree:
-    """Specs for one dense attention layer."""
-    return {"ln1": _norm(cfg.d_model), "attn": _gqa_specs(cfg),
-            "ln2": _norm(cfg.d_model), "mlp": _mlp_specs(cfg, cfg.d_ff)}
+def layer_specs(cfg: ArchConfig, kind: str = "attn") -> Tree:
+    """Specs for one layer: ``attn`` (attention + the MoE where the config
+    has one, else the MLP) or ``attn_dense`` (an MoE config's dense first
+    layers: attention + an MLP of ``dense_d_ff``)."""
+    if kind not in ("attn", "attn_dense"):
+        raise NotImplementedError(f"layer kind {kind!r} not ported yet")
+    t: Tree = {"ln1": _norm(cfg.d_model), "attn": _gqa_specs(cfg),
+               "ln2": _norm(cfg.d_model)}
+    if cfg.moe is not None and kind == "attn":
+        t["moe"] = _moe_specs(cfg)
+    else:
+        d_ff = ((cfg.dense_d_ff or cfg.d_ff) if kind == "attn_dense"
+                else cfg.d_ff)
+        t["mlp"] = _mlp_specs(cfg, d_ff)
+    return t
+
+
+def layer_kinds(cfg: ArchConfig) -> List[str]:
+    """Each layer's kind in order: the reference's segments
+    (``pattern_layers``) unrolled."""
+    return [kind for n_rep, cycle in cfg.pattern_layers()
+            for _ in range(n_rep) for kind in cycle]
 
 
 def model_specs(cfg: ArchConfig) -> Tree:
@@ -94,7 +132,8 @@ def model_specs(cfg: ArchConfig) -> Tree:
     check_supported(cfg)
     t: Tree = {"embed": {"table": ParamSpec((cfg.vocab_size, cfg.d_model),
                                             scale=0.02)},
-               "layers": [layer_specs(cfg) for _ in range(cfg.num_layers)],
+               "layers": [layer_specs(cfg, kind)
+                          for kind in layer_kinds(cfg)],
                "final_norm": _norm(cfg.d_model)}
     if not cfg.tie_embeddings:
         t["lm_head"] = {"w": ParamSpec((cfg.d_model, cfg.vocab_size),
@@ -123,8 +162,18 @@ def map_tree(fn, tree):
     return fn(tree)
 
 
-def count_params(cfg: ArchConfig) -> int:
-    return sum(int(np.prod(s.shape)) for _, s in leaves(model_specs(cfg)))
+def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
+    """Total (or active, for MoE: each routed expert tensor counted at
+    top_k / num_experts) parameter count, as the reference's."""
+    total = 0
+    for path, spec in leaves(model_specs(cfg)):
+        n = int(np.prod(spec.shape))
+        if active_only and cfg.moe is not None and "moe" in path:
+            last = str(path[-1])
+            if "shared" not in path and "router" not in last:
+                n = int(n * cfg.moe.top_k / cfg.moe.num_experts)
+        total += n
+    return total
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,

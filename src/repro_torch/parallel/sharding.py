@@ -1,12 +1,18 @@
 """Kernel-dispatch and serving knobs.
 
 Port of ``repro/parallel/sharding.py``, cut to ``KernelConfig`` and the
-field of ``ParallelConfig`` that serving reads (``kernel``). One card has
+fields of ``ParallelConfig`` that change the function on one card:
+``kernel`` (the dispatch serving reads) and ``capacity_factor`` (the MoE
+expert capacity, which sets which routed copies are dropped). One card has
 no mesh, so the logical-axis rules, ``resolve_spec``, ``constrain`` and the
 VMEM residency arithmetic are cut; the kernels' resource models live in
-``kernels/ops.py``. ``flash_threshold`` is cut with the blockwise
-``lax.scan`` attention it selects, which is not ported: a prefill the flash
-kernel does not take runs the materialized-scores attention.
+``kernels/ops.py``. ``moe_combine`` is cut too: in the reference it only
+picks the mesh constraint around the expert outputs (an all-to-all
+reshard or none), which does not exist on one card; a stored value is
+logged as not applicable (``store/resolve.py``). ``flash_threshold`` is cut
+with the blockwise ``lax.scan`` attention it selects, which is not ported:
+a prefill the flash kernel does not take runs the materialized-scores
+attention.
 """
 from __future__ import annotations
 
@@ -47,8 +53,10 @@ class KernelConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The serving field of the reference's ParallelConfig."""
+    """The fields of the reference's ParallelConfig that apply on one
+    card."""
 
+    capacity_factor: Optional[float] = None  # override ArchConfig.moe
     kernel: Optional[KernelConfig] = None
 
     def replace(self, **kw) -> "ParallelConfig":

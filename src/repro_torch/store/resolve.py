@@ -9,11 +9,11 @@ host writing to the same store) has already explored.
 Port of ``repro/store/resolve.py``. The sharding cell's space and
 fingerprint are the reference's (``core/tuning_targets.sharding_space``),
 so records resolve across the two packages. One card has no mesh and the
-port's ``ParallelConfig`` holds only the kernel dispatch, so
-``apply_sharding_config`` overlays only the fields that class owns and
-logs the rest as not applicable on one card: they wait for the
-distribution tooling (ROADMAP Queue 1). ``apply_kernel_config`` is the
-reference's.
+port's ``ParallelConfig`` holds only the kernel dispatch and the MoE
+``capacity_factor``, so ``apply_sharding_config`` overlays
+``capacity_factor`` and logs the rest as not applicable on one card: they
+wait for the distribution tooling (ROADMAP Queue 1). ``apply_kernel_config``
+is the reference's.
 """
 from __future__ import annotations
 
@@ -69,10 +69,10 @@ def best_sharding_config(store, arch: str, shape: str, mesh: str = "single",
 def apply_sharding_config(pcfg, cfg: Dict[str, Any], log=print):
     """Overlay a stored tuning config onto a ParallelConfig (dataclass
     ``replace``): only the knobs ParallelConfig owns; mesh rules
-    (experts/embed) are applied by the launch layer, not here. The port's
-    ParallelConfig owns none of the sharding knobs (nor ``flash_threshold``,
-    which ``flash`` sets in the reference): each field it lacks is logged
-    as not applicable on one card."""
+    (experts/embed) are applied by the launch layer, not here. Of the
+    sharding knobs the port's ParallelConfig owns ``capacity_factor`` only
+    (not ``flash_threshold``, which ``flash`` sets in the reference): each
+    field it lacks is logged as not applicable on one card."""
     owned = {f.name for f in dataclasses.fields(pcfg)}
     kw = {k: cfg[k] for k in _PCFG_FIELDS if k in cfg and k in owned}
     if "flash" in cfg and "flash_threshold" in owned:

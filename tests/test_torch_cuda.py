@@ -502,9 +502,9 @@ def test_decode_server_on_the_card_refuses_what_the_kernels_do_not_take(card):
     assert serve.kernel_launches()["flash_attention"] == 0
     with pytest.raises(ValueError, match="not a multiple of 64"):
         serve.serving_kernel_config(cfg, device=card, prompt_len=32,
-                                    cache_cap=40)
+                                    cache_cap=40, batch=1)
     kc = serve.serving_kernel_config(cfg, device=card, prompt_len=192,
-                                     cache_cap=194)
+                                     cache_cap=194, batch=1)
     assert (kc.flash_block_q, kc.flash_block_kv) == (64, 64)
 
 
@@ -516,11 +516,12 @@ _KC_A = dict(use_flash=True, flash_block_q=128, flash_block_kv=64,
 _KC_B = {"block_kv": 256, "num_splits": 1, "combine": "kernel"}
 
 
-def _graph_server(card, prompt_len=128, steps=8, keep=8, **kw):
+def _graph_server(card, prompt_len=128, steps=8, keep=8, arch="gemma-2b",
+                  **kw):
     from repro_torch.configs.registry import smoke_config
     from repro_torch.launch import serve
     from repro_torch.parallel.sharding import KernelConfig, ParallelConfig
-    cfg = smoke_config("gemma-2b").replace(head_dim=64, **kw)
+    cfg = smoke_config(arch).replace(head_dim=64, **kw)
     return serve.DecodeServer(cfg, ParallelConfig(kernel=KernelConfig(
         **_KC_A)), batch=2, prompt_len=prompt_len, decode_steps=steps,
         device=card, keep_logits=keep)
@@ -606,3 +607,95 @@ def test_graph_survives_a_second_prefill(card):
         want.append(logits.float().cpu())
     for g, w in zip(srv.kept, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+# -- the shapes of the dense and MoE families: hd 80, G up to 16 ---------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,bq,bkv", [
+    (4, 1024, 32, 32, 80, 128, 128),      # stablelm-3b prefill: hd 80, MHA
+    (2, 192, 4, 2, 80, 64, 64),           # one warpgroup, S 192
+    (1, 256, 12, 1, 80, 256, 128),        # two sub-tiles a block, G 12
+    (4, 1024, 32, 4, 128, 128, 128),      # qwen3-moe prefill: G 8
+])
+def test_flash_kernel_at_the_new_shapes_matches_plain(card, dtype, B, S, H,
+                                                      KV, hd, bq, bkv):
+    """Causal against the plain version; full attention in fp32 too (bf16
+    full is held in chip_smoke.py, against the plain version in fp32). At
+    hd 80 the bf16 kernel stages two 64-column panels: the padded columns
+    must never reach the output."""
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.normal(size=(B, S, H, hd))).to(card, dtype)
+    k, v = (torch.from_numpy(rng.normal(size=(B, S, KV, hd))).to(card, dtype)
+            for _ in range(2))
+    assert ops.flash_valid({"block_q": bq, "block_kv": bkv}, hd, dtype)
+    kfa.launches = 0
+    got = kfa.flash_attention(q, k, v, block_q=bq, block_kv=bkv)
+    torch.cuda.synchronize()
+    assert kfa.launches == 1 and got.shape == q.shape
+    _check(got, ref.attention(q, k, v), dtype)
+    if dtype == torch.float32:
+        full = kfa.flash_attention(q, k, v, block_q=bq, block_kv=bkv,
+                                   causal=False)
+        _check(full, ref.attention(q, k, v, causal=False), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,curs,bkv,ns", [
+    (4, 1088, 96, 8, 128, (1054,) * 4, 256, 4),   # mistral-large: G 12
+    (4, 1088, 32, 4, 128, (1054,) * 4, 512, 2),   # qwen3-moe: G 8
+    (4, 1088, 32, 32, 80, (1054,) * 4, 128, 8),   # stablelm-3b: hd 80
+    (2, 1088, 16, 1, 128, (1054, -1), 1024, 1),   # G 16, a row with no slot
+    (2, 512, 32, 2, 80, (300, 300), 128, 4),      # G 16 at hd 80
+    (2, 1024, 24, 2, 80, (5, -1), 128, 2),        # G 12, hd 80, mostly empty
+    (33, 64, 12, 1, 80, (60,) * 33, 64, 1),       # one block a group
+])
+def test_decode_kernels_at_the_new_shapes_match_plain(card, dtype, B, S, H,
+                                                      KV, hd, curs, bkv, ns):
+    """The 16-row instance (G 9..16) and hd 80, fused (one launch) and in
+    partials mode, against the plain split + combine; a head group with no
+    valid slot gives exact zeros."""
+    q, k, v, bias = _decode_problem(card, dtype, B, S, H, KV, hd, list(curs),
+                                    bkv, ns)
+    kfd.split_launches = kfd.combine_launches = 0
+    got = kfd.flash_decode(q, k, v, bias, block_kv=bkv, num_splits=ns,
+                           combine="kernel")
+    o, m, l = ref.decode_split(q, k, v, bias, ns)
+    want = ref.combine_partials(o, m, l).reshape(B, H, hd).to(dtype)
+    torch.cuda.synchronize()
+    assert kfd.split_launches == 1 and kfd.combine_launches == 1
+    _check(got, want, dtype)
+    empty = [b for b, c in enumerate(curs) if c < 0]
+    assert torch.all(got[empty] == 0)
+    ko, km, kl = kfd.decode_split(q, k, v, bias, block_kv=bkv, num_splits=ns)
+    torch.testing.assert_close(km, m, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(kl, l, rtol=1e-3, atol=1e-4)
+    dead = torch.isinf(m)
+    assert torch.all(kl[dead] == 0) and torch.all(ko[dead] == 0)
+    two = kfd.flash_decode(q, k, v, bias, block_kv=bkv, num_splits=ns,
+                           combine="torch")
+    _check(two, want, dtype)
+
+
+def test_moe_graph_replay_equals_eager_step(card):
+    """qwen3-moe's smoke model (head dim 64, which the kernels take): the
+    decode step, the MoE block's routing and dispatch in it, is captured as
+    a CUDA graph; each replay equals the eager step function on the same
+    state, and every attention launch is a kernel's."""
+    from repro_torch.launch import serve
+    srv = _graph_server(card, arch="qwen3-moe-30b-a3b")
+    serve.reset_kernel_launches()
+    srv.prefill_batch(srv.input_batch())
+    eager = []
+    for _ in range(8):
+        eager.append(_eager_logits(srv))
+        srv.decode_step()
+    assert srv.captures == 1 and "CUDA graph" in srv.decode_dispatch
+    n = srv.cfg.num_layers
+    # prefill, 8 eager steps, the capture's warm-up step and 8 replays
+    assert serve.kernel_launches() == {
+        "flash_attention": n, "flash_decode_split": 17 * n,
+        "flash_decode_combine": 17 * n}
+    for e, g in zip(eager, srv.kept[1:]):
+        torch.testing.assert_close(g, e, rtol=0, atol=2.0 ** -7 * float(
+            e.abs().max()))

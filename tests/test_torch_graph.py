@@ -213,7 +213,9 @@ def test_apply_kernel_config_overlays_compose_as_in_the_reference():
 
 def test_sharding_configs_resolve_alike_and_log_on_one_card(tmp_path):
     """The sharding cell's records resolve to the same config in both
-    packages; on one card none of its fields applies, and each is logged."""
+    packages; on one card only the MoE capacity factor applies (it sets
+    which routed copies drop), as the reference applies it, and each other
+    field is logged."""
     arch, shape = "internlm2-1.8b", "decode_32k"
     space = sharding_space(arch, shape)
     fp = SpaceFingerprint.of(space, objective=cell_objective(arch, shape))
@@ -242,6 +244,22 @@ def test_sharding_configs_resolve_alike_and_log_on_one_card(tmp_path):
     srv = _server()
     srv.apply_config(space.config(17))
     assert srv.swaps == 1 and srv.pcfg.kernel == KernelConfig(**KC_A)
+    # an MoE cell's record carries capacity_factor: applied, not logged
+    from repro.store.resolve import \
+        apply_sharding_config as jax_apply_sharding_config
+    moe = sharding_space("qwen3-moe-30b-a3b", shape)
+    rec = next(moe.config(i) for i in range(moe.size)
+               if moe.config(i)["capacity_factor"] != 1.25)
+    logged = []
+    out = apply_sharding_config(pcfg, rec, log=logged.append)
+    want = jax_apply_sharding_config(JaxParallelConfig(), rec)
+    assert out.capacity_factor == want.capacity_factor == \
+        rec["capacity_factor"]
+    assert out.kernel == pcfg.kernel and len(logged) == 1
+    assert "capacity_factor" not in logged[0] and "one card" in logged[0]
+    srv.apply_config(rec)
+    assert srv.pcfg.capacity_factor == rec["capacity_factor"]
+    assert srv._stepfn_key()[0] == rec["capacity_factor"]
 
 
 def test_serve_online_cli_on_cpu(tmp_path, capsys):

@@ -94,8 +94,8 @@ def test_gemma_config_and_parameter_count_match_the_reference():
     assert P.count_params(cfg) == jax_params.count_params(ref_cfg)
     assert smoke_config("gemma-2b").__dict__ == \
         jax_smoke_config("gemma-2b").__dict__
-    with pytest.raises(KeyError, match="MoE slice"):
-        get_arch("qwen3-moe-30b-a3b")
+    with pytest.raises(KeyError, match=r"MLA \+ MoE slice"):
+        get_arch("deepseek-v3-671b")
     with pytest.raises(KeyError, match="unknown"):
         get_arch("gpt-5")
 
@@ -253,7 +253,7 @@ def test_serving_config_on_the_card_fits_blocks_or_raises():
     a shape no blocks serve raises. Without a store only the device's type
     is read."""
     cuda, cfg = torch.device("cuda"), get_arch("gemma-2b")
-    quiet = dict(cache_cap=1088, log=lambda *a: None)
+    quiet = dict(cache_cap=1088, batch=4, log=lambda *a: None)
     kc = serve.serving_kernel_config(cfg, device=cuda, prompt_len=1024,
                                      **quiet)
     assert kc == KernelConfig(use_flash=True, use_decode=True)

@@ -251,14 +251,15 @@ def test_serving_config_checks_flash_blocks_in_the_model_dtype(monkeypatch):
                         lambda store, kernel, *a: (
                             (flash, 1.0) if kernel == "flash" else None))
     monkeypatch.setattr(tuning, "device_kind", lambda device=None: "card")
+    sig = tuning.flash_shape_sig(4, 1024, 8, 256, 1)
     assert tuning.kernel_config_from_store(
-        "store", S=1024, hd=256, dtype=torch.bfloat16) is None
+        "store", S=1024, hd=256, dtype=torch.bfloat16, shape_sig=sig) is None
     kc = tuning.kernel_config_from_store("store", S=1024, hd=256,
-                                         dtype=torch.float32)
+                                         dtype=torch.float32, shape_sig=sig)
     assert (kc.flash_block_q, kc.flash_block_kv) == (128, 256)
     cfg = get_arch("gemma-2b")
     quiet = dict(device=torch.device("cuda"), prompt_len=1024,
-                 cache_cap=1088, store="store", log=lambda *a: None)
+                 cache_cap=1088, batch=4, store="store", log=lambda *a: None)
     kc = serve.serving_kernel_config(cfg, **quiet)
     assert (kc.flash_block_q, kc.flash_block_kv) == (128, 128)   # default
     kc = serve.serving_kernel_config(
@@ -275,7 +276,8 @@ def test_decode_resource_model():
     assert kfd.decode_smem_bytes(8, 256, 2) <= SMEM_PER_BLOCK
     assert kfd.decode_smem_bytes(8, 256, 4) <= SMEM_PER_BLOCK
     assert kfd.decode_smem_bytes(8, 128, 4) > kfd.decode_smem_bytes(8, 128, 2)
-    assert not ops.decode_valid({"block_kv": 512}, 16, 256)   # G > 8
+    assert ops.decode_valid({"block_kv": 512}, 16, 256)       # G <= 16
+    assert not ops.decode_valid({"block_kv": 512}, 17, 256)   # G > 16
     assert not ops.decode_valid({"block_kv": 512}, 8, 16)     # head dim
     # splits that overhang a 1,088-slot cache are constrained out:
     # (block_kv, splits) in 128 x {1,2,4,8}, 256 x {1,2,4}, 512 x {1,2},
@@ -433,13 +435,16 @@ def test_flash_and_decode_cells_tune_and_resolve_on_cpu(tmp_path):
 
     fbest = fcell.space.config(fres.best_idx)
     kc = tuning.kernel_config_from_store(store, S=256, hd=64,
-                                         dtype=torch.float32, device="cpu")
+                                         dtype=torch.float32,
+                                         shape_sig=fcell.shape_sig,
+                                         device="cpu")
     assert kc == KernelConfig(use_flash=True,
                               flash_block_q=fbest["block_q"],
                               flash_block_kv=fbest["block_kv"])
     dbest = dcell.space.config(dres.best_idx)
     both = tuning.decode_kernel_config_from_store(
-        store, cache_cap=160, H=4, KV=1, hd=64, device="cpu", base=kc)
+        store, cache_cap=160, H=4, KV=1, hd=64, shape_sig=dcell.shape_sig,
+        device="cpu", base=kc)
     assert both.use_flash and both.flash_block_q == kc.flash_block_q
     assert (both.use_decode, both.decode_block_kv, both.decode_num_splits,
             both.decode_combine) == (True, dbest["block_kv"],
@@ -447,9 +452,10 @@ def test_flash_and_decode_cells_tune_and_resolve_on_cpu(tmp_path):
     # a prompt the tuned blocks cannot tile, or a card, resolves nothing
     assert tuning.kernel_config_from_store(store, S=100, hd=64,
                                            dtype=torch.float32,
+                                           shape_sig=fcell.shape_sig,
                                            device="cpu") is None
     assert tuning.decode_kernel_config_from_store(
-        store, cache_cap=160, H=4, KV=1, hd=64,
+        store, cache_cap=160, H=4, KV=1, hd=64, shape_sig=dcell.shape_sig,
         device="cuda-NVIDIA_H100_80GB_HBM3") is None
     # the cell's kernel output is the plain reference's
     q, k, v, cp, cu = dcell.meta["inputs"]
