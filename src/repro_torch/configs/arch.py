@@ -3,8 +3,7 @@
 Every assigned architecture is expressed as an ``ArchConfig``: a declarative
 description of a block-pattern decoder. The model code in
 ``repro_torch.models`` consumes only this dataclass. The dataclasses are
-plain data and are copied whole; the port's model code runs the dense and
-MoE attention families so far (``models/model.py`` names what is cut).
+plain data and are copied whole; the port's model code runs every family.
 """
 from __future__ import annotations
 

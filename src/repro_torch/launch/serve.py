@@ -9,6 +9,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen3-moe-30b-a3b --smoke --device cpu --kernels \\
         --batch 2 --prompt-len 128 --decode-steps 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-9b --smoke --device cpu --kernels \\
+        --batch 2 --prompt-len 64 --decode-steps 8
 
 Port of ``repro/launch/serve.py``: ``DecodeServer`` and ``main``. It runs
 on the card unless given ``--device cpu``. On the card, prefill attention
@@ -17,9 +20,15 @@ decode kernels (``KernelConfig(use_flash=True, use_decode=True)``), with
 blocks resolved from a tuning-record store (``--kernels --store``) or the
 built-in defaults; a shape the kernels do not take (a prompt that is not a
 multiple of 64, a head dim they are not built for) raises there rather than
-serve plain attention. On the CPU the same dispatch runs the kernels' plain
+serve plain attention. The layers the reference serves outside its kernels
+stay plain, as in the reference: windowed and MLA attention in prefill
+(the blockwise attention from ``flash_threshold`` tokens, else the
+materialized scores), MLA's absorbed decode, cross-attention and the
+recurrent blocks. On the CPU the same dispatch runs the kernels' plain
 versions when ``--kernels`` is given, the plain attention paths otherwise.
-Weights are random, from ``--seed``.
+Weights are random, from ``--seed``; so are the ``embeddings`` frontend's
+frame embeddings and conditioning, and its decode steps embed each token
+as the reference's server does, by ``lm_head.w[:, token]``.
 
 On the card every decode step replays a captured CUDA graph of the step
 function: one graph per kernel config, memoized in a
@@ -36,10 +45,9 @@ cell it serves was never tuned at its own shape (``stale``) or when
 latency drifts off the sharding cell's stored prediction, and the
 ``repro_torch.launch.retune`` daemon services the job. The sharding cell
 (``--tuned-shape``) resolves and hot-reloads as in the reference; of its
-fields only the MoE ``capacity_factor`` applies on one card
-(``store/resolve.py``). ``--arch`` takes the ported configs
-(``configs/registry.py``): the dense decoders and qwen3-moe-30b-a3b. Cut
-from the reference: the ``embeddings`` frontend.
+fields those the port's ``ParallelConfig`` owns apply on one card
+(``store/resolve.py``). ``--arch`` takes every config of the reference
+(``configs/registry.py``).
 """
 from __future__ import annotations
 
@@ -57,7 +65,7 @@ from repro_torch.kernels import ops, tuning
 from repro_torch.kernels.cache import CompiledKernelCache
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
-from repro_torch.models.params import DTYPES, init_params
+from repro_torch.models.params import DTYPES, init_params, layer_kinds
 from repro_torch.models.stepfn import make_decode_step, make_prefill_step
 from repro_torch.parallel.sharding import KernelConfig, ParallelConfig
 from repro_torch.store import (DriftMonitor, HotConfigSource, OnlineServeLoop,
@@ -110,6 +118,30 @@ class _StepFns:
         self.prefill = make_prefill_step(cfg, pcfg, cache_cap=cache_cap)
         self.decode = make_decode_step(cfg, pcfg)
         self.graph: Optional[_DecodeGraph] = None
+
+
+def kernel_paths(cfg) -> set:
+    """The kernels a config's layers reach, as the reference's gates send
+    them: ``"flash"`` where a GQA layer attends without a window,
+    ``"decode"`` where any GQA layer decodes over a KV cache. MLA (q/k and
+    v head dims differ) and the recurrent blocks reach neither."""
+    if cfg.attention != "gqa":
+        return set()
+    attn = [k for k in layer_kinds(cfg) if k in ("attn", "attn_dense")]
+    paths = {"decode"} if attn else set()
+    if any(M.layer_window(cfg, k) is None for k in attn):
+        paths.add("flash")
+    return paths
+
+
+def step_batch(cfg, params, toks: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A decode step's batch for the tokens ``toks`` (B,): the ids, or for
+    the ``embeddings`` frontend the reference server's embedding of each
+    token, ``lm_head.w[:, token]``."""
+    if cfg.frontend != "embeddings":
+        return {"tokens": toks[:, None]}
+    emb = params["lm_head"]["w"][:, toks].T[:, None, :]
+    return {"frame_embeddings": emb.to(DTYPES[cfg.dtype])}
 
 
 def resolve_pcfg(pcfg: ParallelConfig, store: str, arch: str, shape: str,
@@ -184,10 +216,12 @@ class DecodeServer:
 
     def _stepfn_key(self):
         """Hashable identity of the step functions: the reference's key cut
-        to the fields the port's ParallelConfig has, the MoE capacity
-        factor and the kernel block config."""
-        kc = self.pcfg.kernel
-        return (self.pcfg.capacity_factor,) + (
+        to the fields the port's ParallelConfig has (the blockwise
+        attention's and the mLSTM's knobs, the MoE capacity factor) and the
+        kernel block config."""
+        p, kc = self.pcfg, self.pcfg.kernel
+        return (p.capacity_factor, p.attn_block_kv, p.attn_q_chunks,
+                p.flash_threshold, p.mlstm_chunk, p.mlstm_bf16_streams) + (
             () if kc is None else
             ("flash", kc.use_flash, kc.flash_block_q, kc.flash_block_kv,
              "decode", kc.use_decode, kc.decode_block_kv,
@@ -219,46 +253,99 @@ class DecodeServer:
             return f"CUDA {kernel}"
         return f"{kernel} plain version (cpu)"
 
+    def _report(self, attention: str, rglru: str, mlstm: str,
+                slstm: str) -> str:
+        """One part a layer kind of the config: its attention (prefixed
+        ``MLA:`` or ``windowed:`` where the layers are), the recurrent
+        blocks, then cross-attention."""
+        cfg = self.cfg
+        kinds = set(layer_kinds(cfg))
+        parts = []
+        if kinds & {"attn", "attn_dense"}:
+            prefix = ("MLA: " if cfg.attention == "mla" else
+                      "windowed: " if "flash" not in kernel_paths(cfg)
+                      else "")
+            parts.append(prefix + attention)
+        parts += [what for kind, what in (("rglru", rglru), ("mlstm", mlstm),
+                                          ("slstm", slstm)) if kind in kinds]
+        if cfg.cross_attention:
+            parts.append("cross-attention: plain")
+        return "; ".join(parts)
+
     @property
     def prefill_dispatch(self) -> str:
-        """Which implementation prefill attention runs on."""
-        hd = self.cfg.resolved_head_dim
-        gate = L._flash_kernel_ok(self.prompt_len, hd, hd, None,
-                                  self.pcfg.kernel, self.device)
-        return self._impl(gate, "flash-attention kernel",
-                          "plain direct attention")
+        """Which implementation prefill runs each layer kind on."""
+        S, p = self.prompt_len, self.pcfg
+        plain = ("plain blockwise attention" if S >= p.flash_threshold
+                 else "plain direct attention")
+        if "flash" in kernel_paths(self.cfg):
+            hd = self.cfg.resolved_head_dim
+            gate = L._flash_kernel_ok(S, hd, hd, None, p.kernel, self.device)
+            attention = self._impl(gate, "flash-attention kernel", plain)
+        else:
+            attention = plain + ", as the reference"
+        c = p.mlstm_chunk
+        mlstm = (f"mLSTM: chunkwise scan (chunk {c})"
+                 if c and S % c == 0 and S > c else "mLSTM: step scan")
+        return self._report(attention, "RG-LRU: doubling scan", mlstm,
+                            "sLSTM: step scan")
 
     @property
     def decode_kernel(self) -> bool:
         """Whether decode attention runs the flash-decode kernel (its plain
         version on the CPU); ``ServeStats`` counts the steps it served."""
+        if "decode" not in kernel_paths(self.cfg):
+            return False
         hd = self.cfg.resolved_head_dim
         return L._decode_kernel_ok(hd, hd, self.pcfg.kernel, self.device)
 
     @property
     def decode_dispatch(self) -> str:
-        """Which implementation decode attention runs on."""
+        """Which implementation a decode step runs each layer kind on."""
         kc = self.pcfg.kernel
         gate = self.decode_kernel
         combine = (" with the combine fused in"
                    if gate and kc.decode_combine == "kernel"
                    else " + tensor-op combine")
+        if self.cfg.attention == "mla":
+            attention = "plain absorbed latent decode, as the reference"
+        else:
+            attention = self._impl(gate, "flash-decode split kernel"
+                                   + combine, "plain decode attention")
         graph = (", replayed as a CUDA graph"
                  if self.device.type == "cuda" else "")
-        return self._impl(gate, "flash-decode split kernel" + combine,
-                          "plain decode attention") + graph
+        return self._report(attention, "RG-LRU: one recurrence step",
+                            "mLSTM: one step", "sLSTM: one step") + graph
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def input_batch(self) -> Dict[str, torch.Tensor]:
-        """A prompt of random token ids from the server's seed."""
+        """A prompt from the server's seed: random token ids, or for the
+        ``embeddings`` frontend random normal frame embeddings and, with
+        cross-attention, conditioning embeddings, in the model dtype."""
+        cfg, B = self.cfg, self.batch_size
         gen = torch.Generator(device="cpu").manual_seed(self.seed + 1)
-        toks = torch.randint(0, self.cfg.vocab_size,
-                             (self.batch_size, self.prompt_len),
-                             generator=gen)
-        return {"tokens": toks.to(self.device)}
+        if cfg.frontend != "embeddings":
+            toks = torch.randint(0, cfg.vocab_size, (B, self.prompt_len),
+                                 generator=gen)
+            return {"tokens": toks.to(self.device)}
+        dt = DTYPES[cfg.dtype]
+
+        def normal(*shape):
+            return torch.randn(shape, generator=gen).to(self.device, dt)
+
+        batch = {"frame_embeddings": normal(B, self.prompt_len, cfg.d_model)}
+        if cfg.cross_attention:
+            batch["cond"] = normal(B, cfg.cross_seq, cfg.d_model)
+        return batch
+
+    def _step_batch(self) -> Dict[str, torch.Tensor]:
+        """A decode step's input from the server's token buffer
+        (:func:`step_batch`; gathered on the device, so a captured graph
+        embeds the token of each replay)."""
+        return step_batch(self.cfg, self.params, self._tokens[:, 0])
 
     def _keep(self, logits: torch.Tensor) -> None:
         if len(self.kept) <= self.keep_logits:
@@ -287,22 +374,30 @@ class DecodeServer:
     def _capture(self) -> _DecodeGraph:
         """Capture the decode step of the current step functions on the
         server's capture stream: one warm-up step first, on that stream
-        (its launches are real and counted; it writes the cache slot the
-        graph then rewrites with the same values), so that what is created
-        at first use on a stream (the decode kernel's arrival counters,
-        library workspaces) exists before the capture. The capture launches
-        nothing: the counts it took are moved to the graph, which adds them
-        at each replay."""
+        (its launches are real and counted), so that what is created at
+        first use on a stream (the decode kernel's arrival counters, library
+        workspaces) exists before the capture. The warm-up's writes to the
+        cache are undone before the capture: a recurrent state advanced
+        twice for one token would be wrong. The capture launches nothing:
+        the counts it took are moved to the graph, which adds them at each
+        replay."""
         t0 = time.perf_counter()
         fns, s = self._fns, self._stream
-        step = {"tokens": self._tokens}
         s.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(s):
-            fns.decode(self.params, self.cache, step, self._pos)
+            saved = [{k: t.clone() for k, t in layer.items()}
+                     for layer in self.cache]
+            fns.decode(self.params, self.cache, self._step_batch(),
+                       self._pos)
+            for layer, old in zip(self.cache, saved):
+                for k, t in layer.items():
+                    t.copy_(old[k])
+            del saved
         before = kernel_launches()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool, stream=s):
-            logits, _ = fns.decode(self.params, self.cache, step, self._pos)
+            logits, _ = fns.decode(self.params, self.cache,
+                                   self._step_batch(), self._pos)
             toks = torch.argmax(logits, -1)
         held = {k: v - before[k] for k, v in kernel_launches().items()}
         _set_kernel_launches(before)
@@ -325,7 +420,7 @@ class DecodeServer:
                 logits, self.toks = graph.logits, graph.toks.clone()
             else:
                 logits, _ = self.decode(self.params, self.cache,
-                                        {"tokens": self._tokens}, self._pos)
+                                        self._step_batch(), self._pos)
                 self.toks = torch.argmax(logits, -1)
         self._sync()
         dt = time.perf_counter() - t0
@@ -352,56 +447,70 @@ def serving_kernel_config(cfg, *, device: torch.device, prompt_len: int,
     """The kernel dispatch of a server: flash and decode on, with the
     built-in blocks or, from ``store``, the best tuned blocks for this
     device that fit the server's shapes (the records of its own cells at
-    ``batch`` first). On the card, flash blocks that do not tile the
-    prompt shrink to the largest that do, and a shape no blocks serve
-    raises ValueError; on the CPU the plain versions take any blocks."""
+    ``batch`` first; the decode cell at the attention layers' own cache
+    capacity, a windowed layer's ``min(cap, window)``). Only the kernels
+    the config's layers reach (:func:`kernel_paths`) are resolved and
+    checked. On the card, flash blocks that do not tile the prompt shrink
+    to the largest that do, and a shape no blocks serve raises
+    ValueError; on the CPU the plain versions take any blocks."""
     hd = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
     G = H // KV
     dtype = DTYPES[cfg.dtype]
+    paths = kernel_paths(cfg)
+    dcap = M.attention_cache_cap(cfg, cache_cap)
     kc = KernelConfig(use_flash=True, use_decode=True)
     if store:
         kind = tuning.device_kind(device)
-        hit = tuning.kernel_config_from_store(
-            store, S=prompt_len, hd=hd, dtype=dtype, device=kind, base=kc,
-            shape_sig=tuning.flash_shape_sig(batch, prompt_len, H, hd, KV))
-        if hit is None:
-            log("[serve] no usable flash (prefill) kernel record in store — "
-                f"default blocks ({kc.flash_block_q}, {kc.flash_block_kv})")
-        else:
-            kc = hit
-            log(f"[serve] tuned flash (prefill) blocks from store: "
-                f"block_q={kc.flash_block_q} block_kv={kc.flash_block_kv}")
-        hit = tuning.decode_kernel_config_from_store(
-            store, cache_cap=cache_cap, H=H, KV=KV, hd=hd, device=kind,
-            base=kc, shape_sig=tuning.decode_shape_sig(batch, cache_cap, H,
-                                                       KV, hd))
-        if hit is None:
-            log("[serve] no usable decode kernel record in store — default "
-                f"blocks (block_kv={kc.decode_block_kv}, "
-                f"num_splits={kc.decode_num_splits})")
-        else:
-            kc = hit
-            log(f"[serve] tuned decode blocks from store: "
-                f"block_kv={kc.decode_block_kv} "
-                f"num_splits={kc.decode_num_splits} "
-                f"combine={kc.decode_combine}")
+        if "flash" in paths:
+            hit = tuning.kernel_config_from_store(
+                store, S=prompt_len, hd=hd, dtype=dtype, device=kind,
+                base=kc, shape_sig=tuning.flash_shape_sig(batch, prompt_len,
+                                                          H, hd, KV))
+            if hit is None:
+                log("[serve] no usable flash (prefill) kernel record in "
+                    f"store — default blocks ({kc.flash_block_q}, "
+                    f"{kc.flash_block_kv})")
+            else:
+                kc = hit
+                log(f"[serve] tuned flash (prefill) blocks from store: "
+                    f"block_q={kc.flash_block_q} "
+                    f"block_kv={kc.flash_block_kv}")
+        if "decode" in paths:
+            hit = tuning.decode_kernel_config_from_store(
+                store, cache_cap=dcap, H=H, KV=KV, hd=hd, device=kind,
+                base=kc, shape_sig=tuning.decode_shape_sig(batch, dcap, H,
+                                                           KV, hd))
+            if hit is None:
+                log("[serve] no usable decode kernel record in store — "
+                    f"default blocks (block_kv={kc.decode_block_kv}, "
+                    f"num_splits={kc.decode_num_splits})")
+            else:
+                kc = hit
+                log(f"[serve] tuned decode blocks from store: "
+                    f"block_kv={kc.decode_block_kv} "
+                    f"num_splits={kc.decode_num_splits} "
+                    f"combine={kc.decode_combine}")
     if device.type != "cuda":
         return kc
-    bq, bkv = (_fit_block(b, prompt_len)
-               for b in (kc.flash_block_q, kc.flash_block_kv))
-    if bq is None or bkv is None:
-        raise ValueError(f"the flash kernel tiles a prefill in "
-                         f"{kfa.SUB_TILE}-row sub-tiles: a prompt of "
-                         f"{prompt_len} is not a multiple of {kfa.SUB_TILE}")
-    if (bq, bkv) != (kc.flash_block_q, kc.flash_block_kv):
-        log(f"[serve] flash blocks ({kc.flash_block_q}, {kc.flash_block_kv})"
-            f" do not tile a prompt of {prompt_len}: ({bq}, {bkv})")
-        kc = kc.replace(flash_block_q=bq, flash_block_kv=bkv)
-    if not ops.flash_valid({"block_q": bq, "block_kv": bkv}, hd, dtype):
-        raise ValueError(f"the flash kernel does not take hd={hd} with "
-                         f"blocks ({bq}, {bkv}) in {dtype}")
-    if not ops.decode_valid({"block_kv": kc.decode_block_kv}, G, hd):
+    if "flash" in paths:
+        bq, bkv = (_fit_block(b, prompt_len)
+                   for b in (kc.flash_block_q, kc.flash_block_kv))
+        if bq is None or bkv is None:
+            raise ValueError(f"the flash kernel tiles a prefill in "
+                             f"{kfa.SUB_TILE}-row sub-tiles: a prompt of "
+                             f"{prompt_len} is not a multiple of "
+                             f"{kfa.SUB_TILE}")
+        if (bq, bkv) != (kc.flash_block_q, kc.flash_block_kv):
+            log(f"[serve] flash blocks ({kc.flash_block_q}, "
+                f"{kc.flash_block_kv}) do not tile a prompt of "
+                f"{prompt_len}: ({bq}, {bkv})")
+            kc = kc.replace(flash_block_q=bq, flash_block_kv=bkv)
+        if not ops.flash_valid({"block_q": bq, "block_kv": bkv}, hd, dtype):
+            raise ValueError(f"the flash kernel does not take hd={hd} with "
+                             f"blocks ({bq}, {bkv}) in {dtype}")
+    if "decode" in paths and not ops.decode_valid(
+            {"block_kv": kc.decode_block_kv}, G, hd):
         raise ValueError(f"the decode kernel does not take hd={hd}, G={G}")
     return kc
 
@@ -410,19 +519,24 @@ def kernel_sources(store: str, cfg, *, batch: int, prompt_len: int,
                    cache_cap: int, device: torch.device,
                    swap_margin: float = 0.0,
                    log=print) -> List[HotConfigSource]:
-    """Live sources over the server's two kernel cells, the flash
-    (prefill) cell at its prompt and the decode cell at its cache, in the
-    model's dtype, each refreshed once (the startup resolution). A shape
-    whose cell has no config space (a prompt no flash block tiles) has no
-    source: logged and skipped, as the reference does."""
+    """Live sources over the server's kernel cells that its layers reach
+    (:func:`kernel_paths`), the flash (prefill) cell at its prompt and the
+    decode cell at its attention layers' cache capacity, in the model's
+    dtype, each refreshed once (the startup resolution). A shape whose cell
+    has no config space (a prompt no flash block tiles) has no source:
+    logged and skipped, as the reference does."""
     hd, KV = cfg.resolved_head_dim, cfg.num_kv_heads
     dtype = DTYPES[cfg.dtype]
+    paths = kernel_paths(cfg)
+    dcap = M.attention_cache_cap(cfg, cache_cap)
     cells = []
-    for make, args, kw in (
-            (tuning.flash_cell, (batch, prompt_len, cfg.num_heads, hd),
-             {"KV": KV}),
-            (tuning.decode_cell, (batch, cache_cap, cfg.num_heads, KV, hd),
-             {})):
+    for path, make, args, kw in (
+            ("flash", tuning.flash_cell,
+             (batch, prompt_len, cfg.num_heads, hd), {"KV": KV}),
+            ("decode", tuning.decode_cell,
+             (batch, dcap, cfg.num_heads, KV, hd), {})):
+        if path not in paths:
+            continue
         try:
             cells.append(make(*args, dtype=dtype, device=device, **kw))
         except ValueError as e:
@@ -555,7 +669,7 @@ def main(argv=None) -> Dict[str, object]:
     n_prefill = kernel_launches()
     print(f"[serve] {cfg.name} on {device}: prefill B={args.batch} "
           f"S={args.prompt_len}: {dt_prefill * 1e3:.1f} ms, logits "
-          f"{server.logits_shape}; attention: {server.prefill_dispatch}")
+          f"{server.logits_shape}; dispatch: {server.prefill_dispatch}")
     out = {"prefill_s": dt_prefill, "prefill_launches": n_prefill,
            "server": server}
     if args.online:
@@ -593,7 +707,7 @@ def main(argv=None) -> Dict[str, object]:
     med = statistics.median(steps) if steps else float("nan")
     print(f"[serve] decoded {args.decode_steps} steps x B={args.batch}: "
           f"{sum(steps) * 1e3:.1f} ms, median {med * 1e3:.2f} ms/step, "
-          f"{args.batch / med:.1f} tokens/s; attention: "
+          f"{args.batch / med:.1f} tokens/s; dispatch: "
           f"{server.decode_dispatch}")
     print(f"[serve] kernel launches: prefill {n_prefill}, all {launches}; "
           f"decode graphs captured {server.captures}")

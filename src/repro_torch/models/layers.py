@@ -1,18 +1,22 @@
-"""Forward functions of the dense and MoE attention decoder layers.
+"""Forward functions of every layer family.
 
-Port of ``repro/models/layers.py``, cut to the GQA/MQA/MHA path and the
-mixture of experts: ``rms_norm``, ``mlp``, RoPE, the plain attention cores
-``_direct_attention`` and ``_decode_attention``, ``gqa_attention`` with its
-kernel dispatch gates, the KV-cache helpers, and ``moe_block``. MLA,
-RG-LRU, mLSTM, sLSTM, cross-attention and the ``lax.scan`` blockwise
-``_flash_attention`` wait for later slices: a prefill the flash kernel does
-not take runs ``_direct_attention`` at any length.
+Port of ``repro/models/layers.py``, whole but for the reference's mesh
+constraints: ``rms_norm``, ``mlp``, RoPE, the plain attention cores
+(``_direct_attention``, the blockwise ``_flash_attention`` as a Python loop
+over KV blocks where the reference runs ``lax.scan``, and
+``_decode_attention``), ``gqa_attention`` with its kernel dispatch gates,
+cross-attention, MLA (``mla_attention``), the KV-cache helpers,
+``moe_block``, the RG-LRU block (its ``lax.associative_scan`` as a
+log-depth doubling scan of the same combine) and the mLSTM and sLSTM
+blocks (their ``lax.scan`` s as Python loops).
 
 Functions take ``(params, x, *, cfg, pcfg, mode, cache, positions)`` and
 return ``(y, new_cache)``; ``pcfg`` is the port's ``ParallelConfig`` (the
 reference threads it inside a ``ShardCtx`` with a mesh the port has not).
-The cache is updated in place in decode (the reference's ``.at[].set``
-returns a copy): one slot per step is written, the rest is not moved.
+In decode every cache entry is updated in place (the reference returns
+new arrays): a KV or latent cache has one slot a step written, a
+recurrent state is copied into its buffer, so that a captured CUDA graph
+of the step replays into the same buffers.
 """
 from __future__ import annotations
 
@@ -79,8 +83,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 def _direct_attention(q, k, v, *, q_pos, k_pos, window, scale):
-    """Materialized-scores attention. q (B,Sq,H,hd), k/v (B,Sk,KV,hd); GQA
-    by head grouping."""
+    """Materialized-scores attention. q (B,Sq,H,hd), k (B,Sk,KV,hd), v
+    (B,Sk,KV,hd_v) (MLA: hd_v differs from hd); GQA by head grouping."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -93,6 +97,67 @@ def _direct_attention(q, k, v, *, q_pos, k_pos, window, scale):
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
     return out.reshape(B, Sq, H, v.shape[-1])
+
+
+def _flash_attention(q, k, v, *, q_pos, k_pos, window, scale,
+                     pcfg: ParallelConfig):
+    """Blockwise online-softmax attention over KV blocks of
+    ``pcfg.attn_block_kv`` (the reference's ``lax.scan``, here a Python
+    loop): O(Sq x block) scores at a time instead of O(Sq x Sk). With
+    ``pcfg.attn_q_chunks > 1`` each causal q-chunk reads the KV blocks up
+    to its own end only. Shapes as :func:`_direct_attention`; the sequence
+    must be a whole number of KV blocks, as the reference's reshape
+    requires."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    hd_v = v.shape[-1]
+    G = H // KV
+    bk = min(pcfg.attn_block_kv, Sk)
+    nq = pcfg.attn_q_chunks
+    n_chunks = nq if (Sq == Sk and Sq % nq == 0) else 1
+
+    def run_chunk(qc, qc_pos, k_part, v_part, kp_part):
+        if k_part.shape[1] % bk:
+            raise ValueError(f"blockwise attention: {k_part.shape[1]} keys "
+                             f"are not a whole number of blocks of {bk}")
+        Sqc = qc.shape[1]
+        qg = qc.reshape(B, Sqc, KV, G, hd)
+        m = torch.full((B, KV, G, Sqc), -math.inf, device=q.device)
+        l = torch.zeros((B, KV, G, Sqc), device=q.device)
+        acc = torch.zeros((B, KV, G, Sqc, hd_v), device=q.device)
+        for j in range(0, k_part.shape[1], bk):
+            k_j, v_j = k_part[:, j:j + bk], v_part[:, j:j + bk]
+            kp_j = kp_part[:, j:j + bk]
+            s = torch.einsum("bqkgh,bskh->bkgqs", qg, k_j).float() * scale
+            msk = kp_j[:, None, :] <= qc_pos[:, :, None]
+            if window is not None:
+                msk &= kp_j[:, None, :] > qc_pos[:, :, None] - window
+            s = s.masked_fill(~msk[:, None, None, :, :], -math.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # fully masked rows (m_new = -inf) contribute nothing
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe[..., None])
+            p = torch.where(torch.isfinite(s), p, 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(v_j.dtype), v_j)
+            acc = acc * corr[..., None] + pv.float()
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        return out.permute(0, 3, 1, 2, 4).reshape(B, Sqc, H, hd_v).to(q.dtype)
+
+    if n_chunks == 1:
+        return run_chunk(q, q_pos, k, v, k_pos)
+    # causal q-chunking: chunk i sees KV up to its own end, rounded up to a
+    # whole block
+    outs = []
+    cq = Sq // n_chunks
+    for i in range(n_chunks):
+        hi = (i + 1) * cq
+        hi_k = -(-hi // bk) * bk
+        outs.append(run_chunk(q[:, i * cq:hi], q_pos[:, i * cq:hi],
+                              k[:, :hi_k], v[:, :hi_k], k_pos[:, :hi_k]))
+    return torch.cat(outs, dim=1)
 
 
 def _refuse_on_card(device, what: str) -> bool:
@@ -109,18 +174,15 @@ def _refuse_on_card(device, what: str) -> bool:
 def _flash_kernel_ok(S: int, hd: int, hd_v: int, window, kc,
                      device) -> bool:
     """Static preconditions for the flash kernel (the reference's
-    ``_pallas_flash_ok``): opted in via KernelConfig, plain causal attention,
-    equal q/k/v head dims, and a sequence both blocks tile. Opted in but
-    refused: see ``_refuse_on_card``."""
-    if kc is None or not kc.use_flash:
+    ``_pallas_flash_ok``): opted in via KernelConfig, plain causal attention
+    (no local window) and equal q/k/v head dims, on either device: the
+    kernel, like the Pallas one, has neither, so those layers run the
+    plain attention the reference runs (``_prefill_attention``). A kernel
+    shape whose sequence the blocks do not tile: see
+    ``_refuse_on_card``."""
+    if kc is None or not kc.use_flash or window is not None or hd != hd_v:
         return False
     bq, bkv = kc.flash_block_q, kc.flash_block_kv
-    if window is not None:
-        return _refuse_on_card(device, f"flash kernel takes no window "
-                                       f"({window})")
-    if hd != hd_v:
-        return _refuse_on_card(device, f"flash kernel takes equal q/k and "
-                                       f"v head dims, not {hd} and {hd_v}")
     if S % bq or S % bkv:
         return _refuse_on_card(device, f"flash blocks ({bq}, {bkv}) do not "
                                        f"tile a prefill of {S}")
@@ -217,12 +279,8 @@ def gqa_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
                                     cur_pos=positions[:, 0], window=window,
                                     scale=scale)
     else:
-        if _flash_kernel_ok(S, hd, v.shape[-1], window, kc, x.device):
-            out = _kernel_flash_attention(q, k, v, kc)
-        else:
-            out = _direct_attention(q, k, v, q_pos=positions,
-                                    k_pos=positions, window=window,
-                                    scale=scale)
+        out = _prefill_attention(q, k, v, positions=positions, window=window,
+                                 scale=scale, pcfg=pcfg, device=x.device)
         if mode == "prefill":
             if cache is None:
                 raise ValueError("prefill fills a cache")
@@ -230,6 +288,42 @@ def gqa_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
                                        window)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, new_cache
+
+
+def _prefill_attention(q, k, v, *, positions, window, scale,
+                       pcfg: ParallelConfig, device):
+    """The reference's prefill dispatch: the flash kernel where its gate
+    opens, else the blockwise attention from ``flash_threshold`` tokens,
+    else the materialized scores."""
+    if _flash_kernel_ok(q.shape[1], q.shape[-1], v.shape[-1], window,
+                        pcfg.kernel, device):
+        return _kernel_flash_attention(q, k, v, pcfg.kernel)
+    if q.shape[1] >= pcfg.flash_threshold:
+        return _flash_attention(q, k, v, q_pos=positions, k_pos=positions,
+                                window=window, scale=scale, pcfg=pcfg)
+    return _direct_attention(q, k, v, q_pos=positions, k_pos=positions,
+                             window=window, scale=scale)
+
+
+def cross_attention(p, x, cond_kv, *, cfg: ArchConfig) -> torch.Tensor:
+    """Attention over precomputed (k, v) of the conditioning embeddings:
+    no mask, no position."""
+    hd = cfg.resolved_head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k, v = cond_kv
+    B, Sq, H, _ = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() / math.sqrt(hd)
+    prob = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", prob.to(v.dtype), v)
+    return torch.einsum("bshk,hkd->bsd", out.reshape(B, Sq, H, hd), p["wo"])
+
+
+def cond_kv(p, cond, *, cfg: ArchConfig):
+    k = torch.einsum("bsd,dhk->bshk", cond, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", cond, p["wv"])
+    return k, v
 
 
 def _cache_slot(pos, capacity, window):
@@ -365,3 +459,331 @@ def moe_block(p, x: torch.Tensor, *, cfg: ArchConfig, pcfg: ParallelConfig
     ce = scores.mean(dim=0)
     aux = torch.sum(me * ce) * E * mo.router_aux_weight
     return y.reshape(B, S, d), aux
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+
+
+def mla_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
+                  cache: Cache, positions) -> Tuple[torch.Tensor, Cache]:
+    """Prefill expands k_nope and v per head from the latent ``c_kv`` and
+    runs the reference's prefill dispatch (q/k head dim dn + dr against v's
+    dv: never the flash kernel); decode is the absorbed-weight form, scores
+    and context in the compressed space over the ``c_kv``/``k_rope`` latent
+    cache."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    scale = 1.0 / math.sqrt(dn + dr)
+
+    q_lat = rms_norm(x @ p["wq_a"], p["q_a_norm"]["scale"], cfg.norm_eps)
+    q = torch.einsum("bsl,lhk->bshk", q_lat, p["wq_b"])       # (B,S,H,dn+dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    c_kv = rms_norm(x @ p["wkv_a"], p["kv_a_norm"]["scale"], cfg.norm_eps)
+    k_rope = x @ p["wk_rope"]                  # (B,S,dr), one for all heads
+
+    cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+
+    if mode == "decode":
+        if cache is None or S != 1:
+            raise ValueError("decode takes one token and a cache")
+        slot = positions[:, 0]
+        _insert_slot(cache["c_kv"], c_kv, slot)
+        _insert_slot(cache["k_rope"], k_rope, slot)
+        _insert_slot(cache["pos"], positions, slot)
+        ckv, krope, pos = cache["c_kv"], cache["k_rope"], cache["pos"]
+        q_c = torch.einsum("bshn,lhn->bshl", q_nope, p["wk_nope"])
+        s = (torch.einsum("bshl,btl->bhst", q_c, ckv)
+             + torch.einsum("bshr,btr->bhst", q_rope, krope)).float()
+        s = s * scale
+        valid = (pos >= 0) & (pos <= positions[:, :1])           # (B, cap)
+        s = s.masked_fill(~valid[:, None, None, :], -math.inf)
+        prob = torch.softmax(s, dim=-1)
+        ctx_c = torch.einsum("bhst,btl->bshl", prob.to(ckv.dtype), ckv)
+        out = torch.einsum("bshl,lhv->bshv", ctx_c, p["wv"])     # (B,1,H,dv)
+        return torch.einsum("bshv,hvd->bsd", out, p["wo"]), cache
+
+    k_nope = torch.einsum("bsl,lhn->bshn", c_kv, p["wk_nope"])
+    v = torch.einsum("bsl,lhv->bshv", c_kv, p["wv"])
+    k_rope_h = k_rope[:, :, None, :].expand(B, S, H, dr)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope_h], dim=-1)
+    out = _prefill_attention(q_full, k_full, v, positions=positions,
+                             window=None, scale=scale, pcfg=pcfg,
+                             device=x.device)
+    y = torch.einsum("bshv,hvd->bsd", out, p["wo"])
+    new_cache = cache
+    if mode == "prefill":
+        if cache is None:
+            raise ValueError("prefill fills a cache")
+        pad = cache["c_kv"].shape[1] - S
+        new_cache = {"c_kv": F.pad(c_kv, (0, 0, 0, pad)),
+                     "k_rope": F.pad(k_rope, (0, 0, 0, pad)),
+                     "pos": F.pad(positions, (0, pad), value=-1)}
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# recurrent state
+
+
+def _new_state(cache: Cache, mode: str, **new) -> Cache:
+    """A recurrent block's state after a call, in the cache's dtypes: in
+    decode copied into the cache's own buffers (which a captured graph
+    replays into), else a new dict; None without a cache."""
+    if cache is None:
+        return None
+    if mode == "decode":
+        for name, t in new.items():
+            cache[name].copy_(t)
+        return cache
+    return {name: t.to(cache[name].dtype) for name, t in new.items()}
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin / RecurrentGemma recurrent block)
+
+
+def _block_diag(x, w, b):
+    """x (...,L) with w (nb, bs, bs): block-diagonal linear."""
+    nb, bs, _ = w.shape
+    xs = x.reshape(*x.shape[:-1], nb, bs)
+    y = torch.einsum("...nb,nbc->...nc", xs, w)
+    return y.reshape(x.shape) + b
+
+
+def _causal_conv(x, w, b, state):
+    """Depthwise causal conv, width cw. x (B,S,L), state (B,cw-1,L) or
+    None. Returns (y, the last cw-1 inputs: the next call's state)."""
+    cw = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, cw - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    y = sum(xp[:, j:j + S] * w[j] for j in range(cw)) + b
+    return y, xp[:, xp.shape[1] - (cw - 1):]
+
+
+def _linear_scan(a, b):
+    """Inclusive scan of h_t = a_t h_(t-1) + b_t along dim 1: (A, B) with
+    h_t = A_t h_(-1) + B_t. The reference's ``lax.associative_scan`` of the
+    combine ((a1, b1), (a2, b2)) -> (a1 a2, a2 b1 + b2), as a log-depth
+    doubling scan (about 12 passes at S 3,072). The closed form
+    exp(cumsum(log a)) is not used: its exp(-cumsum) overflows."""
+    S = a.shape[1]
+    off = 1
+    while off < S:
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]],
+                      dim=1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    return a, b
+
+
+def rglru_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
+                cache: Cache) -> Tuple[torch.Tensor, Cache]:
+    r = cfg.rglru
+    B = x.shape[0]
+    gate_y = _act("geglu")(x @ p["wy"])
+    xx = x @ p["wx"]
+    conv_state = cache["conv"] if cache is not None else None
+    xx, new_conv = _causal_conv(xx, p["conv_w"], p["conv_b"], conv_state)
+
+    rg = torch.sigmoid(_block_diag(xx, p["gate_r_w"], p["gate_r_b"]).float())
+    ig = torch.sigmoid(_block_diag(xx, p["gate_i_w"], p["gate_i_b"]).float())
+    log_a = -r.c_exponent * F.softplus(p["a_param"]) * rg       # (B,S,L) fp32
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
+    gated = mult * ig * xx.float()
+
+    h0 = (cache["h"].float() if cache is not None else
+          torch.zeros((B, xx.shape[-1]), device=x.device))
+    if mode == "decode":
+        new_h = a[:, 0] * h0 + gated[:, 0]
+        hs = new_h[:, None, :]
+    else:
+        A, Bc = _linear_scan(a, gated)
+        hs = A * h0[:, None, :] + Bc
+        new_h = hs[:, -1]
+    y = (gate_y * hs.to(x.dtype)) @ p["wo"]
+    return y, _new_state(cache, mode, conv=new_conv, h=new_h)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks
+
+
+def _mm32(eq: str, a, b):
+    """A product with fp32 results from (possibly bf16) operands: the
+    reference's ``preferred_element_type=float32``."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def _mlstm_chunkwise(q, k, v, ig, fg, c0, n0, m0, chunk: int,
+                     bf16_streams: bool = False):
+    """Chunkwise-parallel stabilized mLSTM, the reference's exact
+    reformulation of the per-step recurrence: the matrix state is updated
+    once a chunk and the work inside a chunk is (C x C)(C x d) products.
+    The reference's ``lax.scan`` over chunks is a Python loop.
+
+    q,k (B,S,nh,dqk) [q pre-scaled], v (B,S,nh,dv), ig/fg (B,S,nh) raw
+    gates; state c0 (B,nh,dqk,dv), n0 (B,nh,dqk), m0 (B,nh). With
+    ``bf16_streams`` q/k/v and the (C, *) intermediates are bf16 (gates,
+    normalizers and the carried state stay fp32)."""
+    B, S, nh, dqk = q.shape
+    dv = v.shape[-1]
+    C = chunk
+    nc = S // C
+    sdt = torch.bfloat16 if bf16_streams else torch.float32
+
+    def resh(a, d):
+        return a.reshape(B, nc, C, nh, d).permute(1, 0, 3, 2, 4)
+
+    qs, ks, vs = resh(q.to(sdt), dqk), resh(k.to(sdt), dqk), resh(v.to(sdt),
+                                                                   dv)
+    gi = ig.reshape(B, nc, C, nh).permute(1, 0, 3, 2)            # (nc,B,nh,C)
+    logf = F.logsigmoid(fg).reshape(B, nc, C, nh).permute(1, 0, 3, 2)
+    causal = torch.tril(torch.ones((C, C), dtype=torch.bool,
+                                   device=q.device))
+    c, n, m = c0, n0, m0
+    hs = []
+    for i in range(nc):
+        q_c, k_c, v_c, ig_c, lf_c = qs[i], ks[i], vs[i], gi[i], logf[i]
+        b = torch.cumsum(lf_c, dim=-1)           # inclusive log-decay
+        btot = b[..., -1]
+        w = ig_c - b                             # log source weight
+        m_c = w.amax(dim=-1)
+        e_src = torch.exp(w - m_c[..., None])
+        decay = torch.exp(b)
+
+        # inside the chunk: W[j,s] = decay_j e_src_s, causal
+        Wm = (decay[..., :, None] * e_src[..., None, :] * causal).to(sdt)
+        s_qk = _mm32("bhjd,bhsd->bhjs", q_c, k_c)
+        wqk = (s_qk * Wm.float()).to(sdt)
+        num_i = _mm32("bhjs,bhsv->bhjv", wqk, v_c)
+        n_i = _mm32("bhjs,bhsd->bhjd", Wm, k_c)
+        q32 = q_c.float()
+        den_i = torch.einsum("bhjd,bhjd->bhj", q32, n_i)
+
+        # the state before the chunk, combined position by position
+        mu = torch.maximum(m[..., None] + b, m_c[..., None])
+        sc_prev = torch.exp(m[..., None] + b - mu)
+        sc_intra = torch.exp(m_c[..., None] - mu)
+        num_p = torch.einsum("bhjd,bhdv->bhjv", q32, c)
+        den_p = torch.einsum("bhjd,bhd->bhj", q32, n)
+        num = sc_prev[..., None] * num_p + sc_intra[..., None] * num_i
+        den = sc_prev * den_p + sc_intra * den_i
+        hs.append(num / torch.maximum(den.abs(), torch.exp(-mu))[..., None])
+
+        # the state after the chunk
+        M = torch.maximum(m, m_c)
+        e2 = torch.exp(w - M[..., None])
+        kw_ = e2[..., None].to(sdt) * k_c
+        c = (torch.exp(m - M)[..., None, None] * c
+             + _mm32("bhsd,bhsv->bhdv", kw_, v_c))
+        n = torch.exp(m - M)[..., None] * n + kw_.sum(dim=-2).float()
+        m = btot + M
+    h = torch.stack(hs, dim=0).permute(1, 0, 3, 2, 4).reshape(B, S, nh, dv)
+    return h, (c, n, m)
+
+
+def _mlstm_steps(q, k, v, ig, fg, c, n, m):
+    """The per-step stabilized mLSTM recurrence (the reference's
+    ``lax.scan``), one token at a time. Returns (h (B,S,nh,dv), state)."""
+    hs = []
+    for t in range(q.shape[1]):
+        q_t, k_t, v_t = q[:, t].float(), k[:, t].float(), v[:, t].float()
+        ig_t = ig[:, t]
+        logf = F.logsigmoid(fg[:, t])                             # (B,nh)
+        m_new = torch.maximum(logf + m, ig_t)
+        i_p = torch.exp(ig_t - m_new)
+        f_p = torch.exp(logf + m - m_new)
+        kv = torch.einsum("bhk,bhv->bhkv", k_t, v_t)
+        c = f_p[..., None, None] * c + i_p[..., None, None] * kv
+        n = f_p[..., None] * n + i_p[..., None] * k_t
+        num = torch.einsum("bhk,bhkv->bhv", q_t, c)
+        den = torch.einsum("bhk,bhk->bh", q_t, n).abs()
+        den = torch.maximum(den, torch.exp(-m_new))
+        hs.append(num / den[..., None])
+        m = m_new
+    return torch.stack(hs, dim=1), (c, n, m)
+
+
+def mlstm_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
+                cache: Cache) -> Tuple[torch.Tensor, Cache]:
+    """The mLSTM block: chunkwise where ``pcfg.mlstm_chunk`` divides a
+    longer sequence outside decode, else the per-step scan."""
+    xc = cfg.xlstm
+    B, S, d = x.shape
+    up = torch.einsum("bsd,dti->bsti", x, p["w_up"])
+    gate_br, inner_in = up[:, :, 0], up[:, :, 1]
+    conv_state = cache["conv"] if cache is not None else None
+    conv_out, new_conv = _causal_conv(inner_in, p["conv_w"], p["conv_b"],
+                                      conv_state)
+    conv_out = F.silu(conv_out)
+
+    nh = xc.num_heads
+    q = torch.einsum("bsi,ihk->bshk", conv_out, p["wq"])
+    k = torch.einsum("bsi,ihk->bshk", conv_out, p["wk"])
+    v = torch.einsum("bsi,ihk->bshk", inner_in, p["wv"])
+    dqk, dv = q.shape[-1], v.shape[-1]
+    q = q / math.sqrt(dqk)
+    c32 = conv_out.float()
+    ig = torch.einsum("bsi,ih->bsh", c32, p["w_igate"]) + p["b_igate"]
+    fg = torch.einsum("bsi,ih->bsh", c32, p["w_fgate"]) + p["b_fgate"]
+
+    if cache is not None:
+        c0, n0, m0 = (cache[n].float() for n in ("c", "n", "m"))
+    else:
+        c0 = torch.zeros((B, nh, dqk, dv), device=x.device)
+        n0 = torch.zeros((B, nh, dqk), device=x.device)
+        m0 = torch.zeros((B, nh), device=x.device)
+
+    chunk = pcfg.mlstm_chunk
+    if mode != "decode" and chunk and S % chunk == 0 and S > chunk:
+        h, (c, n, m) = _mlstm_chunkwise(q, k, v, ig, fg, c0, n0, m0, chunk,
+                                        bf16_streams=pcfg.mlstm_bf16_streams)
+    else:
+        h, (c, n, m) = _mlstm_steps(q, k, v, ig, fg, c0, n0, m0)
+    h = rms_norm(h.reshape(B, S, -1), p["out_norm"]["scale"], cfg.norm_eps)
+    h = h * F.silu(gate_br)
+    y = torch.einsum("bsi,id->bsd", h.to(x.dtype), p["w_down"])
+    return y, _new_state(cache, mode, c=c, n=n, m=m, conv=new_conv)
+
+
+def slstm_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
+                cache: Cache) -> Tuple[torch.Tensor, Cache]:
+    """The sLSTM block: a per-step scan with a recurrent (hidden-to-hidden)
+    product a head. Without a cache the normalizer starts at 1e-6 (the
+    reference's), in a cache at 1 (``model.init_cache``)."""
+    B, S, d = x.shape
+    nh = cfg.xlstm.num_heads
+    dh = d // nh
+    xg = torch.einsum("bsd,dghk->bsghk", x, p["wx"]).float()  # (B,S,4,nh,dh)
+    if cache is not None:
+        c, n, h, m = (cache[k].float() for k in ("c", "n", "h", "m"))
+    else:
+        z = torch.zeros((B, nh, dh), device=x.device)
+        c, n, h, m = z, z + 1e-6, z, z
+    r = p["r"].float()
+    hs = []
+    for t in range(S):
+        rec = torch.einsum("bhk,ghkl->bghl", h, r)
+        pre = xg[:, t] + rec + p["b"]
+        i_raw, f_raw, z_raw, o_raw = pre.unbind(dim=1)
+        m_new = torch.maximum(f_raw + m, i_raw)
+        i_g = torch.exp(i_raw - m_new)
+        f_g = torch.exp(f_raw + m - m_new)
+        c = f_g * c + i_g * torch.tanh(z_raw)
+        n = f_g * n + i_g
+        h = torch.sigmoid(o_raw) * (c / torch.clamp(n, min=1e-6))
+        m = m_new
+        hs.append(h)
+    y = torch.stack(hs, dim=1).reshape(B, S, d)
+    y = rms_norm(y, p["group_norm"]["scale"], cfg.norm_eps).to(x.dtype)
+    return y, _new_state(cache, mode, c=c, n=n, h=h, m=m)

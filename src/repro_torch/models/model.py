@@ -1,20 +1,19 @@
 """The decoder: forward pass + cache management.
 
-Port of ``repro/models/model.py`` for decoders whose layers are attention
-layers (``block_pattern == ("attn",)``): ``attn`` layers, with an MoE MLP
-where the config has one, and an MoE config's dense first layers
-(``attn_dense``), the reference's ``_apply_layer`` for those two kinds.
-The reference scans each segment's stacked parameters with ``lax.scan``;
-eager PyTorch has no compile time to save, so the port loops over
-``params["layers"]`` in Python. Still cut, and raising
-``NotImplementedError`` (``models/params.check_supported``): MLA, RG-LRU,
-mLSTM/sLSTM, cross-attention, the embeddings frontend and local windows.
+Port of ``repro/models/model.py`` for every layer kind: ``attn`` (GQA or
+MLA attention, with cross-attention where the config has it, then an MoE
+or an MLP), ``attn_dense``, ``rglru``, ``mlstm`` and ``slstm``; the cache
+of each kind as the reference's ``_cache_layer_specs`` sets it out; the
+``embeddings`` frontend with its sinusoidal positions. The reference scans
+each segment's stacked parameters with ``lax.scan``; eager PyTorch has no
+compile time to save, so the port loops over ``params["layers"]`` in
+Python, and its cache is one dict a layer in the same order.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -27,19 +26,83 @@ from repro_torch.parallel.sharding import ParallelConfig
 Tree = Dict[str, Any]
 
 
+def attention_cache_cap(cfg: ArchConfig, cap: int) -> int:
+    """Slots of a GQA layer's KV cache for a cache of ``cap`` positions:
+    ``min(cap, local_window)`` in a config with a local window (a rolling
+    cache), else ``cap``."""
+    return min(cap, cfg.local_window) if cfg.local_window else cap
+
+
+def layer_window(cfg: ArchConfig, kind: str) -> Optional[int]:
+    """The local window an attention layer of ``kind`` attends over: the
+    config's, for the ``attn`` layers of a mixed pattern (the reference's
+    rule), else None."""
+    if kind == "attn" and cfg.block_pattern != ("attn",):
+        return cfg.local_window
+    return None
+
+
+def _cache_layer(cfg: ArchConfig, kind: str, batch: int, cap: int,
+                 device) -> Tree:
+    """One layer's cache, the reference's ``_cache_layer_specs``: zeros in
+    the model dtype for KV, latent and conv buffers, positions -1 (empty;
+    int64, the index type of torch), recurrent state in fp32 (the sLSTM
+    normalizer ``n`` at 1)."""
+    dt = DTYPES[cfg.dtype]
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def pos(c):
+        return torch.full((batch, c), -1, dtype=torch.long, device=device)
+
+    f32 = torch.float32
+    if kind in ("attn", "attn_dense"):
+        if cfg.attention == "mla":
+            m = cfg.mla
+            t = {"c_kv": zeros(batch, cap, m.kv_lora_rank),
+                 "k_rope": zeros(batch, cap, m.qk_rope_head_dim),
+                 "pos": pos(cap)}
+        else:
+            c = attention_cache_cap(cfg, cap)
+            kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+            t = {"k": zeros(batch, c, kv, hd), "v": zeros(batch, c, kv, hd),
+                 "pos": pos(c)}
+        if cfg.cross_attention:
+            kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+            t["cross_k"] = zeros(batch, cfg.cross_seq, kv, hd)
+            t["cross_v"] = zeros(batch, cfg.cross_seq, kv, hd)
+        return t
+    if kind == "rglru":
+        r = cfg.rglru
+        width = r.lru_width or cfg.d_model
+        return {"conv": zeros(batch, r.conv_width - 1, width),
+                "h": zeros(batch, width, dtype=f32)}
+    if kind == "mlstm":
+        x = cfg.xlstm
+        inner = int(x.mlstm_proj_factor * cfg.d_model)
+        nh = x.num_heads
+        dv = inner // nh
+        dqk = int(x.qk_dim_factor * dv)
+        return {"c": zeros(batch, nh, dqk, dv, dtype=f32),
+                "n": zeros(batch, nh, dqk, dtype=f32),
+                "m": zeros(batch, nh, dtype=f32),
+                "conv": zeros(batch, 3, inner)}
+    if kind == "slstm":
+        nh = cfg.xlstm.num_heads
+        shape = (batch, nh, cfg.d_model // nh)
+        return {"c": zeros(*shape, dtype=f32),
+                "n": torch.ones(shape, dtype=f32, device=device),
+                "h": zeros(*shape, dtype=f32), "m": zeros(*shape, dtype=f32)}
+    raise ValueError(f"unknown layer kind {kind!r}")
+
+
 def init_cache(cfg: ArchConfig, batch: int, cap: int, device=None
                ) -> List[Tree]:
-    """One ``{"k", "v", "pos"}`` cache per layer, every layer of either
-    kind (``attn``, ``attn_dense``): zeros in the model dtype, positions -1
-    (empty). Positions are int64, the index type of torch."""
+    """One cache dict a layer, in layer order (:func:`_cache_layer`)."""
     check_supported(cfg)
-    dt = DTYPES[cfg.dtype]
-    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    return [{"k": torch.zeros((batch, cap, kv, hd), dtype=dt, device=device),
-             "v": torch.zeros((batch, cap, kv, hd), dtype=dt, device=device),
-             "pos": torch.full((batch, cap), -1, dtype=torch.long,
-                               device=device)}
-            for _ in range(cfg.num_layers)]
+    return [_cache_layer(cfg, kind, batch, cap, device)
+            for kind in layer_kinds(cfg)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,44 +115,102 @@ def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(math.sqrt(d_model), dtype=dtype))
 
 
+def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(B,S) positions -> (B,S,d) fp32: sin then cos of position x
+    10000^(-i / (d/2))."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def _apply_layer(kind: str, p: Tree, x: torch.Tensor, *, cfg: ArchConfig,
-                 pcfg: ParallelConfig, mode: str, cache, positions):
-    """One ``attn`` or ``attn_dense`` layer, as the reference's
-    ``_apply_layer``: attention, then the MoE where the layer has one (its
-    aux loss returned), else the MLP (aux None: no zero is launched for
-    it). Returns (x, new cache, aux)."""
-    if kind not in ("attn", "attn_dense"):
-        raise NotImplementedError(f"layer kind {kind!r} not ported yet")
+                 pcfg: ParallelConfig, mode: str, cache, positions, cond):
+    """One layer, as the reference's ``_apply_layer``. Returns (x, new
+    cache, aux): aux is an MoE layer's load-balance loss, else None (no
+    zero is launched for it). In decode the new cache is ``cache`` itself,
+    updated in place."""
     aux = None
+    new_cache = cache
+    if kind in ("attn", "attn_dense"):
+        h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+        mla = cfg.attention == "mla"
+        names = ("c_kv", "k_rope", "pos") if mla else ("k", "v", "pos")
+        a_cache = {k: cache[k] for k in names} if cache is not None else None
+        kw = dict(cfg=cfg, pcfg=pcfg, mode=mode, cache=a_cache,
+                  positions=positions)
+        if mla:
+            a_out, a_cache = L.mla_attention(p["attn"], h, **kw)
+        else:
+            a_out, a_cache = L.gqa_attention(
+                p["attn"], h, window=layer_window(cfg, kind), **kw)
+        x = x + a_out
+        if cache is not None and mode != "decode":
+            new_cache = dict(cache)
+            new_cache.update(a_cache)
+        if cfg.cross_attention:
+            hc = L.rms_norm(x, p["ln_cross"]["scale"], cfg.norm_eps)
+            if mode == "decode":
+                ckv = (cache["cross_k"], cache["cross_v"])
+            else:
+                ckv = L.cond_kv(p["cross"], cond, cfg=cfg)
+                if cache is not None:
+                    new_cache["cross_k"], new_cache["cross_v"] = ckv
+            x = x + L.cross_attention(p["cross"], hc, ckv, cfg=cfg)
+        h2 = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+        if "moe" in p:
+            m_out, aux = L.moe_block(p["moe"], h2, cfg=cfg, pcfg=pcfg)
+        else:
+            m_out = L.mlp(p["mlp"], h2, cfg)
+        return x + m_out, new_cache, aux
     h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
-    a_out, new_cache = L.gqa_attention(p["attn"], h, cfg=cfg, pcfg=pcfg,
-                                       mode=mode, cache=cache,
-                                       positions=positions)
-    x = x + a_out
-    h2 = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-    if "moe" in p:
-        m_out, aux = L.moe_block(p["moe"], h2, cfg=cfg, pcfg=pcfg)
-    else:
-        m_out = L.mlp(p["mlp"], h2, cfg)
-    return x + m_out, new_cache, aux
+    if kind == "rglru":
+        r_out, new_cache = L.rglru_block(p["rec"], h, cfg=cfg, pcfg=pcfg,
+                                         mode=mode, cache=cache)
+        x = x + r_out
+        h2 = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+        return x + L.mlp(p["mlp"], h2, cfg), new_cache, aux
+    if kind == "mlstm":
+        m_out, new_cache = L.mlstm_block(p["mlstm"], h, cfg=cfg, pcfg=pcfg,
+                                         mode=mode, cache=cache)
+        return x + m_out, new_cache, aux
+    if kind == "slstm":
+        s_out, new_cache = L.slstm_block(p["slstm"], h, cfg=cfg, pcfg=pcfg,
+                                         mode=mode, cache=cache)
+        x = x + s_out
+        h2 = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+        return x + L.mlp(p["ffn"], h2, cfg), new_cache, aux
+    raise ValueError(f"unknown layer kind {kind!r}")
 
 
 def forward(params: Tree, *, cfg: ArchConfig, pcfg: ParallelConfig,
-            mode: str, tokens: torch.Tensor, positions: torch.Tensor,
+            mode: str, positions: torch.Tensor,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            cond: Optional[torch.Tensor] = None,
             cache: Optional[List[Tree]] = None, return_aux: bool = False):
     """Returns (hidden (B,S,d) before the final norm, new cache), and the
     layers' summed MoE aux loss (fp32) after them with ``return_aux``; the
-    serve path does not ask for it, as the reference's ignores it."""
-    x = params["embed"]["table"][tokens]
-    if cfg.scale_embeddings:
-        x = x * _embed_scale(cfg.d_model, x.dtype)
+    serve path does not ask for it, as the reference's ignores it. The
+    ``embeddings`` frontend takes ``embeds`` (B,S,d) and adds sinusoidal
+    positions; the others take ``tokens``. ``cond`` (B,cross_seq,d) feeds
+    cross-attention outside decode (decode reads its K/V from the cache)."""
+    if cfg.frontend == "embeddings":
+        if embeds is None:
+            raise ValueError(f"{cfg.name} takes frame embeddings")
+        x = embeds + _sinusoidal(positions, cfg.d_model).to(embeds.dtype)
+    else:
+        x = params["embed"]["table"][tokens]
+        if cfg.scale_embeddings:
+            x = x * _embed_scale(cfg.d_model, x.dtype)
     new_cache = [] if cache is not None else None
     auxes = []
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
         lc = cache[i] if cache is not None else None
         x, a_cache, aux = _apply_layer(kind, p, x, cfg=cfg, pcfg=pcfg,
                                        mode=mode, cache=lc,
-                                       positions=positions)
+                                       positions=positions, cond=cond)
         if aux is not None:
             auxes.append(aux)
         if new_cache is not None:

@@ -1,12 +1,11 @@
-"""Declarative parameter specs and initialisation for the decoders.
+"""Declarative parameter specs and initialisation for every family.
 
-Port of ``repro/models/params.py``, cut to the dense and MoE attention
-families (GQA/MQA/MHA attention + a gated MLP or a mixture of experts,
-``attn`` and ``attn_dense`` layers): ``ParamSpec``, ``layer_specs``,
-``model_specs``, ``count_params`` and ``init_params``. MLA, RG-LRU, xLSTM
-and cross-attention specs wait for their slices and raise
-``NotImplementedError``; the sharding and ``ShapeDtypeStruct`` views of the
-spec tree have no use on one card and are cut.
+Port of ``repro/models/params.py``: ``ParamSpec``, the specs of every
+layer kind (GQA attention and its cross-attention, MLA, the MLP and the
+mixture of experts, RG-LRU, mLSTM and sLSTM), ``layer_specs``,
+``model_specs``, ``count_params`` and ``init_params``. The sharding and
+``ShapeDtypeStruct`` views of the spec tree have no use on one card and
+are cut.
 
 The port's tree differs from the reference's in one way: layers are a
 Python list of per-layer dicts (``params["layers"][i]``), where the
@@ -34,7 +33,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 @dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "normal"         # normal | zeros | ones
+    init: str = "normal"         # normal | zeros | ones | lru_a
     scale: Optional[float] = None
     dtype: Optional[str] = None  # None -> cfg.dtype; norms are fp32
 
@@ -48,23 +47,99 @@ def _mlp_specs(cfg: ArchConfig, d_ff: int) -> Tree:
     return {
         "wg": ParamSpec((d, d_ff)),
         "wu": ParamSpec((d, d_ff)),
-        "wd": ParamSpec((d_ff, d), scale=0.02 / math.sqrt(2 * cfg.num_layers)),
+        "wd": ParamSpec((d_ff, d), scale=_out_scale(cfg)),
     }
 
 
-def _gqa_specs(cfg: ArchConfig) -> Tree:
+def _out_scale(cfg: ArchConfig) -> float:
+    return 0.02 / math.sqrt(2 * cfg.num_layers)
+
+
+def _gqa_specs(cfg: ArchConfig, cross: bool = False) -> Tree:
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     t: Tree = {
         "wq": ParamSpec((d, h, hd)),
         "wk": ParamSpec((d, kv, hd)),
         "wv": ParamSpec((d, kv, hd)),
-        "wo": ParamSpec((h, hd, d), scale=0.02 / math.sqrt(2 * cfg.num_layers)),
+        "wo": ParamSpec((h, hd, d), scale=_out_scale(cfg)),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         t["q_norm"] = _norm(hd)
         t["k_norm"] = _norm(hd)
     return t
+
+
+def _mla_specs(cfg: ArchConfig) -> Tree:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    return {
+        "wq_a": ParamSpec((d, m.q_lora_rank)),
+        "q_a_norm": _norm(m.q_lora_rank),
+        "wq_b": ParamSpec((m.q_lora_rank, h, dn + dr)),
+        "wkv_a": ParamSpec((d, m.kv_lora_rank)),
+        "kv_a_norm": _norm(m.kv_lora_rank),
+        "wk_rope": ParamSpec((d, dr)),
+        "wk_nope": ParamSpec((m.kv_lora_rank, h, dn)),
+        "wv": ParamSpec((m.kv_lora_rank, h, dv)),
+        "wo": ParamSpec((h, dv, d), scale=_out_scale(cfg)),
+    }
+
+
+def _rglru_specs(cfg: ArchConfig) -> Tree:
+    r = cfg.rglru
+    d = cfg.d_model
+    width = r.lru_width or d
+    nb = cfg.num_heads                 # block-diagonal gate blocks
+    bs = width // nb
+    return {
+        "wx": ParamSpec((d, width)),
+        "wy": ParamSpec((d, width)),
+        "conv_w": ParamSpec((r.conv_width, width)),
+        "conv_b": ParamSpec((width,), init="zeros"),
+        "gate_r_w": ParamSpec((nb, bs, bs)),
+        "gate_r_b": ParamSpec((width,), init="zeros"),
+        "gate_i_w": ParamSpec((nb, bs, bs)),
+        "gate_i_b": ParamSpec((width,), init="zeros"),
+        "a_param": ParamSpec((width,), init="lru_a", dtype="float32"),
+        "wo": ParamSpec((width, d), scale=_out_scale(cfg)),
+    }
+
+
+def _mlstm_specs(cfg: ArchConfig) -> Tree:
+    x = cfg.xlstm
+    d = cfg.d_model
+    inner = int(x.mlstm_proj_factor * d)
+    nh = x.num_heads
+    d_v = inner // nh
+    d_qk = int(x.qk_dim_factor * d_v)
+    return {
+        "w_up": ParamSpec((d, 2, inner)),
+        "conv_w": ParamSpec((4, inner)),
+        "conv_b": ParamSpec((inner,), init="zeros"),
+        "wq": ParamSpec((inner, nh, d_qk)),
+        "wk": ParamSpec((inner, nh, d_qk)),
+        "wv": ParamSpec((inner, nh, d_v)),
+        "w_igate": ParamSpec((inner, nh), dtype="float32"),
+        "b_igate": ParamSpec((nh,), init="zeros", dtype="float32"),
+        "w_fgate": ParamSpec((inner, nh), dtype="float32"),
+        "b_fgate": ParamSpec((nh,), init="ones", dtype="float32"),
+        "out_norm": _norm(inner),
+        "w_down": ParamSpec((inner, d), scale=_out_scale(cfg)),
+    }
+
+
+def _slstm_specs(cfg: ArchConfig) -> Tree:
+    nh = cfg.xlstm.num_heads
+    d = cfg.d_model
+    dh = d // nh
+    return {
+        "wx": ParamSpec((d, 4, nh, dh)),
+        "r": ParamSpec((4, nh, dh, dh)),
+        "b": ParamSpec((4, nh, dh), init="zeros", dtype="float32"),
+        "group_norm": _norm(d),
+    }
 
 
 def _moe_specs(cfg: ArchConfig) -> Tree:
@@ -76,7 +151,7 @@ def _moe_specs(cfg: ArchConfig) -> Tree:
         "router": ParamSpec((d, e), dtype="float32"),
         "wg": ParamSpec((e, d, f)),
         "wu": ParamSpec((e, d, f)),
-        "wd": ParamSpec((e, f, d), scale=0.02 / math.sqrt(2 * cfg.num_layers)),
+        "wd": ParamSpec((e, f, d), scale=_out_scale(cfg)),
     }
     if mo.router_score == "sigmoid":
         t["router_bias"] = ParamSpec((e,), init="zeros", dtype="float32")
@@ -86,37 +161,45 @@ def _moe_specs(cfg: ArchConfig) -> Tree:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the parts of a config the port does not run yet: MLA,
-    RG-LRU, mLSTM/sLSTM, cross-attention, the embeddings frontend and
-    local windows."""
-    cut = [(cfg.attention != "gqa", f"attention={cfg.attention!r}"),
-           (cfg.cross_attention, "cross-attention"),
-           (cfg.frontend is not None, f"frontend={cfg.frontend!r}"),
-           (set(cfg.block_pattern) != {"attn"},
-            f"layer kinds {cfg.block_pattern}"),
-           (cfg.local_window is not None, "local windows")]
-    bad = [what for hit, what in cut if hit]
-    if bad:
+    """Raise for the one part of a config the port does not run: the
+    DeepSeek multi-token-prediction head (``mtp``, which no config of the
+    registry sets)."""
+    if cfg.mtp:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported yet (the port runs "
-            "dense and MoE attention decoders)")
+            f"{cfg.name}: the multi-token-prediction head (mtp=True) is not "
+            "ported")
 
 
 def layer_specs(cfg: ArchConfig, kind: str = "attn") -> Tree:
-    """Specs for one layer: ``attn`` (attention + the MoE where the config
-    has one, else the MLP) or ``attn_dense`` (an MoE config's dense first
-    layers: attention + an MLP of ``dense_d_ff``)."""
-    if kind not in ("attn", "attn_dense"):
-        raise NotImplementedError(f"layer kind {kind!r} not ported yet")
-    t: Tree = {"ln1": _norm(cfg.d_model), "attn": _gqa_specs(cfg),
-               "ln2": _norm(cfg.d_model)}
-    if cfg.moe is not None and kind == "attn":
-        t["moe"] = _moe_specs(cfg)
-    else:
-        d_ff = ((cfg.dense_d_ff or cfg.d_ff) if kind == "attn_dense"
-                else cfg.d_ff)
-        t["mlp"] = _mlp_specs(cfg, d_ff)
-    return t
+    """Specs for one layer of a kind: ``attn`` (attention, GQA or MLA, with
+    cross-attention where the config has it, then the MoE where the config
+    has one, else the MLP), ``attn_dense`` (an MoE config's dense first
+    layers: an MLP of ``dense_d_ff``), ``rglru``, ``mlstm`` or ``slstm``."""
+    if kind in ("attn", "attn_dense"):
+        t: Tree = {"ln1": _norm(cfg.d_model), "ln2": _norm(cfg.d_model),
+                   "attn": (_mla_specs(cfg) if cfg.attention == "mla"
+                            else _gqa_specs(cfg))}
+        if cfg.cross_attention:
+            t["ln_cross"] = _norm(cfg.d_model)
+            t["cross"] = _gqa_specs(cfg, cross=True)
+        if cfg.moe is not None and kind == "attn":
+            t["moe"] = _moe_specs(cfg)
+        else:
+            d_ff = ((cfg.dense_d_ff or cfg.d_ff) if kind == "attn_dense"
+                    else cfg.d_ff)
+            t["mlp"] = _mlp_specs(cfg, d_ff)
+        return t
+    if kind == "rglru":
+        return {"ln1": _norm(cfg.d_model), "rec": _rglru_specs(cfg),
+                "ln2": _norm(cfg.d_model), "mlp": _mlp_specs(cfg, cfg.d_ff)}
+    if kind == "mlstm":
+        return {"ln1": _norm(cfg.d_model), "mlstm": _mlstm_specs(cfg)}
+    if kind == "slstm":
+        return {"ln1": _norm(cfg.d_model), "slstm": _slstm_specs(cfg),
+                "ln2": _norm(cfg.d_model),
+                "ffn": _mlp_specs(cfg, int(cfg.xlstm.slstm_proj_factor
+                                           * cfg.d_model))}
+    raise ValueError(f"unknown layer kind {kind!r}")
 
 
 def layer_kinds(cfg: ArchConfig) -> List[str]:
@@ -127,15 +210,17 @@ def layer_kinds(cfg: ArchConfig) -> List[str]:
 
 
 def model_specs(cfg: ArchConfig) -> Tree:
-    """Full spec tree: embed table, one tree per layer, final norm, and an
-    untied head where the config has one."""
+    """Full spec tree: the embed table (none for the ``embeddings``
+    frontend), one tree per layer, final norm, and a head where the config
+    is untied or has no table to tie it to."""
     check_supported(cfg)
-    t: Tree = {"embed": {"table": ParamSpec((cfg.vocab_size, cfg.d_model),
-                                            scale=0.02)},
-               "layers": [layer_specs(cfg, kind)
+    t: Tree = {"layers": [layer_specs(cfg, kind)
                           for kind in layer_kinds(cfg)],
                "final_norm": _norm(cfg.d_model)}
-    if not cfg.tie_embeddings:
+    if cfg.frontend != "embeddings":
+        t["embed"] = {"table": ParamSpec((cfg.vocab_size, cfg.d_model),
+                                         scale=0.02)}
+    if cfg.frontend == "embeddings" or not cfg.tie_embeddings:
         t["lm_head"] = {"w": ParamSpec((cfg.d_model, cfg.vocab_size),
                                        scale=0.02)}
     return t
@@ -180,8 +265,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device=None) -> Tree:
     """Random weights with the reference's distributions: fp32 normal ×
     scale (0.02 unless the spec says otherwise), then cast to the model
-    dtype; norms are ones in fp32. Draws come from ``generator`` (on
-    ``device``) in :func:`leaves` order, so a seed fixes the weights —
+    dtype; norms are ones in fp32; the RG-LRU's ``a_param`` is
+    log(u / (1 - u)), u uniform in (0.9, 0.999) (Griffin's init). Draws
+    come from ``generator`` (on ``device``) in :func:`leaves` order, so a
+    seed fixes the weights —
     though not the reference's, whose ``jax.random`` bits torch cannot
     reproduce (:func:`params_from_jax` carries those across)."""
     device = torch.device(device or generator.device)
@@ -192,6 +279,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             return torch.zeros(spec.shape, dtype=dt, device=device)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dt, device=device)
+        if spec.init == "lru_a":
+            u = torch.rand(spec.shape, generator=generator,
+                           dtype=torch.float32, device=device)
+            u = u.mul_(0.999 - 0.9).add_(0.9)
+            return torch.log(u / (1.0 - u)).to(dt)
         scale = spec.scale if spec.scale is not None else 0.02
         w = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                         device=device)
@@ -224,7 +316,9 @@ def _to_torch(a: np.ndarray, device) -> torch.Tensor:
 def params_from_jax(tree: Tree, cfg: ArchConfig, device="cpu") -> Tree:
     """The reference's parameter tree (leaves as numpy arrays, segments
     stacked on a leading ``layers`` axis, ``repro/models/params.py:196``)
-    as the port's per-layer tree, values and dtypes unchanged."""
+    as the port's per-layer tree, values and dtypes unchanged: segment by
+    segment, repeat by repeat, the cycle's kinds in order (the order of
+    :func:`layer_kinds`)."""
     check_supported(cfg)
     layers: List[Tree] = []
     for si, (n_rep, cycle) in enumerate(cfg.pattern_layers()):
@@ -233,12 +327,8 @@ def params_from_jax(tree: Tree, cfg: ArchConfig, device="cpu") -> Tree:
             for j, kind in enumerate(cycle):
                 layers.append(map_tree(lambda a: _to_torch(a[i], device),
                                        seg[f"{j}:{kind}"]))
-    out: Tree = {"embed": map_tree(lambda a: _to_torch(a, device),
-                                   tree["embed"]),
-                 "layers": layers,
-                 "final_norm": map_tree(lambda a: _to_torch(a, device),
-                                        tree["final_norm"])}
-    if "lm_head" in tree:
-        out["lm_head"] = map_tree(lambda a: _to_torch(a, device),
-                                  tree["lm_head"])
+    out: Tree = {"layers": layers}
+    for name in ("embed", "final_norm", "lm_head"):
+        if name in tree:
+            out[name] = map_tree(lambda a: _to_torch(a, device), tree[name])
     return out

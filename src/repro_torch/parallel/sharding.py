@@ -2,17 +2,19 @@
 
 Port of ``repro/parallel/sharding.py``, cut to ``KernelConfig`` and the
 fields of ``ParallelConfig`` that change the function on one card:
-``kernel`` (the dispatch serving reads) and ``capacity_factor`` (the MoE
-expert capacity, which sets which routed copies are dropped). One card has
-no mesh, so the logical-axis rules, ``resolve_spec``, ``constrain`` and the
+``kernel`` (the dispatch serving reads), ``capacity_factor`` (the MoE
+expert capacity, which sets which routed copies are dropped), the
+blockwise attention's ``flash_threshold``, ``attn_block_kv`` and
+``attn_q_chunks``, and the mLSTM's ``mlstm_chunk`` and
+``mlstm_bf16_streams``, with the reference's defaults. One card has no
+mesh, so the logical-axis rules, ``resolve_spec``, ``constrain`` and the
 VMEM residency arithmetic are cut; the kernels' resource models live in
 ``kernels/ops.py``. ``moe_combine`` is cut too: in the reference it only
 picks the mesh constraint around the expert outputs (an all-to-all
 reshard or none), which does not exist on one card; a stored value is
-logged as not applicable (``store/resolve.py``). ``flash_threshold`` is cut
-with the blockwise ``lax.scan`` attention it selects, which is not ported:
-a prefill the flash kernel does not take runs the materialized-scores
-attention.
+logged as not applicable (``store/resolve.py``). ``scan_layers`` and
+``remat`` are compile and training knobs, cut with them; ``attn_block_q``
+is read by no model path of the reference.
 """
 from __future__ import annotations
 
@@ -56,7 +58,13 @@ class ParallelConfig:
     """The fields of the reference's ParallelConfig that apply on one
     card."""
 
+    attn_block_kv: int = 1024        # blockwise attention's kv block
+    attn_q_chunks: int = 1           # causal q-chunking (1 = off)
     capacity_factor: Optional[float] = None  # override ArchConfig.moe
+    flash_threshold: int = 2048      # blockwise attention when seq >= this
+    # chunkwise-parallel mLSTM chunk length (0 = per-step scan)
+    mlstm_chunk: int = 0
+    mlstm_bf16_streams: bool = False  # bf16 intra-chunk streams (state fp32)
     kernel: Optional[KernelConfig] = None
 
     def replace(self, **kw) -> "ParallelConfig":

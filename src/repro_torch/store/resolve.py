@@ -8,12 +8,13 @@ host writing to the same store) has already explored.
 
 Port of ``repro/store/resolve.py``. The sharding cell's space and
 fingerprint are the reference's (``core/tuning_targets.sharding_space``),
-so records resolve across the two packages. One card has no mesh and the
-port's ``ParallelConfig`` holds only the kernel dispatch and the MoE
-``capacity_factor``, so ``apply_sharding_config`` overlays
-``capacity_factor`` and logs the rest as not applicable on one card: they
-wait for the distribution tooling (ROADMAP Queue 1). ``apply_kernel_config``
-is the reference's.
+so records resolve across the two packages. One card has no mesh, so
+``apply_sharding_config`` overlays the fields the port's ``ParallelConfig``
+owns (the MoE ``capacity_factor``, the blockwise attention's
+``attn_block_kv``, ``attn_q_chunks`` and ``flash_threshold``, which
+``flash`` sets, and ``mlstm_chunk``) and logs the rest as not applicable on
+one card: they wait for the training slice and the distribution tooling
+(ROADMAP Queue 1). ``apply_kernel_config`` is the reference's.
 """
 from __future__ import annotations
 
@@ -68,20 +69,20 @@ def best_sharding_config(store, arch: str, shape: str, mesh: str = "single",
 
 def apply_sharding_config(pcfg, cfg: Dict[str, Any], log=print):
     """Overlay a stored tuning config onto a ParallelConfig (dataclass
-    ``replace``): only the knobs ParallelConfig owns; mesh rules
-    (experts/embed) are applied by the launch layer, not here. Of the
-    sharding knobs the port's ParallelConfig owns ``capacity_factor`` only
-    (not ``flash_threshold``, which ``flash`` sets in the reference): each
-    field it lacks is logged as not applicable on one card."""
+    ``replace``): only the knobs ParallelConfig owns, ``flash`` as the
+    reference maps it to ``flash_threshold``; mesh rules (experts/embed)
+    are applied by the launch layer, not here. Each field the port's
+    ParallelConfig lacks is logged as not applicable on one card."""
     owned = {f.name for f in dataclasses.fields(pcfg)}
     kw = {k: cfg[k] for k in _PCFG_FIELDS if k in cfg and k in owned}
     if "flash" in cfg and "flash_threshold" in owned:
         # flash=1: blockwise attention always on; flash=0: never
         kw["flash_threshold"] = 0 if cfg["flash"] else 1 << 30
-    skipped = sorted(k for k in cfg if k not in kw)
+    applied = set(kw) | ({"flash"} if "flash_threshold" in kw else set())
+    skipped = sorted(k for k in cfg if k not in applied)
     if skipped:
         log(f"[serve] sharding fields {skipped} do not apply on one card; "
-            "they wait for the distribution tooling")
+            "they wait for the training slice and the distribution tooling")
     return pcfg.replace(**kw)
 
 

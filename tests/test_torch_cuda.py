@@ -699,3 +699,36 @@ def test_moe_graph_replay_equals_eager_step(card):
     for e, g in zip(eager, srv.kept[1:]):
         torch.testing.assert_close(g, e, rtol=0, atol=2.0 ** -7 * float(
             e.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-1.3b"])
+def test_recurrent_graph_replay_equals_eager_step(card, arch):
+    """RG-LRU (with a rolling window of 16 under a prompt of 128) and
+    xLSTM smoke models: a replay writes the recurrent state into the
+    server's own buffers, so each replay equals the eager step function
+    on the same state. The eager step advances that state in place too, so
+    it runs on a copy of the cache that is put back before the replay."""
+    from repro_torch.launch import serve
+    srv = _graph_server(card, arch=arch)
+    serve.reset_kernel_launches()
+    srv.prefill_batch(srv.input_batch())
+    eager = []
+    for _ in range(8):
+        with torch.inference_mode():
+            saved = [{k: t.clone() for k, t in layer.items()}
+                     for layer in srv.cache]
+            eager.append(_eager_logits(srv))
+            for layer, old in zip(srv.cache, saved):
+                for k, t in layer.items():
+                    t.copy_(old[k])
+        srv.decode_step()
+    assert srv.captures == 1 and "CUDA graph" in srv.decode_dispatch
+    n_attn = sum(k == "attn" for k in serve.layer_kinds(srv.cfg))
+    # the windowed layers' prefill is plain; decode: 8 eager steps, the
+    # capture's warm-up step and 8 replays
+    assert serve.kernel_launches() == {
+        "flash_attention": 0, "flash_decode_split": 17 * n_attn,
+        "flash_decode_combine": 17 * n_attn}
+    for e, g in zip(eager, srv.kept[1:]):
+        torch.testing.assert_close(g, e, rtol=0, atol=2.0 ** -7 * float(
+            e.abs().max()))

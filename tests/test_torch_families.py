@@ -31,7 +31,7 @@ from repro.parallel.sharding import KernelConfig as JaxKernelConfig
 from repro.parallel.sharding import ParallelConfig as JaxParallelConfig
 from repro.parallel.sharding import ShardCtx
 
-from repro_torch.configs.registry import PENDING, get_arch, smoke_config
+from repro_torch.configs.registry import get_arch, smoke_config
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import flash_decode as kfd
 from repro_torch.kernels import ops
@@ -73,17 +73,6 @@ def test_the_moe_config_counts_as_its_name_says():
     assert get_arch("stablelm-3b").resolved_head_dim == 80
     m = get_arch("mistral-large-123b")
     assert m.num_heads // m.num_kv_heads == 12
-
-
-@pytest.mark.parametrize("name,slice_", sorted(PENDING.items()))
-def test_pending_archs_name_their_slice(name, slice_):
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_arch(name)
-    assert name in PENDING and slice_ in {
-        "MLA + MoE", "windowed attention + RG-LRU", "mLSTM/sLSTM",
-        "cross-attention + embeddings frontend"}
-    assert set(PENDING) == {"deepseek-v3-671b", "recurrentgemma-9b",
-                            "xlstm-1.3b", "musicgen-large"}
 
 
 @pytest.mark.parametrize("dense_first", [0, 1], ids=["moe", "dense_first"])

@@ -213,9 +213,12 @@ def test_apply_kernel_config_overlays_compose_as_in_the_reference():
 
 def test_sharding_configs_resolve_alike_and_log_on_one_card(tmp_path):
     """The sharding cell's records resolve to the same config in both
-    packages; on one card only the MoE capacity factor applies (it sets
-    which routed copies drop), as the reference applies it, and each other
-    field is logged."""
+    packages; on one card the fields the port's ParallelConfig owns apply
+    as the reference applies them (the MoE capacity factor, which sets
+    which routed copies drop; the blockwise attention's knobs), and each
+    other field is logged."""
+    from repro.store.resolve import \
+        apply_sharding_config as jax_apply_sharding_config
     arch, shape = "internlm2-1.8b", "decode_32k"
     space = sharding_space(arch, shape)
     fp = SpaceFingerprint.of(space, objective=cell_objective(arch, shape))
@@ -238,15 +241,20 @@ def test_sharding_configs_resolve_alike_and_log_on_one_card(tmp_path):
                                                                 shape).size
     logged = []
     pcfg = ParallelConfig(kernel=KernelConfig(**KC_A))
-    out = apply_sharding_config(pcfg, space.config(17), log=logged.append)
-    assert out == pcfg and len(logged) == 1
+    rec17 = space.config(17)
+    out = apply_sharding_config(pcfg, rec17, log=logged.append)
+    # the blockwise attention's knobs apply as the reference applies them
+    # (flash as flash_threshold); the mesh and training knobs are logged
+    ref17 = jax_apply_sharding_config(JaxParallelConfig(), rec17)
+    assert out == pcfg.replace(**{f: getattr(ref17, f) for f in (
+        "attn_q_chunks", "attn_block_kv", "flash_threshold")})
+    assert len(logged) == 1
     assert "remat" in logged[0] and "one card" in logged[0]
+    assert "flash" not in logged[0] and "attn_block_kv" not in logged[0]
     srv = _server()
     srv.apply_config(space.config(17))
     assert srv.swaps == 1 and srv.pcfg.kernel == KernelConfig(**KC_A)
     # an MoE cell's record carries capacity_factor: applied, not logged
-    from repro.store.resolve import \
-        apply_sharding_config as jax_apply_sharding_config
     moe = sharding_space("qwen3-moe-30b-a3b", shape)
     rec = next(moe.config(i) for i in range(moe.size)
                if moe.config(i)["capacity_factor"] != 1.25)

@@ -94,8 +94,6 @@ def test_gemma_config_and_parameter_count_match_the_reference():
     assert P.count_params(cfg) == jax_params.count_params(ref_cfg)
     assert smoke_config("gemma-2b").__dict__ == \
         jax_smoke_config("gemma-2b").__dict__
-    with pytest.raises(KeyError, match=r"MLA \+ MoE slice"):
-        get_arch("deepseek-v3-671b")
     with pytest.raises(KeyError, match="unknown"):
         get_arch("gpt-5")
 
@@ -239,8 +237,10 @@ def test_kernel_gates_raise_on_the_card_and_fall_back_on_the_cpu():
     assert not L._flash_kernel_ok(12, 16, 16, None, kc, "cpu")
     with pytest.raises(ValueError, match="do not tile a prefill of 12"):
         L._flash_kernel_ok(12, 16, 16, None, kc, "cuda")
-    with pytest.raises(ValueError, match="no window"):
-        L._flash_kernel_ok(16, 16, 16, 8, kc, "cuda")
+    # a window or unequal head dims is not a kernel shape, on either
+    # device: the reference's plain attention runs (its gate's rule)
+    assert not L._flash_kernel_ok(16, 16, 16, 8, kc, "cuda")
+    assert not L._flash_kernel_ok(16, 24, 16, None, kc, "cuda")
     assert L._decode_kernel_ok(16, 16, kc, "cuda")
     assert not L._decode_kernel_ok(16, 8, kc, "cpu")
     with pytest.raises(ValueError, match="equal k and v head dims"):
