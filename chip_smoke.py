@@ -119,6 +119,23 @@ Phases, in order; any failure exits non-zero and prints no result:
      a prefill into a graph step, xlstm's chunkwise and per-step scans;
      a profile of a prefill and of 4 steps; the kernels at each model's
      shapes timed beside bound and SDPA.
+ 14. slice 10's main path, training, after the last model is freed: (a)
+     one train step's loss and every gradient leaf of gemma-2b at full
+     width cut to 2 layers, fp32 with TF32 off, B 1 x S 256, on the card
+     against the CPU (loss 1e-5 relative, each leaf 1e-3 of its max); (b)
+     TrainLoop on gemma-2b whole (18 layers, 2.51 B parameters, bf16
+     weights, fp32 AdamW moments) with the reference's loop defaults
+     (remat "none", unchunked cross-entropy, materialized attention),
+     SyntheticLM over the 256,000 vocab, B 4 x S 1,024, 8 steps at peak
+     LR 3e-4: ms/step, tokens/s, peak memory, losses (the last two below
+     the first two), the operations and optimizer-byte bounds, no kernel
+     launched, one step in parts (forward, backward, optimizer) timed
+     with CUDA events and profiled; (c) the same first step with
+     remat="full": the same loss (1e-6), its peak memory; (d) the restart
+     drill at internlm2-1.8b's smoke config (checkpoints every 5, failure
+     at 8, resume at 5, finish at 14, the manifest read back); (e) a train
+     step with the flash kernel opted in, and the flash wrapper handed a
+     CUDA operand that requires grad, both raise.
 The line before the last holds the kernels' JSON summary (times are the
 phase-9 device times, the phase-6 event times where the profiler saw none;
 the GEMM's and the GP kernel's launches are phases 4 and 11 together; the
@@ -131,6 +148,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import json
 import math
 import os
@@ -262,6 +280,16 @@ LAST_RUNS = (("recurrentgemma-9b", None, 3072, 64, {}),
 # the reference's dispatch: flash launches a prefill, decode launches a step
 LAST_LAUNCHES = {"recurrentgemma-9b": (0, 12), "deepseek-v3-671b": (0, 0),
                  "xlstm-1.3b": (0, 0), "musicgen-large": (48, 48)}
+# phase 14, training: gemma-2b at full width and depth with the TrainLoop's
+# parallel defaults (materialized attention, unchunked cross-entropy, remat
+# "none"), batch x sequence, steps, the launcher's peak LR; the card-vs-CPU
+# check at full width cut to 2 layers in fp32 at B 1 x S 256; the restart
+# drill at the smoke size test_substrate.py runs it
+TRAIN_ARCH, TRAIN_SHAPE, TRAIN_STEPS, TRAIN_PEAK_LR = "gemma-2b", (4, 1024), 8, 3e-4
+TRAIN_PCFG = {"flash_threshold": 1 << 30, "logits_chunk": 0}
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_SHAPE = 2, (1, 256)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, REMAT_RTOL = 1e-5, 1e-3, 1e-6
+RESTART_ARCH = "internlm2-1.8b"
 # graph replays held against the eager step bit for bit; xLSTM's two mLSTM
 # scans compared at this many blocks
 GRAPH_STEPS, SCAN_BLOCKS = 4, 8
@@ -706,7 +734,7 @@ def tune_serve_kernels(sdir: str, gp_block_n: int) -> None:
             f"({time.perf_counter() - t0:.1f} s)")
 
 
-def profile_window(fn, what: str, top: int = 8):
+def profile_window(fn, what: str, top: int = 8, tag: str = "[9]"):
     """Run ``fn`` under torch.profiler and print the device's busy share of
     the window (kernel time over wall time) and the kernels that took the
     most device time. Prints "not measured" when the profiler sees no
@@ -719,7 +747,7 @@ def profile_window(fn, what: str, top: int = 8):
     try:
         prof.__enter__()
     except RuntimeError as e:             # no CUPTI on this host
-        log(f"[9] profile of {what}: profiler unavailable ({e}); device "
+        log(f"{tag} profile of {what}: profiler unavailable ({e}); device "
             "busy share not measured")
         fn()
         return None
@@ -738,20 +766,20 @@ def profile_window(fn, what: str, top: int = 8):
                  if a.device_type == DeviceType.CPU
                  and "GraphLaunch" in a.key)
     if graphs:
-        log(f"[9] profile of {what}: {graphs} CUDA graph launches on the "
+        log(f"{tag} profile of {what}: {graphs} CUDA graph launches on the "
             "host; the device events below include the graphs' kernels")
     busy = sum(r[0] for r in rows)
     if busy <= 0:
-        log(f"[9] profile of {what}: wall {wall_ms:.3f} ms; the profiler saw "
+        log(f"{tag} profile of {what}: wall {wall_ms:.3f} ms; the profiler saw "
             "no device time (device busy share not measured)")
         return None
     rows.sort(reverse=True)
-    log(f"[9] profile of {what} (torch.profiler on): wall {wall_ms:.3f} ms, "
+    log(f"{tag} profile of {what} (torch.profiler on): wall {wall_ms:.3f} ms, "
         f"device kernel time {busy:.3f} ms, busy {100 * busy / wall_ms:.1f}%"
         f", idle {100 * (1 - busy / wall_ms):.1f}%; "
         f"{sum(r[1] for r in rows)} device events")
     for ms, n, name in rows[:top]:
-        log(f"[9]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<5d} {name[:90]}")
+        log(f"{tag}   {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<5d} {name[:90]}")
     return rows
 
 
@@ -2421,6 +2449,303 @@ def serve_last_family(name: str, layers, prompt: int, steps: int, pkw,
     return result
 
 
+# -- phase 14 ------------------------------------------------------------------
+
+
+def _loss_and_grads(cfg, params, batch, pcfg):
+    """(loss, {path: grad}) of one train step's loss, no optimizer."""
+    import torch
+    from repro_torch.models import params as P
+    from repro_torch.models.stepfn import loss_fn
+    views = P.trainable(params)
+    loss, _ = loss_fn(views, batch, cfg=cfg, pcfg=pcfg)
+    flat = list(P.leaves(views))
+    grads = torch.autograd.grad(loss, [t for _, t in flat],
+                                materialize_grads=True)
+    return loss.detach(), {path: g for (path, _), g in zip(flat, grads)}
+
+
+def train_card_vs_cpu(dev) -> None:
+    """Phase 14(a): one train step's loss and gradients of gemma-2b at full
+    width, cut to TRAIN_CHECK_LAYERS layers, in fp32 (TF32 off), the same
+    weights and batch on the card and on the CPU."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import params as P
+    from repro_torch.parallel.sharding import ParallelConfig
+    t0 = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH).replace(num_layers=TRAIN_CHECK_LAYERS,
+                                       dtype="float32")
+    B, S = TRAIN_CHECK_SHAPE
+    tokens = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                    global_batch=B)).batch(0)["tokens"]
+    pcfg = ParallelConfig(**TRAIN_PCFG)
+    params = P.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cpu_batch = {"tokens": torch.from_numpy(tokens).long()}
+    cpu_loss, cpu_g = _loss_and_grads(cfg, params, cpu_batch, pcfg)
+    cpu_s = time.perf_counter() - t0
+    params = P.map_tree(lambda t: t.to(dev), params)
+    loss, grads = _loss_and_grads(cfg, params, {"tokens": cpu_batch[
+        "tokens"].to(dev)}, pcfg)
+    rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    worst, worst_path = 0.0, None
+    for path, g in grads.items():
+        want = cpu_g[path]
+        ratio = float((g.cpu() - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        if ratio > worst:
+            worst, worst_path = ratio, path
+    log(f"[14a] {cfg.name} at {TRAIN_CHECK_LAYERS} layers, fp32, B {B} x S "
+        f"{S}: loss card {float(loss):.7f}, cpu {float(cpu_loss):.7f} "
+        f"(rel {rel:.2e}, limit {TRAIN_LOSS_RTOL}); worst grad leaf "
+        f"{worst_path}: max|d| / max|g| {worst:.2e} (limit "
+        f"{TRAIN_GRAD_RTOL}) over {len(grads)} leaves; cpu {cpu_s:.1f} s, "
+        f"all {time.perf_counter() - t0:.1f} s")
+    if not rel <= TRAIN_LOSS_RTOL:
+        fail(f"train step loss on the card {float(loss)} vs cpu "
+             f"{float(cpu_loss)}: rel {rel:.2e}")
+    if not worst <= TRAIN_GRAD_RTOL:
+        fail(f"train step gradient {worst_path} on the card vs cpu: "
+             f"max|d| / max|g| {worst:.2e}")
+
+
+def _train_loop(cfg, pcfg, steps: int, dev):
+    """TrainLoop on ``cfg`` over the synthetic source at TRAIN_SHAPE, the
+    launcher's peak LR, no checkpoint directory."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.runtime.train import LoopConfig, TrainLoop
+    B, S = TRAIN_SHAPE
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
+    lc = LoopConfig(steps=steps, log_every=0, peak_lr=TRAIN_PEAK_LR)
+    return TrainLoop(cfg, dc, lc, pcfg=pcfg, device=dev)
+
+
+def train_step_bounds(cfg, card: str):
+    """(operations bound ms, optimizer byte bound ms, FLOP, bytes) of one
+    train step at TRAIN_SHAPE: 6 x parameters x tokens (forward and
+    backward of every product, the tied head's included) plus the
+    materialized attention (QK^T and PV, forward and twice backward) at
+    the bf16 peak; AdamW reads a bf16 weight and gradient and two fp32
+    moments and writes the weight and moments, 22 bytes a parameter."""
+    from repro_torch.launch.roofline import bound_ms
+    from repro_torch.models.params import count_params
+    B, S = TRAIN_SHAPE
+    n = count_params(cfg)
+    attn = 3 * 2 * 2 * B * cfg.num_heads * S * S * cfg.resolved_head_dim
+    flops = 6.0 * n * B * S + attn * cfg.num_layers
+    opt_bytes = 22.0 * n
+    return (bound_ms(flops, 0.0, card, "bfloat16")[0],
+            bound_ms(0.0, opt_bytes, card, "bfloat16")[0], flops, opt_bytes)
+
+
+def _step_in_parts(loop, run) -> None:
+    """One more step of ``loop`` as its three parts, each handed to
+    ``run(name, fn)``: forward (the loss), backward (the gradients),
+    optimizer (AdamW in place)."""
+    import torch
+    from repro_torch.models import params as P
+    from repro_torch.models.stepfn import loss_fn
+    batch = loop._to_device(next(loop.data))
+    held = {}
+
+    def forward():
+        held["views"] = P.trainable(loop.params)
+        held["loss"], _ = loss_fn(held["views"], batch, cfg=loop.arch,
+                                  pcfg=loop.pcfg)
+
+    def backward():
+        flat = list(P.leaves(held.pop("views")))
+        grads = torch.autograd.grad(held.pop("loss"), [t for _, t in flat])
+        held["grads"] = P.map_tree_paths(loop.params, {
+            p: g for (p, _), g in zip(flat, grads)})
+
+    def optimizer():
+        loop.optimizer.update(held.pop("grads"), loop.opt_state, loop.params)
+
+    for name, fn in (("forward", forward), ("backward", backward),
+                     ("optimizer", optimizer)):
+        run(name, fn)
+
+
+def profile_train_step(loop) -> dict:
+    """Two more steps of ``loop`` in parts: the first with CUDA events
+    around each part (profiler off), the second under torch.profiler, one
+    window a part. Returns {part: ms} of the first."""
+    import torch
+    parts = {}
+
+    def timed(name, fn):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        parts[name] = t0.elapsed_time(t1)
+
+    _step_in_parts(loop, timed)
+    _step_in_parts(loop, lambda name, fn: profile_window(
+        fn, f"the train step's {name}", top=6, tag="[14b]"))
+    return parts
+
+
+def train_on_card(dev, card: str) -> dict:
+    """Phase 14: training on the card. (a) card against CPU at 2 layers in
+    fp32; (b) TrainLoop on gemma-2b at full width and depth in bf16 with
+    the loop's parallel defaults, its time beside the two bounds, peak
+    memory, losses, one profiled step; (c) the same first step with
+    remat="full"; (d) the restart drill at the smoke size; (e) the
+    refusals of a kernel without a backward."""
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.registry import get_arch, smoke_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels import matern_gp as kgp
+    from repro_torch.models import params as P
+    from repro_torch.models.stepfn import make_train_step
+    from repro_torch.optim.optimizers import AdamW, constant_lr
+    from repro_torch.parallel.sharding import KernelConfig, ParallelConfig
+    from repro_torch.runtime.train import (LoopConfig, TrainLoop,
+                                           run_with_restarts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+
+    # (a) the card against the CPU
+    train_card_vs_cpu(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the slice at full width: the kernel counts must stay at 0 (the
+    # training path reaches none of the kernels)
+    cfg = get_arch(TRAIN_ARCH)
+    pcfg = ParallelConfig(**TRAIN_PCFG)
+    kg.launches = kgp.launches = kfa.launches = kfd.split_launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        loop = _train_loop(cfg, pcfg, TRAIN_STEPS, dev)
+        met = loop.run()
+    except torch.cuda.OutOfMemoryError as e:
+        log(f"[14b] the loop's defaults do not fit on the card ({e}); "
+            "rerun with remat=\"full\"")
+        loop = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        pcfg = pcfg.replace(remat="full")
+        torch.cuda.reset_peak_memory_stats(dev)
+        loop = _train_loop(cfg, pcfg, TRAIN_STEPS, dev)
+        met = loop.run()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = (kg.launches, kgp.launches, kfa.launches, kfd.split_launches)
+    if any(counts):
+        fail(f"the train loop launched kernels (gemm, gp, flash, decode) "
+             f"{counts}: the training path reaches none")
+    B, S = TRAIN_SHAPE
+    step_ms = 1e3 * statistics.median(met.step_times[2:])
+    ops_ms, opt_ms, flops, opt_bytes = train_step_bounds(cfg, card)
+    n = P.count_params(cfg)
+    losses = met.losses
+    log(f"[14b] {cfg.name}: {n:,} parameters, {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.dtype} weights, fp32 AdamW moments; "
+        f"remat {pcfg.remat!r}, logits_chunk {pcfg.logits_chunk}, "
+        f"materialized attention; B {B} x S {S}, {TRAIN_STEPS} steps in "
+        f"{run_s:.1f} s (weights from the seed included)")
+    log(f"[14b] step {step_ms:.3f} ms (median of steps 2-{TRAIN_STEPS - 1}; "
+        f"each {[round(1e3 * t, 3) for t in met.step_times]} ms), "
+        f"{B * S / step_ms * 1e3:,.0f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; losses step 0 {losses[0]:.4f}, 1 "
+        f"{losses[1]:.4f}, {TRAIN_STEPS - 2} {losses[-2]:.4f}, "
+        f"{TRAIN_STEPS - 1} {losses[-1]:.4f} (ln V = "
+        f"{math.log(cfg.vocab_size):.4f})")
+    log(f"[14b] bounds on {card}: operations {flops / 1e12:.2f} TFLOP -> "
+        f"{ops_ms:.3f} ms at the bf16 peak; the optimizer's bytes "
+        f"{opt_bytes / 1e9:.2f} GB -> {opt_ms:.3f} ms; the step at "
+        f"{ops_ms / step_ms:.3f} of the operations bound; no kernel of the "
+        f"port launched (counts {counts})")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train losses {losses}")
+    if not (statistics.mean(losses[-2:]) < statistics.mean(losses[:2])):
+        fail(f"train loss did not fall: {losses}")
+    parts = profile_train_step(loop)
+    log(f"[14b] one step in parts (CUDA events around each, profiler off): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()))
+    out.update(step_ms=step_ms, peak=peak, loss0=losses[0])
+    loop = met = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) remat changes memory, not the function
+    torch.cuda.reset_peak_memory_stats(dev)
+    full = _train_loop(cfg, ParallelConfig(**{**TRAIN_PCFG, "remat": "full"}),
+                       1, dev)
+    loss_full = full.run().losses[0]
+    peak_full = torch.cuda.max_memory_allocated(dev)
+    rel = abs(loss_full - losses[0]) / abs(losses[0])
+    log(f"[14c] remat=\"full\", step 0 on the same weights and batch: loss "
+        f"{loss_full:.6f} against {losses[0]:.6f} (rel {rel:.2e}, limit "
+        f"{REMAT_RTOL}); peak memory {peak_full / 2**30:.2f} GiB against "
+        f"{peak / 2**30:.2f} GiB with remat {pcfg.remat!r}")
+    if not rel <= REMAT_RTOL:
+        fail(f"remat full changed step 0's loss: {loss_full} vs {losses[0]}")
+    full = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the restart drill on the card
+    smoke = smoke_config(RESTART_ARCH)
+    dc = DataConfig(vocab_size=smoke.vocab_size, seq_len=32, global_batch=4)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        def make_loop(attempt):
+            lc = LoopConfig(steps=14, ckpt_every=5, ckpt_dir=d, log_every=0,
+                            fail_at_step=8 if attempt == 0 else None)
+            return TrainLoop(smoke, dc, lc, device=dev)
+        drill = run_with_restarts(make_loop, max_restarts=2)
+        meta = ckpt.load_manifest(ckpt.latest(d))
+        want_leaves = len(list(P.leaves(make_loop(1)._state_tree())))
+    log(f"[14d] restart drill ({smoke.name}, ckpt every 5, failure at step "
+        f"8): resumed at step {drill.start_step} from "
+        f"{os.path.basename(drill.restored_from or '')}, "
+        f"{len(drill.losses)} steps after it; last manifest: step "
+        f"{meta['step']}, {meta['n_leaves']} leaves, dtypes "
+        f"{sorted(set(meta['dtypes']))}, extras {meta['extras']}")
+    if (drill.start_step != 5 or drill.start_step + len(drill.losses) != 14
+            or meta["step"] != 14 or meta["n_leaves"] != want_leaves):
+        fail(f"restart drill: start {drill.start_step}, "
+             f"{len(drill.losses)} steps, manifest {meta}")
+
+    # (e) the refusals: no kernel has a backward
+    refused = []
+    try:
+        make_train_step(cfg, ParallelConfig(kernel=KernelConfig(
+            use_flash=True)), AdamW(schedule=constant_lr(1e-3)))
+    except ValueError as e:
+        refused.append(str(e))
+    q = torch.randn(1, 128, 2, 64, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    k, v = (torch.randn(1, 128, 2, 64, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    kfa.launches = 0
+    try:
+        kfa.flash_attention(q, k, v, block_q=64, block_kv=64)
+    except ValueError as e:
+        refused.append(str(e))
+    with torch.no_grad():
+        kfa.flash_attention(q, k, v, block_q=64, block_kv=64)
+    torch.cuda.synchronize()
+    log(f"[14e] refused: {refused}; under no_grad the wrapper launched "
+        f"{kfa.launches} time(s)")
+    if len(refused) != 2 or kfa.launches != 1:
+        fail(f"the refusals: {refused}, launches {kfa.launches}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2750,6 +3075,11 @@ def main() -> int:
                                                  pkw, sdir, dev, card)))
     store_tmp.cleanup()
     log(f"[13] done in {time.perf_counter() - t0:.1f} s")
+
+    # 14. training on the card, after the last model is freed
+    t0 = time.perf_counter()
+    train_on_card(dev, card)
+    log(f"[14] done in {time.perf_counter() - t0:.1f} s")
 
     summary = {"kernels": []}
     for name, src, line in (

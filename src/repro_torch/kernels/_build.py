@@ -177,3 +177,15 @@ def stream_of(t) -> ctypes.c_void_p:
     """The current PyTorch stream on ``t``'s device, as a raw handle."""
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise ``ValueError`` where grad mode is on and an operand requires
+    grad. Called on the card's path only: no kernel has a backward (nor had
+    the Pallas kernels), so its output would carry no gradient, silently.
+    The CPU plain versions stay differentiable."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{what}: the kernel has no backward, and an "
+                         "operand requires grad; run it under "
+                         "torch.no_grad() or inference_mode")

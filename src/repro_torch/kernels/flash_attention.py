@@ -88,6 +88,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"kernel takes hd in {HEAD_DIMS} and blocks that "
                          f"are multiples of {SUB_TILE}, got hd={hd}, "
                          f"blocks ({block_q},{block_kv})")
+    _build.refuse_grad("flash_attention", q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     if any(t.data_ptr() % 16 for t in (q, k, v, o)):

@@ -169,6 +169,7 @@ def _launch(q, k_cache, v_cache, bias, block_kv, num_splits, fused):
     output (B,H,hd) in q's dtype when ``fused``, else the partials."""
     global split_launches, combine_launches
     _check_cuda(q, "flash decode")
+    _build.refuse_grad("flash decode", q, k_cache, v_cache, bias)
     B, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     Sp = bias.shape[1]

@@ -47,6 +47,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,
         return ref.gemm(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"gemm runs on cuda or cpu, not {a.device}")
+    _build.refuse_grad("gemm", a, b)
     a, b = a.contiguous(), b.contiguous()
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
     for t in (a, b, c):

@@ -80,6 +80,7 @@ def gp_posterior(x_cand: torch.Tensor, x_obs: torch.Tensor,
     if block_n % TILE or T % T_MULTIPLE:
         raise ValueError(f"kernel needs block_n % {TILE} == 0 and "
                          f"T % {T_MULTIPLE} == 0, got {block_n}, {T}")
+    _build.refuse_grad("gp_posterior", *args)
     args = tuple(t.contiguous() for t in args)
     mean = torch.empty(N, dtype=torch.float32, device=x_cand.device)
     var = torch.empty_like(mean)

@@ -16,7 +16,10 @@ reference threads it inside a ``ShardCtx`` with a mesh the port has not).
 In decode every cache entry is updated in place (the reference returns
 new arrays): a KV or latent cache has one slot a step written, a
 recurrent state is copied into its buffer, so that a captured CUDA graph
-of the step replays into the same buffers.
+of the step replays into the same buffers. Train mode (no cache) writes
+nothing in place, so autograd differentiates every block; the flash gate
+refuses a gradient (the kernel, as the reference's Pallas kernel, has no
+backward).
 """
 from __future__ import annotations
 
@@ -172,16 +175,23 @@ def _refuse_on_card(device, what: str) -> bool:
 
 
 def _flash_kernel_ok(S: int, hd: int, hd_v: int, window, kc,
-                     device) -> bool:
+                     device, grad: bool = False) -> bool:
     """Static preconditions for the flash kernel (the reference's
     ``_pallas_flash_ok``): opted in via KernelConfig, plain causal attention
     (no local window) and equal q/k/v head dims, on either device: the
     kernel, like the Pallas one, has neither, so those layers run the
-    plain attention the reference runs (``_prefill_attention``). A kernel
-    shape whose sequence the blocks do not tile: see
-    ``_refuse_on_card``."""
+    plain attention the reference runs (``_prefill_attention``). Where the
+    kernel would run and a gradient is wanted (``grad``: grad mode on and
+    an operand requires grad), the gate raises on both devices: the kernel
+    has no backward, as the Pallas kernel has none, and the plain path
+    would be a silent substitute. A kernel shape whose sequence the blocks
+    do not tile: see ``_refuse_on_card``."""
     if kc is None or not kc.use_flash or window is not None or hd != hd_v:
         return False
+    if grad:
+        raise ValueError("the flash kernel has no backward (nor has the "
+                         "reference's Pallas kernel): train with "
+                         "KernelConfig(use_flash=False)")
     bq, bkv = kc.flash_block_q, kc.flash_block_kv
     if S % bq or S % bkv:
         return _refuse_on_card(device, f"flash blocks ({bq}, {bkv}) do not "
@@ -295,8 +305,10 @@ def _prefill_attention(q, k, v, *, positions, window, scale,
     """The reference's prefill dispatch: the flash kernel where its gate
     opens, else the blockwise attention from ``flash_threshold`` tokens,
     else the materialized scores."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
     if _flash_kernel_ok(q.shape[1], q.shape[-1], v.shape[-1], window,
-                        pcfg.kernel, device):
+                        pcfg.kernel, device, grad=grad):
         return _kernel_flash_attention(q, k, v, pcfg.kernel)
     if q.shape[1] >= pcfg.flash_threshold:
         return _flash_attention(q, k, v, q_pos=positions, k_pos=positions,

@@ -7,7 +7,9 @@ of each kind as the reference's ``_cache_layer_specs`` sets it out; the
 ``embeddings`` frontend with its sinusoidal positions. The reference scans
 each segment's stacked parameters with ``lax.scan``; eager PyTorch has no
 compile time to save, so the port loops over ``params["layers"]`` in
-Python, and its cache is one dict a layer in the same order.
+Python, and its cache is one dict a layer in the same order. Train mode
+(no cache) runs each layer under the reference's ``remat`` policy
+(``_remat_wrap`` on ``torch.utils.checkpoint``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.models import layers as L
@@ -184,6 +188,33 @@ def _apply_layer(kind: str, p: Tree, x: torch.Tensor, *, cfg: ArchConfig,
     raise ValueError(f"unknown layer kind {kind!r}")
 
 
+#: the matmul ops whose outputs "dots" saves: what ``torch.einsum`` and
+#: ``@`` reach at the ATen level (the analogue of ``dots_saveable``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, policy: str):
+    """The reference's ``_remat_wrap`` on ``torch.utils.checkpoint``:
+    "none" keeps every activation, "full" saves the layer's inputs only and
+    recomputes the rest in the backward pass, "dots" saves the outputs of
+    the matmuls and recomputes the elementwise work between them."""
+    if policy == "none":
+        return fn
+    if policy not in ("dots", "full"):
+        raise ValueError(f"remat must be none, dots or full, not {policy!r}")
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def forward(params: Tree, *, cfg: ArchConfig, pcfg: ParallelConfig,
             mode: str, positions: torch.Tensor,
             tokens: Optional[torch.Tensor] = None,
@@ -192,7 +223,9 @@ def forward(params: Tree, *, cfg: ArchConfig, pcfg: ParallelConfig,
             cache: Optional[List[Tree]] = None, return_aux: bool = False):
     """Returns (hidden (B,S,d) before the final norm, new cache), and the
     layers' summed MoE aux loss (fp32) after them with ``return_aux``; the
-    serve path does not ask for it, as the reference's ignores it. The
+    serve path does not ask for it, as the reference's ignores it.
+    ``mode="train"`` takes no cache and runs each layer under
+    ``pcfg.remat`` (:func:`_train_layers`). The
     ``embeddings`` frontend takes ``embeds`` (B,S,d) and adds sinusoidal
     positions; the others take ``tokens``. ``cond`` (B,cross_seq,d) feeds
     cross-attention outside decode (decode reads its K/V from the cache)."""
@@ -204,6 +237,12 @@ def forward(params: Tree, *, cfg: ArchConfig, pcfg: ParallelConfig,
         x = params["embed"]["table"][tokens]
         if cfg.scale_embeddings:
             x = x * _embed_scale(cfg.d_model, x.dtype)
+    if mode == "train":
+        if cache is not None:
+            raise ValueError("train mode takes no cache")
+        x, auxes = _train_layers(params, x, cfg=cfg, pcfg=pcfg,
+                                 positions=positions, cond=cond)
+        return (x, None, _aux_sum(auxes, x)) if return_aux else (x, None)
     new_cache = [] if cache is not None else None
     auxes = []
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
@@ -216,9 +255,31 @@ def forward(params: Tree, *, cfg: ArchConfig, pcfg: ParallelConfig,
         if new_cache is not None:
             new_cache.append(a_cache)
     if return_aux:
-        return x, new_cache, sum(auxes, torch.zeros(
-            (), dtype=torch.float32, device=x.device))
+        return x, new_cache, _aux_sum(auxes, x)
     return x, new_cache
+
+
+def _aux_sum(auxes, x) -> torch.Tensor:
+    return sum(auxes, torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _train_layers(params: Tree, x, *, cfg: ArchConfig, pcfg: ParallelConfig,
+                  positions, cond):
+    """The layers in train mode (no cache): each layer under
+    ``pcfg.remat`` (the reference wraps each scan body, one cycle of the
+    pattern; the unit here is one layer, the same function). Returns
+    (hidden, the MoE layers' aux losses)."""
+    auxes = []
+    for kind, p in zip(layer_kinds(cfg), params["layers"]):
+        def layer(x_, p_, kind=kind):
+            y, _, a = _apply_layer(kind, p_, x_, cfg=cfg, pcfg=pcfg,
+                                   mode="train", cache=None,
+                                   positions=positions, cond=cond)
+            return y, a
+        x, aux = _remat_wrap(layer, pcfg.remat)(x, p)
+        if aux is not None:
+            auxes.append(aux)
+    return x, auxes
 
 
 def output_head(params: Tree, cfg: ArchConfig, x: torch.Tensor

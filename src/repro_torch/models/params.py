@@ -11,7 +11,11 @@ The port's tree differs from the reference's in one way: layers are a
 Python list of per-layer dicts (``params["layers"][i]``), where the
 reference stacks each segment on a leading ``layers`` axis for ``lax.scan``.
 :func:`params_from_jax` unstacks a reference tree into this layout, which is
-how the tests hold the port against the JAX package on the same weights.
+how the tests hold the port against the JAX package on the same weights;
+:func:`opt_state_from_jax` carries AdamW's state across the same way.
+Weights are plain tensors (leaves that require no grad); a train step
+differentiates with respect to :func:`trainable` views of them and updates
+them in place.
 """
 from __future__ import annotations
 
@@ -332,3 +336,19 @@ def params_from_jax(tree: Tree, cfg: ArchConfig, device="cpu") -> Tree:
         if name in tree:
             out[name] = map_tree(lambda a: _to_torch(a, device), tree[name])
     return out
+
+
+def opt_state_from_jax(state: Tree, cfg: ArchConfig, device="cpu") -> Tree:
+    """The reference's AdamW state (``mu``, ``nu`` as parameter trees with
+    numpy leaves, ``count`` an int32 scalar) in the port's layout, values
+    and dtypes unchanged."""
+    return {"mu": params_from_jax(state["mu"], cfg, device),
+            "nu": params_from_jax(state["nu"], cfg, device),
+            "count": _to_torch(np.asarray(state["count"], np.int32), device)}
+
+
+def trainable(params: Tree) -> Tree:
+    """The tree as leaf views that require grad: they share the weights'
+    storage, so the optimizer's in-place update is what the next step's
+    views see, and the caller's tensors stay free of autograd state."""
+    return map_tree(lambda t: t.detach().requires_grad_(True), params)

@@ -1,23 +1,27 @@
-"""Prefill and decode step functions.
+"""Train, prefill and decode step functions.
 
-Port of ``repro/models/stepfn.py``: ``make_prefill_step`` and
-``make_decode_step``, token and ``embeddings`` frontends both.
-``loss_fn``, ``chunked_xent`` and the train step wait for the training
-slice. Eager PyTorch has no ``jit``: a step is the plain
-function, and the kernel dispatch is read from ``pcfg.kernel`` at every
-call (``models/layers.py``). The decode step takes its position as a
-device tensor, as the reference's jitted step takes a traced scalar, so a
-captured CUDA graph of it (``launch/serve.DecodeServer``) reads the
-position each replay instead of the one it was captured at.
+Port of ``repro/models/stepfn.py``: ``chunked_xent``, ``loss_fn``,
+``make_train_step``, ``make_prefill_step`` and ``make_decode_step``, token
+and ``embeddings`` frontends both. Eager PyTorch has no ``jit``: a step is
+the plain function, and the kernel dispatch is read from ``pcfg.kernel`` at
+every call (``models/layers.py``). Prefill and decode run under
+``torch.inference_mode``; the train step runs with grad on (a tensor made
+in inference mode cannot be saved for backward). The decode step takes its
+position as a device tensor, as the reference's jitted step takes a traced
+scalar, so a captured CUDA graph of it (``launch/serve.DecodeServer``)
+reads the position each replay instead of the one it was captured at.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.models import model as M
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.params import leaves, map_tree_paths, trainable
 from repro_torch.parallel.sharding import ParallelConfig
 
 Tree = Dict[str, Any]
@@ -29,6 +33,125 @@ def _inputs(cfg: ArchConfig, batch: Tree):
     if cfg.frontend == "embeddings":
         return None, batch["frame_embeddings"]
     return batch["tokens"], None
+
+
+# ---------------------------------------------------------------------------
+# loss
+
+
+def _chunk_loss(xc: torch.Tensor, head_w: torch.Tensor, lc: torch.Tensor):
+    """(summed token loss, valid tokens) of one chunk, fp32: logits in fp32
+    (a bf16 model's product is rounded to bf16 first, as ``output_head``'s
+    is), log-sum-exp less the label's logit, labels -1 masked."""
+    logits = (xc @ head_w.to(xc.dtype)).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    mask = (lc >= 0).float()
+    return torch.sum((logz - ll) * mask), torch.sum(mask)
+
+
+def chunked_xent(x: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+                 pcfg: ParallelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy with the (B,S,V) logits never fully materialized.
+
+    With ``pcfg.logits_chunk`` dividing a longer sequence, the sequence
+    goes in chunks (the reference's ``lax.scan``), each under
+    ``torch.utils.checkpoint``: a chunk's (B, chunk, V) logits live only
+    inside its step, in the backward pass too. Returns (sum_loss, n_valid).
+    labels == -1 are masked."""
+    B, S, d = x.shape
+    chunk = pcfg.logits_chunk
+    if chunk and S > chunk and S % chunk == 0:
+        tot = torch.zeros((), device=x.device)
+        cnt = torch.zeros((), device=x.device)
+        for i in range(0, S, chunk):
+            s, c = checkpoint(_chunk_loss, x[:, i:i + chunk], head_w,
+                              labels[:, i:i + chunk], use_reentrant=False)
+            tot, cnt = tot + s, cnt + c
+        return tot, cnt
+    return _chunk_loss(x, head_w, labels)
+
+
+def loss_fn(params: Tree, batch: Tree, *, cfg: ArchConfig,
+            pcfg: ParallelConfig) -> Tuple[torch.Tensor, Tree]:
+    """(loss, {"xent", "aux", "n_tokens"}): the mean token cross-entropy
+    plus the MoE aux loss. Token models predict each next token (the last
+    position's label is -1, masked); the ``embeddings`` frontend reads
+    ``frame_embeddings``, ``labels`` and, for cross-attention, ``cond``."""
+    tokens, embeds = _inputs(cfg, batch)
+    if tokens is None:
+        labels = batch["labels"]
+    else:
+        labels = torch.cat([tokens[:, 1:],
+                            torch.full_like(tokens[:, :1], -1)], dim=1)
+    B, S = labels.shape
+    positions = torch.arange(S, dtype=torch.long,
+                             device=labels.device)[None, :].expand(B, S)
+    x, _, aux = M.forward(params, cfg=cfg, pcfg=pcfg, mode="train",
+                          tokens=tokens, embeds=embeds, cond=batch.get("cond"),
+                          positions=positions, return_aux=True)
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    head = (params["lm_head"]["w"] if "lm_head" in params
+            else params["embed"]["table"].T)
+    tot, cnt = chunked_xent(x, head, labels, pcfg)
+    xent = tot / torch.clamp(cnt, min=1.0)
+    return xent + aux, {"xent": xent, "aux": aux, "n_tokens": cnt}
+
+
+# ---------------------------------------------------------------------------
+# steps
+
+
+def make_train_step(cfg: ArchConfig, pcfg: ParallelConfig, optimizer):
+    """Returns train_step(params, opt_state, batch, step) -> (params,
+    opt_state, metrics): the loss and its gradients, then the optimizer's
+    update, which writes the new weights and state into ``params`` and
+    ``opt_state`` (the reference donates them to its jitted step). With
+    ``pcfg.microbatches`` mb > 1 the batch is split along its rows and the
+    gradients are accumulated in fp32, each divided by mb (metrics then
+    hold only the loss and the optimizer's, as the reference's do). Metrics
+    are device tensors; ``step`` is passed through.
+
+    Raises for a ``pcfg.kernel`` that opts into the flash kernel: it has no
+    backward (the reference's Pallas kernel has none either)."""
+    kc = pcfg.kernel
+    if kc is not None and kc.use_flash:
+        raise ValueError("make_train_step: the flash kernel has no backward "
+                         "(nor has the reference's Pallas kernel); train "
+                         "with KernelConfig(use_flash=False)")
+    mb = pcfg.microbatches
+
+    def grads_of(params, batch):
+        views = trainable(params)
+        loss, met = loss_fn(views, batch, cfg=cfg, pcfg=pcfg)
+        # a leaf the loss does not reach (the sigmoid router's bias, which
+        # only picks experts) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, [t for _, t in leaves(views)],
+                                    materialize_grads=True)
+        return loss.detach(), {k: v.detach() for k, v in met.items()}, grads
+
+    def train_step(params, opt_state, batch, step):
+        if mb > 1:
+            rows = next(iter(batch.values())).shape[0] // mb
+            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                     for _, p in leaves(params)]
+            loss = torch.zeros((), device=grads[0].device)
+            for i in range(mb):
+                part = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+                l, _, g = grads_of(params, part)
+                grads = [a + b.float() / mb for a, b in zip(grads, g)]
+                loss = loss + l / mb
+            met = {}
+        else:
+            loss, met, grads = grads_of(params, batch)
+        grads = map_tree_paths(params, {path: g for (path, _), g in
+                                        zip(leaves(params), grads)})
+        params, opt_state, opt_met = optimizer.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss, **met, **opt_met,
+                                   "step": step}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, pcfg: ParallelConfig, cache_cap: int):

@@ -1,20 +1,24 @@
-"""Kernel-dispatch and serving knobs.
+"""Kernel-dispatch, serving and training knobs.
 
 Port of ``repro/parallel/sharding.py``, cut to ``KernelConfig`` and the
-fields of ``ParallelConfig`` that change the function on one card:
-``kernel`` (the dispatch serving reads), ``capacity_factor`` (the MoE
+fields of ``ParallelConfig`` that change the function or its memory on one
+card: ``kernel`` (the dispatch serving reads), ``capacity_factor`` (the MoE
 expert capacity, which sets which routed copies are dropped), the
 blockwise attention's ``flash_threshold``, ``attn_block_kv`` and
-``attn_q_chunks``, and the mLSTM's ``mlstm_chunk`` and
-``mlstm_bf16_streams``, with the reference's defaults. One card has no
-mesh, so the logical-axis rules, ``resolve_spec``, ``constrain`` and the
-VMEM residency arithmetic are cut; the kernels' resource models live in
-``kernels/ops.py``. ``moe_combine`` is cut too: in the reference it only
-picks the mesh constraint around the expert outputs (an all-to-all
-reshard or none), which does not exist on one card; a stored value is
-logged as not applicable (``store/resolve.py``). ``scan_layers`` and
-``remat`` are compile and training knobs, cut with them; ``attn_block_q``
-is read by no model path of the reference.
+``attn_q_chunks``, the mLSTM's ``mlstm_chunk`` and ``mlstm_bf16_streams``,
+and the training fields ``remat`` (per-layer activation checkpointing),
+``microbatches`` (gradient accumulation), ``logits_chunk`` (the chunked
+cross-entropy) and ``opt_moment_dtype`` (the AdamW moments), with the
+reference's defaults. One card has no mesh, so the logical-axis rules,
+``resolve_spec``, ``constrain`` and the VMEM residency arithmetic are cut;
+the kernels' resource models live in ``kernels/ops.py``. ``moe_combine`` is
+cut too: in the reference it only picks the mesh constraint around the
+expert outputs (an all-to-all reshard or none), which does not exist on one
+card; a stored value is logged as not applicable (``store/resolve.py``), as
+are ``grad_compression`` and ``grad_compression_topk`` (gradient compression
+over the pod/DCN axis, which belongs to the distribution tooling).
+``scan_layers`` is a compile knob with no eager counterpart (the port loops
+over layers); ``attn_block_q`` is read by no model path of the reference.
 """
 from __future__ import annotations
 
@@ -58,9 +62,13 @@ class ParallelConfig:
     """The fields of the reference's ParallelConfig that apply on one
     card."""
 
+    remat: str = "none"              # none | dots | full
+    microbatches: int = 1
     attn_block_kv: int = 1024        # blockwise attention's kv block
     attn_q_chunks: int = 1           # causal q-chunking (1 = off)
     capacity_factor: Optional[float] = None  # override ArchConfig.moe
+    logits_chunk: int = 1024         # chunked-softmax xent chunk (0 = unchunked)
+    opt_moment_dtype: str = "float32"
     flash_threshold: int = 2048      # blockwise attention when seq >= this
     # chunkwise-parallel mLSTM chunk length (0 = per-step scan)
     mlstm_chunk: int = 0

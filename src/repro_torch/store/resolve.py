@@ -12,9 +12,11 @@ so records resolve across the two packages. One card has no mesh, so
 ``apply_sharding_config`` overlays the fields the port's ``ParallelConfig``
 owns (the MoE ``capacity_factor``, the blockwise attention's
 ``attn_block_kv``, ``attn_q_chunks`` and ``flash_threshold``, which
-``flash`` sets, and ``mlstm_chunk``) and logs the rest as not applicable on
-one card: they wait for the training slice and the distribution tooling
-(ROADMAP Queue 1). ``apply_kernel_config`` is the reference's.
+``flash`` sets, ``mlstm_chunk``, and the training fields ``remat``,
+``microbatches``, ``logits_chunk`` and ``opt_moment_dtype``, which serving
+carries and never reads, as the reference's does) and logs the rest (the
+mesh rules, ``moe_combine``, gradient compression) as not applicable on one
+card. ``apply_kernel_config`` is the reference's.
 """
 from __future__ import annotations
 
@@ -81,8 +83,8 @@ def apply_sharding_config(pcfg, cfg: Dict[str, Any], log=print):
     applied = set(kw) | ({"flash"} if "flash_threshold" in kw else set())
     skipped = sorted(k for k in cfg if k not in applied)
     if skipped:
-        log(f"[serve] sharding fields {skipped} do not apply on one card; "
-            "they wait for the training slice and the distribution tooling")
+        log(f"[serve] sharding fields {skipped} do not apply on one card "
+            "(mesh and pod-axis knobs)")
     return pcfg.replace(**kw)
 
 

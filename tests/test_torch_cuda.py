@@ -732,3 +732,84 @@ def test_recurrent_graph_replay_equals_eager_step(card, arch):
     for e, g in zip(eager, srv.kept[1:]):
         torch.testing.assert_close(g, e, rtol=0, atol=2.0 ** -7 * float(
             e.abs().max()))
+
+
+def _grad_operands(card):
+    """One small call of each kernel's wrapper, its first operand made to
+    require grad: (name, call)."""
+    g = torch.Generator(device=card).manual_seed(0)
+
+    def rand(*shape, dtype=torch.float32, grad=False):
+        return torch.randn(*shape, generator=g, device=card, dtype=dtype,
+                           requires_grad=grad)
+
+    def flash(grad):
+        return kfa.flash_attention(rand(1, 128, 2, 64, grad=grad),
+                                   rand(1, 128, 2, 64), rand(1, 128, 2, 64),
+                                   block_q=64, block_kv=64)
+
+    def decode(grad):
+        bias = torch.zeros(1, 128, device=card)
+        return kfd.flash_decode(rand(1, 2, 64, grad=grad),
+                                rand(1, 128, 1, 64), rand(1, 128, 1, 64),
+                                bias, block_kv=128, num_splits=1)
+
+    def gemm(grad):
+        return kgemm.gemm(rand(128, 128, grad=grad), rand(128, 128),
+                          block_m=64, block_n=64, block_k=64)
+
+    def gp(grad):
+        xc, xo, vinv, w, mask = _gp_inputs(13, 512, 6, "matern32", card)
+        return kgp.gp_posterior(xc.requires_grad_(grad), xo, vinv, w, mask,
+                                block_n=512)
+
+    return [("flash_attention", flash), ("flash_decode", decode),
+            ("gemm", gemm), ("gp_posterior", gp)]
+
+
+def test_kernels_refuse_an_operand_that_requires_grad(card):
+    """No kernel has a backward: in grad mode a CUDA operand that requires
+    grad raises instead of returning an output with no gradient; under
+    no_grad (or with no operand requiring grad) the same call launches."""
+    for name, call in _grad_operands(card):
+        with pytest.raises(ValueError, match="no backward"):
+            call(True)
+        with torch.no_grad():
+            call(True)
+        call(False)
+    torch.cuda.synchronize()
+
+
+def test_a_train_step_on_the_card_matches_the_cpu(card):
+    """One AdamW train step of the gemma-2b smoke model at head dim 64, in
+    fp32 (TF32 off), the same weights and batch on the card and on the CPU:
+    the loss and global norm within 1e-5 relative, the new weights within
+    1e-3 of each leaf's update norm; the flash kernel opted in is refused
+    before any step."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import params as P
+    from repro_torch.models.stepfn import make_train_step
+    from repro_torch.optim.optimizers import AdamW, warmup_cosine
+    from repro_torch.parallel.sharding import KernelConfig, ParallelConfig
+    cfg = smoke_config("gemma-2b").replace(head_dim=64, dtype="float32")
+    pcfg = ParallelConfig(flash_threshold=1 << 30, logits_chunk=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", card):
+        params = P.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        before = {p: t.clone() for p, t in P.leaves(params)}
+        params = P.map_tree(lambda t: t.to(dev), params)
+        opt = AdamW(schedule=warmup_cosine(3e-3, 1, 3), weight_decay=0.01)
+        params, _, met = make_train_step(cfg, pcfg, opt)(
+            params, opt.init(params), {"tokens": tokens.to(dev)}, 0)
+        out[str(dev)] = (met, {p: t.cpu() for p, t in P.leaves(params)})
+    (cm, cp), (gm, gp) = out["cpu"], out[str(card)]
+    for k in ("loss", "grad_norm"):
+        assert float(gm[k]) == pytest.approx(float(cm[k]), rel=1e-5)
+    for path, b in before.items():
+        d_cpu, d_card = cp[path] - b, gp[path] - b
+        assert float((d_card - d_cpu).norm()) <= 1e-3 * float(d_cpu.norm())
+    with pytest.raises(ValueError, match="no backward"):
+        make_train_step(cfg, pcfg.replace(kernel=KernelConfig(
+            use_flash=True)), AdamW(schedule=warmup_cosine(3e-3, 1, 3)))

@@ -215,8 +215,8 @@ def test_sharding_configs_resolve_alike_and_log_on_one_card(tmp_path):
     """The sharding cell's records resolve to the same config in both
     packages; on one card the fields the port's ParallelConfig owns apply
     as the reference applies them (the MoE capacity factor, which sets
-    which routed copies drop; the blockwise attention's knobs), and each
-    other field is logged."""
+    which routed copies drop; the blockwise attention's knobs; the training
+    knobs), and each other field is logged."""
     from repro.store.resolve import \
         apply_sharding_config as jax_apply_sharding_config
     arch, shape = "internlm2-1.8b", "decode_32k"
@@ -243,13 +243,16 @@ def test_sharding_configs_resolve_alike_and_log_on_one_card(tmp_path):
     pcfg = ParallelConfig(kernel=KernelConfig(**KC_A))
     rec17 = space.config(17)
     out = apply_sharding_config(pcfg, rec17, log=logged.append)
-    # the blockwise attention's knobs apply as the reference applies them
-    # (flash as flash_threshold); the mesh and training knobs are logged
+    # the blockwise attention's and the training knobs apply as the
+    # reference applies them (flash as flash_threshold); the mesh knobs are
+    # logged
     ref17 = jax_apply_sharding_config(JaxParallelConfig(), rec17)
     assert out == pcfg.replace(**{f: getattr(ref17, f) for f in (
-        "attn_q_chunks", "attn_block_kv", "flash_threshold")})
+        "attn_q_chunks", "attn_block_kv", "flash_threshold", "remat",
+        "logits_chunk")})
     assert len(logged) == 1
-    assert "remat" in logged[0] and "one card" in logged[0]
+    assert "embed_rule" in logged[0] and "one card" in logged[0]
+    assert "remat" not in logged[0] and "logits_chunk" not in logged[0]
     assert "flash" not in logged[0] and "attn_block_kv" not in logged[0]
     srv = _server()
     srv.apply_config(space.config(17))
