@@ -136,6 +136,24 @@ Phases, in order; any failure exits non-zero and prints no result:
      at 8, resume at 5, finish at 14, the manifest read back); (e) a train
      step with the flash kernel opted in, and the flash wrapper handed a
      CUDA operand that requires grad, both raise.
+ 15. slice 11, the dry-run tooling (meta-tensor traces, no kernel): (a)
+     phase 14's cell (gemma-2b whole, B 4 x S 1,024, remat "none") and
+     phase 8's decode (B 4, capacity 1,088, plain attention) traced by
+     launch/dryrun.measure and run on the card: arguments equal to the
+     byte (the decode cache too), FLOPs equal to FlopCounterMode over the
+     card's step, the dry peak within 10% of the arguments plus
+     max_memory_allocated above them, the step's time beside the
+     roofline; CARD_MEMORY against the card's total_memory; (b) every
+     arch x shape cell for the card in worker processes (status,
+     arguments, peak against the card's memory, dominant term, step time,
+     useful FLOPs ratio, cuts, trace seconds); every admitted cell ok;
+     (c) BO (ei) through DryRunObjective, 24 evaluations journaled into
+     the phase-3 store, at gemma-2b's prefill_32k (the reference's cell)
+     and prefill_32k_b4 (phase 8's batch, where the knobs decide: valid
+     and invalid configs), resolved back by serve.resolve_pcfg under the
+     card's key, dryrun_objective_for serving the key and refusing
+     "single"; (d) gradient compression on CUDA tensors at world size 1
+     against the CPU's.
 The line before the last holds the kernels' JSON summary (times are the
 phase-9 device times, the phase-6 event times where the profiler saw none;
 the GEMM's and the GP kernel's launches are phases 4 and 11 together; the
@@ -290,6 +308,13 @@ TRAIN_PCFG = {"flash_threshold": 1 << 30, "logits_chunk": 0}
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_SHAPE = 2, (1, 256)
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, REMAT_RTOL = 1e-5, 1e-3, 1e-6
 RESTART_ARCH = "internlm2-1.8b"
+# phase 15, the dry-run: the peak's limit against max_memory_allocated, the
+# processes the sweep traces in, BO's cell and budget (the reference's
+# prefill_32k cell, then the one-card cell at phase 8's batch)
+DRY_PEAK_RTOL, DRY_WORKERS = 0.10, 6
+DRY_BO_ARCH, DRY_BO_SHAPES, DRY_BO_BUDGET = ("gemma-2b",
+                                             ("prefill_32k", "prefill_32k_b4"),
+                                             24)
 # graph replays held against the eager step bit for bit; xLSTM's two mLSTM
 # scans compared at this many blocks
 GRAPH_STEPS, SCAN_BLOCKS = 4, 8
@@ -2111,6 +2136,20 @@ def step_bytes(cfg, B: int, filled: int) -> float:
     return total
 
 
+def decode_step_bound_ms(cfg, B: int, filled: int, card: str) -> float:
+    """The roofline of one decode step (``launch/roofline.Roofline``):
+    ``model_flops_for``'s 2 N FLOPs a token at the model dtype's peak, and
+    ``step_bytes`` at the card's HBM rate; the larger, in ms."""
+    from repro_torch.configs.arch import ShapeConfig
+    from repro_torch.launch.roofline import (Roofline, dtype_peak_flops,
+                                             model_flops_for)
+    shape = ShapeConfig("decode", filled, B, "decode")
+    return 1e3 * Roofline(flops=model_flops_for(cfg, shape),
+                          hbm_bytes=step_bytes(cfg, B, filled),
+                          peak_flops=dtype_peak_flops(cfg.dtype, card)
+                          ).step_time
+
+
 def scan_agreement(cfg, chunk: int, prompt: int, dev, tag: str) -> dict:
     """xLSTM's chunkwise mLSTM scan (``chunk``) against its per-step scan:
     one prefill of each at ``SCAN_BLOCKS`` blocks, batch 4, random weights
@@ -2214,8 +2253,7 @@ def serve_last_family(name: str, layers, prompt: int, steps: int, pkw,
         plain_decode = {k: v - before[k] for k, v in probe.plain.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     med = statistics.median(step_s)
-    bound, _ = bound_ms(0, step_bytes(cfg, SERVE_B, prompt + steps // 2),
-                        card)
+    bound = decode_step_bound_ms(cfg, SERVE_B, prompt + steps // 2, card)
     log(f"{tag}: {n_params:,} parameters (bf16, {2 * n_params / 1e9:.2f} GB)"
         f" initialised in {init_s:.3f} s; {pkw or 'default knobs'}; "
         f"kernels reached {sorted(paths)}, blocks {kc}")
@@ -2523,20 +2561,26 @@ def _train_loop(cfg, pcfg, steps: int, dev):
 
 def train_step_bounds(cfg, card: str):
     """(operations bound ms, optimizer byte bound ms, FLOP, bytes) of one
-    train step at TRAIN_SHAPE: 6 x parameters x tokens (forward and
-    backward of every product, the tied head's included) plus the
-    materialized attention (QK^T and PV, forward and twice backward) at
-    the bf16 peak; AdamW reads a bf16 weight and gradient and two fp32
-    moments and writes the weight and moments, 22 bytes a parameter."""
-    from repro_torch.launch.roofline import bound_ms
+    train step at TRAIN_SHAPE: ``model_flops_for``'s 6 x parameters x
+    tokens (forward and backward of every product, the tied head's
+    included) plus the materialized attention (QK^T and PV, forward and
+    twice backward) at the model dtype's peak (``launch/roofline``); AdamW
+    reads a bf16 weight and gradient and two fp32 moments and writes the
+    weight and moments, 22 bytes a parameter, at the card's HBM rate."""
+    from repro_torch.configs.arch import ShapeConfig
+    from repro_torch.launch.roofline import (Roofline, dtype_peak_flops,
+                                             model_flops_for)
     from repro_torch.models.params import count_params
     B, S = TRAIN_SHAPE
-    n = count_params(cfg)
     attn = 3 * 2 * 2 * B * cfg.num_heads * S * S * cfg.resolved_head_dim
-    flops = 6.0 * n * B * S + attn * cfg.num_layers
-    opt_bytes = 22.0 * n
-    return (bound_ms(flops, 0.0, card, "bfloat16")[0],
-            bound_ms(0.0, opt_bytes, card, "bfloat16")[0], flops, opt_bytes)
+    flops = (model_flops_for(cfg, ShapeConfig("train", S, B, "train"))
+             + attn * cfg.num_layers)
+    opt_bytes = 22.0 * count_params(cfg)
+    peak = dtype_peak_flops(cfg.dtype, card)
+    return (1e3 * Roofline(flops=flops, hbm_bytes=0.0,
+                           peak_flops=peak).step_time,
+            1e3 * Roofline(flops=0.0, hbm_bytes=opt_bytes,
+                           peak_flops=peak).step_time, flops, opt_bytes)
 
 
 def _step_in_parts(loop, run) -> None:
@@ -2744,6 +2788,241 @@ def train_on_card(dev, card: str) -> dict:
     if len(refused) != 2 or kfa.launches != 1:
         fail(f"the refusals: {refused}, launches {kfa.launches}")
     return out
+
+
+# -- phase 15 ------------------------------------------------------------------
+
+
+def _real_step(fn, dev):
+    """(peak bytes allocated during ``fn()`` above what was allocated
+    before it, ms of the call by CUDA events)."""
+    import torch
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    t1.synchronize()
+    return torch.cuda.max_memory_allocated(dev) - base, t0.elapsed_time(t1)
+
+
+def _dry_vs_card(tag, cfg, shape, pcfg, args, step, dev, card, time_reps):
+    """Phase 15(a) for one cell: the meta trace's arguments, FLOPs and
+    peak against the same step run on the card on ``args`` (which hold
+    the cell's real inputs), and its roofline beside the step's time."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import (Roofline, dtype_peak_flops,
+                                             model_flops_for)
+    t0 = time.perf_counter()
+    m = dryrun.measure(cfg, shape, pcfg)
+    trace_s = time.perf_counter() - t0
+    roof = Roofline(flops=float(m["flops"]), hbm_bytes=float(m["bytes"]),
+                    model_flops=model_flops_for(cfg, shape),
+                    peak_flops=dtype_peak_flops(cfg.dtype, card))
+    real_args = dryrun.storage_bytes(args)
+    temp, first_ms = _real_step(lambda: step(*args), dev)
+    with FlopCounterMode(display=False) as fc:
+        step(*args)
+    torch.cuda.synchronize(dev)
+    real_flops = fc.get_total_flops()
+    times = [_real_step(lambda: step(*args), dev)[1]
+             for _ in range(time_reps)]
+    med = statistics.median(times)
+    dry_peak, real_peak = m["args"] + m["temp"], real_args + temp
+    rel = abs(dry_peak - real_peak) / real_peak
+    log(f"[15a] {tag}: arguments dry {m['args']:,} B, card {real_args:,} B; "
+        f"FLOPs dry {m['flops']:,}, card {real_flops:,} (FlopCounterMode on "
+        f"the card's step); peak dry {dry_peak / 2**30:.3f} GiB (arguments + "
+        f"{m['temp'] / 2**30:.3f} GiB temps), card {real_peak / 2**30:.3f} "
+        f"GiB (arguments + max_memory_allocated above them), off by "
+        f"{rel:.2%} (limit {DRY_PEAK_RTOL:.0%}); trace {trace_s:.2f} s, "
+        f"cuts {[c['block'] for c in m['scaled']]}")
+    log(f"[15a] {tag}: step on the card {med:.3f} ms (median of "
+        f"{time_reps}; first {first_ms:.3f} ms) against the roofline "
+        f"{roof.step_time * 1e3:.3f} ms ({roof.dominant}: compute "
+        f"{roof.t_compute * 1e3:.3f} ms, memory {roof.t_memory * 1e3:.3f} ms "
+        f"over {m['bytes'] / 1e9:.1f} GB of eager traffic), useful FLOPs "
+        f"ratio {roof.useful_flops_ratio:.3f}")
+    if m["args"] != real_args:
+        fail(f"{tag}: dry-run arguments {m['args']} B, card {real_args} B")
+    if m["flops"] != real_flops:
+        fail(f"{tag}: dry-run FLOPs {m['flops']}, card {real_flops}")
+    if not rel <= DRY_PEAK_RTOL:
+        fail(f"{tag}: dry-run peak {dry_peak} B, card {real_peak} B")
+    return {"step_ms": med, "roof_ms": roof.step_time * 1e3,
+            "peak": real_peak, "dry_peak": dry_peak}
+
+
+def dryrun_on_card(dev, card: str, sdir: str) -> None:
+    """Phase 15: the dry-run tooling (meta-tensor traces, no kernel) held
+    against the card. (a) phase 14's train cell and phase 8's decode cell
+    traced and run; (b) every arch x shape cell for the card; (c) BO over
+    the sharding cells' objective, journaled into the phase-3 store and
+    resolved back; (d) gradient compression on CUDA tensors."""
+    import torch
+    from repro_torch.configs.arch import SHAPES, ShapeConfig
+    from repro_torch.configs.registry import ARCHS, get_arch
+    from repro_torch.core.runner import run_strategy
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.core.tuning_targets import DryRunObjective
+    from repro_torch.kernels import tuning
+    from repro_torch.launch import dryrun, serve
+    from repro_torch.launch.retune import dryrun_objective_for
+    from repro_torch.launch.roofline import card_memory
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+    from repro_torch.models.stepfn import make_decode_step, make_train_step
+    from repro_torch.optim.optimizers import AdamW, constant_lr
+    from repro_torch.parallel import compression as C
+    from repro_torch.parallel.sharding import ParallelConfig
+    from repro_torch.store.resolve import apply_sharding_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    log(f"[15] {card}: total_memory {total:,} B, launch/roofline.py "
+        f"CARD_MEMORY {card_memory(card):,} B")
+    if total != card_memory(card):
+        fail(f"CARD_MEMORY says {card_memory(card)} B, the card {total} B")
+
+    # (a) the trace against the card: phase 14's cell, then phase 8's
+    t0 = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH)
+    B, S = TRAIN_SHAPE
+    pcfg = ParallelConfig(**TRAIN_PCFG)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = P.init_params(cfg, gen, dev)
+    opt = AdamW(schedule=constant_lr(TRAIN_PEAK_LR),
+                moment_dtype=pcfg.opt_moment_dtype)
+    state = opt.init(params)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                                     generator=gen)}
+    train = _dry_vs_card(
+        f"{cfg.name} train B {B} x S {S} (remat none)", cfg,
+        ShapeConfig("train", S, B, "train"), pcfg,
+        (params, state, batch, 0), make_train_step(cfg, pcfg, opt), dev,
+        card, time_reps=3)
+    state = batch = None
+    cap = SERVE_PROMPT + SERVE_STEPS
+    cache = M.init_cache(cfg, SERVE_B, cap, device=dev)
+    dry_cache = dryrun.storage_bytes(M.abstract_cache(cfg, SERVE_B, cap))
+    real_cache = dryrun.storage_bytes(cache)
+    log(f"[15a] {cfg.name} decode cache B {SERVE_B} x {cap}: dry "
+        f"{dry_cache:,} B, card {real_cache:,} B")
+    if dry_cache != real_cache:
+        fail(f"decode cache: dry {dry_cache} B, card {real_cache} B")
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_B, 1), device=dev,
+                         generator=gen)
+    pos = torch.tensor(SERVE_PROMPT, device=dev)
+    decode = _dry_vs_card(
+        f"{cfg.name} decode B {SERVE_B}, capacity {cap} (plain attention)",
+        cfg, ShapeConfig("decode", cap, SERVE_B, "decode"), ParallelConfig(),
+        (params, cache, {"tokens": toks}, pos),
+        make_decode_step(cfg, ParallelConfig()), dev, card, time_reps=10)
+    params = cache = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[15a] done in {time.perf_counter() - t0:.1f} s")
+
+    # (b) every cell of the reference for the card, in worker processes
+    t0 = time.perf_counter()
+    cells = [(a, s.name) for a in ARCHS for s in SHAPES]
+    recs = dryrun.run_cells(cells, card, workers=DRY_WORKERS)
+    wall = time.perf_counter() - t0
+    for r in recs:
+        head = f"[15b] {r['arch']} x {r['shape']}: {r['status']}"
+        if r["status"] == "skip":
+            log(f"{head} ({r['reason'][:60]})")
+            continue
+        if r["status"] != "ok":
+            fail(f"{r['arch']} x {r['shape']}: {r.get('error')}")
+        mem, rf = r["memory"], r["roofline"]
+        log(f"{head}; arguments {mem['argument_size_in_bytes'] / 1e9:.2f} GB,"
+            f" peak {mem['peak_live_bytes'] / 1e9:.1f} GB against "
+            f"{mem['card_bytes'] / 1e9:.1f} GB ({'fits' if r['fits'] else 'does not fit'}); "
+            f"{rf['dominant']}, step {rf['step_time']:.4g} s, useful FLOPs "
+            f"{rf['useful_flops_ratio']:.3f}; cuts "
+            f"{[(c['block'], c.get('repeats', c.get('steps'))) for c in r['scaled']]}; "
+            f"trace {r['t_trace_s']:.2f} s")
+    ok = [r for r in recs if r["status"] == "ok"]
+    log(f"[15b] {len(ok)} cells ok, {len(recs) - len(ok)} skipped, "
+        f"{sum(r['fits'] for r in ok)} fit the card; traces "
+        f"{sum(r['t_trace_s'] for r in ok):.1f} s in all, {wall:.1f} s of "
+        f"wall in {DRY_WORKERS} processes")
+
+    # (c) BO through the objective, journaled into the phase-3 store
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    kind = tuning.device_kind(dev)
+    for shape in DRY_BO_SHAPES:
+        t0 = time.perf_counter()
+        obj = DryRunObjective(DRY_BO_ARCH, shape, card=card,
+                              cache_dir=cache_dir, verbose=False)
+        res = run_strategy(make_strategy("ei"), obj, budget=DRY_BO_BUDGET,
+                           seed=0, store=sdir)
+        vals = [o.value for o in res.journal]
+        valid = [v for v in vals if math.isfinite(v)]
+        log(f"[15c] {obj.name}: {obj.space.size} configs, "
+            f"{len(vals)} evaluations ({obj.traced} traced, the rest "
+            f"sharing a trace), {len(valid)} valid, "
+            f"{len(vals) - len(valid)} invalid; best "
+            f"{res.best_value:.4g} s at {obj.space.config(res.best_idx) if res.best_idx is not None else None} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        resolved = serve.resolve_pcfg(ParallelConfig(), sdir, DRY_BO_ARCH,
+                                      shape)
+        if valid:
+            want = apply_sharding_config(
+                ParallelConfig(), obj.space.config(res.best_idx),
+                log=lambda *a: None)
+            if resolved != want:
+                fail(f"resolve_pcfg under {kind} gave {resolved}, the best "
+                     f"config is {want}")
+        elif resolved != ParallelConfig():
+            fail(f"{obj.name}: no valid config, yet resolve_pcfg gave "
+                 f"{resolved}")
+        if dryrun_objective_for(obj.name, device=dev,
+                                cache_dir=cache_dir).name != obj.name:
+            fail(f"dryrun_objective_for({obj.name!r})")
+        try:
+            dryrun_objective_for(obj.name.replace(kind, "single"),
+                                 device=dev)
+            fail("dryrun_objective_for serviced a pod mesh's key")
+        except ValueError as e:
+            log(f"[15c] {obj.name.replace(kind, 'single')} refused: {e}")
+        if shape == DRY_BO_SHAPES[-1] and not (valid and len(valid) < len(vals)):
+            fail(f"{obj.name}: want valid and invalid configs, got "
+                 f"{len(valid)} valid of {len(vals)}")
+    shutil_rmtree(cache_dir)
+
+    # (d) gradient compression on CUDA tensors at world size 1
+    g = torch.randn(256, 64, generator=torch.Generator().manual_seed(0))
+    r = torch.randn(256, 64, generator=torch.Generator().manual_seed(1)) * .1
+    one = C.Reduction.local()
+    out = {}
+    for where in ("cpu", dev):
+        out[str(where)] = {m: C.compress_tree_psum(
+            {"w": g.to(where)}, {"w": r.to(where)}, one, m, seed=0,
+            k_frac=0.25) for m in ("none", "topk", "int8")}
+    cpu, gpu = out["cpu"], out[str(dev)]
+    scale = float(g.abs().max())
+    int8_d = float((gpu["int8"][0]["w"].cpu() - cpu["int8"][0]["w"]).abs().max())
+    same = all(torch.equal(gpu[m][i]["w"].cpu(), cpu[m][i]["w"])
+               for m in ("none", "topk") for i in (0, 1))
+    log(f"[15d] compression at world size 1: none and topk (values and "
+        f"residuals) equal to the CPU's: {same}; int8 card vs CPU max "
+        f"|d| {int8_d:.4g} (limit 0.02 x max|g| = {0.02 * scale:.4g})")
+    if not same or not int8_d <= 0.02 * scale:
+        fail("compression on the card differs from the CPU's")
+    return {"train": train, "decode": decode}
+
+
+def shutil_rmtree(path: str) -> None:
+    import shutil
+    shutil.rmtree(path, ignore_errors=True)
 
 
 def main() -> int:
@@ -3073,13 +3352,18 @@ def main() -> int:
     for name, depth, prompt, steps, pkw in LAST_RUNS:
         families.append((name, serve_last_family(name, depth, prompt, steps,
                                                  pkw, sdir, dev, card)))
-    store_tmp.cleanup()
     log(f"[13] done in {time.perf_counter() - t0:.1f} s")
 
     # 14. training on the card, after the last model is freed
     t0 = time.perf_counter()
     train_on_card(dev, card)
     log(f"[14] done in {time.perf_counter() - t0:.1f} s")
+
+    # 15. the dry-run tooling against the card
+    t0 = time.perf_counter()
+    dryrun_on_card(dev, card, sdir)
+    store_tmp.cleanup()
+    log(f"[15] done in {time.perf_counter() - t0:.1f} s")
 
     summary = {"kernels": []}
     for name, src, line in (

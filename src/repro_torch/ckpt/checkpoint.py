@@ -20,9 +20,9 @@ port does not use): a bf16 leaf is stored as its ``uint16`` bits, tagged
 ``"bfloat16"`` in the manifest, and fp8 leaves as ``uint8`` bits likewise,
 so a directory either package writes is read by the other's ``latest`` and
 ``load_manifest``, and its leaves by the other's ``restore``. ``restore``
-returns CPU tensors; the reference's ``restore_sharded`` places each leaf
-with a target sharding, which on one card is restore-then-``.to(device)``
-(``runtime/train.py``), so it is not ported.
+returns CPU tensors; ``restore_sharded`` is the reference's elastic
+restore on one card: restore, then place each leaf on its target device
+(the reference's target sharding).
 """
 from __future__ import annotations
 
@@ -115,6 +115,20 @@ def restore(path: str, like_tree) -> Tuple[Any, Dict]:
                             name)
            for i, (p, name) in enumerate(zip(paths, meta["dtypes"]))}
     return map_tree_paths(like_tree, out), meta["extras"]
+
+
+def restore_sharded(path: str, like_tree, shardings) -> Tuple[Any, Dict]:
+    """Restore, then place each leaf on its target: ``shardings`` is a
+    device for every leaf, or a tree like ``like_tree`` of devices (the
+    reference's target shardings, which may differ from the placement at
+    save time)."""
+    host, extras = restore(path, like_tree)
+    if isinstance(shardings, (dict, list)):
+        where = dict(leaves(shardings))
+        placed = {p: t.to(where[p]) for p, t in leaves(host)}
+    else:
+        placed = {p: t.to(shardings) for p, t in leaves(host)}
+    return map_tree_paths(like_tree, placed), extras
 
 
 class AsyncCheckpointer:

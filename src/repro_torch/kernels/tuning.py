@@ -71,8 +71,14 @@ def device_kind(device=None) -> str:
         dev = torch.device(device)
     if dev.type == "cpu":
         return "cpu"
-    name = torch.cuda.get_device_name(dev)
-    return "cuda-" + re.sub(r"[^A-Za-z0-9_.-]", "_", name)
+    return card_kind(torch.cuda.get_device_name(dev))
+
+
+def card_kind(card_name: str) -> str:
+    """The device kind of a card named as ``torch.cuda.get_device_name``
+    names it (``NVIDIA H100 80GB HBM3`` -> ``cuda-NVIDIA_H100_80GB_HBM3``),
+    with no card present: what :func:`device_kind` gives on that card."""
+    return "cuda-" + re.sub(r"[^A-Za-z0-9_.-]", "_", card_name)
 
 
 def kernel_cell_objective(kernel: str, shape_sig: str,

@@ -11,9 +11,11 @@ it names the card that is present; a ``cpu`` key only under
 ``--device cpu``. The serve kernels' cells (flash, decode) are tuned in
 bf16, the dtype the port serves in; gemm in fp32, the paper's sgemm. On
 the card the BO surrogate runs on the GP kernel (``gp_backend="cuda"``).
-``dryrun[arch×shape×mesh]`` keys raise ``ValueError``: their objective, a
-multi-pod dry-run compile, waits for the distribution tooling (ROADMAP
-Queue 1), and an unserviceable job should page, not rot.
+A ``dryrun[arch×shape×<card>]`` key is serviced by
+``core/tuning_targets.DryRunObjective`` (a meta-tensor trace of the cell,
+``launch/dryrun.py``) when it names this daemon's card; a pod mesh of the
+reference (``single``, ``multi``), the CPU or another card raises
+``ValueError``: an unserviceable job should page, not rot.
 
 The other half of the serve-side control plane (DESIGN.md §13): servers
 running ``repro_torch.launch.serve --online`` enqueue ``kind="job"`` control
@@ -66,17 +68,38 @@ _GP_SIG = re.compile(r"^N(?P<N>\d+)_T(?P<T>\d+)_d(?P<d>\d+)$")
 SERVE_DTYPE = torch.bfloat16
 
 
-def dryrun_objective_for(key: str):
-    """The reference's dry-run compile objective of a sharding cell key is
-    not ported: every ``dryrun[...]`` key raises (a deliberate loud
-    failure: an unserviceable request should page, not rot in the
-    queue)."""
-    if _CELL_RE.match(key) is None:
+def dryrun_objective_for(key: str, device=None, card: Optional[str] = None,
+                         cache_dir: str = "results/tune_cache"):
+    """A sharding cell key back to its dry-run objective on one card:
+    ``dryrun[arch×shape×<card>]`` where ``<card>`` is the device kind of
+    this daemon's card (``card`` by name, else the card of ``device``,
+    None: the card present). Raises for a pod mesh of the reference
+    (``single``, ``multi``: a record tuned for a TPU pod must not configure
+    one card), for another card's key and with no card to plan for."""
+    m = _CELL_RE.match(key)
+    if m is None:
         raise ValueError(f"unrecognized retune cell key {key!r} — expected "
                          "a dryrun[arch×shape×mesh] tuning objective id")
-    raise ValueError(f"cannot service {key!r}: the dry-run compile objective "
-                     "of sharding cells waits for the distribution tooling "
-                     "(ROADMAP Queue 1)")
+    from repro_torch.core.tuning_targets import DryRunObjective
+    from repro_torch.kernels import tuning as KT
+    mesh = m.group("mesh")
+    if mesh in ("single", "multi"):
+        raise ValueError(f"cannot service {key!r}: {mesh!r} is a TPU pod mesh "
+                         "of the reference's distribution tooling; this "
+                         "daemon plans for one card (dryrun[arch×shape×"
+                         "<card>])")
+    if card is None:
+        dev = KT.resolve_device(device)
+        if dev.type != "cuda":
+            raise ValueError(f"cannot service {key!r} on the CPU: a dry-run "
+                             "objective is keyed by the card it plans for")
+        card = torch.cuda.get_device_name(dev)
+    if mesh != KT.card_kind(card):
+        raise ValueError(f"{key!r} is keyed for {mesh!r}; this daemon plans "
+                         f"for {KT.card_kind(card)!r} and tunes only its own "
+                         "card's cells")
+    return DryRunObjective(m.group("arch"), m.group("shape"), card=card,
+                           cache_dir=cache_dir, verbose=False)
 
 
 def kernel_objective_for(key: str, device=None):

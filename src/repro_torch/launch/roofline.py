@@ -1,13 +1,22 @@
-"""Hopper (NVIDIA H100) resource limits and peak rates for the port.
+"""Hopper (NVIDIA H100) resource limits, peak rates and the roofline.
 
 The kernels' resource models (``kernels.ops.*_valid``) check
 configs against the per-block limits below, in place of the reference
 package's TPU VMEM budget, which has no counterpart here. The peak rates
 give a kernel's bound: the least time the card could take for its work.
+
+``Roofline`` and ``model_flops_for`` are ports of the reference's
+(``repro/launch/roofline.py``) for one card: the compute term takes the
+peak of the config's dtype (bf16 on the tensor cores, fp32 on the CUDA
+cores: the port runs with TF32 off), the memory term the card's HBM
+rate, and the collective terms are 0 (one card has no interconnect to
+cross). ``to_dict`` has the reference's keys, so the dry-run's records
+read as the reference's do.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 #: Shared memory one block may use, opt-in above 48 KB as dynamic shared
 #: memory (CUDA C++ Programming Guide, compute capability 9.0 table: 227 KB).
@@ -45,6 +54,22 @@ HBM_BW = 3.35e12
 CARD = "NVIDIA H100 80GB HBM3"
 
 
+#: Device memory of the card, bytes, as
+#: ``torch.cuda.get_device_properties(0).total_memory`` reports it (81,079
+#: MiB, read on an H100 80GB HBM3 with torch 2.11 and CUDA 12.8);
+#: ``chip_smoke.py`` holds it against the card's own report. The dry-run
+#: judges a cell against it when no card is present.
+CARD_MEMORY = {CARD: 85_017_493_504}
+
+
+def card_memory(card_name: str) -> int:
+    """Device memory of the named card; ``ValueError`` for another."""
+    if card_name not in CARD_MEMORY:
+        raise ValueError(f"no memory size recorded for card {card_name!r} "
+                         f"(only {sorted(CARD_MEMORY)})")
+    return CARD_MEMORY[card_name]
+
+
 def peaks_for(card_name: str) -> Tuple[float, float]:
     """(fp32 FLOP/s, bytes/s) of the named card; ``ValueError`` for another
     card, rather than a bound against the wrong one."""
@@ -70,3 +95,101 @@ def bound_ms(flops: float, nbytes: float, card_name: str,
     t_ops, t_bytes = flops / peak_flops, nbytes / bw
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def dtype_peak_flops(dtype: str, card_name: str = CARD) -> float:
+    """Peak FLOP/s of the named card for a model of ``dtype``: bf16 on the
+    tensor cores, fp32 on the CUDA cores (TF32 is off in the port)."""
+    fp32, _ = peaks_for(card_name)
+    if dtype == "bfloat16":
+        return BF16_TC_PEAK_FLOPS
+    if dtype == "float32":
+        return fp32
+    raise ValueError(f"no peak recorded for {dtype!r} operations")
+
+
+@dataclass
+class Roofline:
+    """Roofline terms of one step on ``chips`` cards (1 here):
+    compute = flops / (chips x peak_flops), memory = hbm_bytes / (chips x
+    hbm_bw), collective = 0 (``coll_bytes`` and ``dcn_bytes`` are 0 on one
+    card, and a non-zero value raises rather than be timed against an
+    interconnect the card has none of)."""
+
+    flops: float
+    hbm_bytes: float
+    coll_bytes: float = 0.0
+    dcn_bytes: float = 0.0
+    chips: int = 1
+    model_flops: float = 0.0
+    peak_flops: float = BF16_TC_PEAK_FLOPS
+    hbm_bw: float = HBM_BW
+
+    def __post_init__(self):
+        if self.chips != 1 or self.coll_bytes or self.dcn_bytes:
+            raise ValueError("the port's roofline is for one card: chips 1, "
+                             "no collective bytes")
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops / (self.chips * self.peak_flops)
+
+    @property
+    def t_memory(self) -> float:
+        return self.hbm_bytes / (self.chips * self.hbm_bw)
+
+    @property
+    def t_collective(self) -> float:
+        return 0.0
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time(self) -> float:
+        """The roofline step time: the largest term (perfect overlap)."""
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    @property
+    def useful_flops_ratio(self) -> Optional[float]:
+        if self.model_flops and self.flops:
+            return self.model_flops / self.flops
+        return None
+
+    @property
+    def roofline_fraction(self) -> Optional[float]:
+        """MODEL_FLOPS-based MFU bound at the roofline step time."""
+        if not self.model_flops:
+            return None
+        t = self.step_time
+        if t <= 0:
+            return None
+        return self.model_flops / (t * self.chips * self.peak_flops)
+
+    def to_dict(self) -> Dict:
+        return {
+            "flops": self.flops, "hbm_bytes": self.hbm_bytes,
+            "coll_bytes": self.coll_bytes, "dcn_bytes": self.dcn_bytes,
+            "chips": self.chips, "model_flops": self.model_flops,
+            "t_compute": self.t_compute, "t_memory": self.t_memory,
+            "t_collective": self.t_collective, "dominant": self.dominant,
+            "step_time": self.step_time,
+            "useful_flops_ratio": self.useful_flops_ratio,
+            "roofline_fraction": self.roofline_fraction,
+        }
+
+
+def model_flops_for(cfg, shape) -> float:
+    """6·N·D (dense) / 6·N_active·D (MoE) for train; 2·N·D for inference."""
+    n = cfg.active_param_count() if cfg.moe is not None else cfg.param_count()
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        return 6.0 * n * tokens
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        return 2.0 * n * tokens
+    tokens = shape.global_batch  # one token per sequence
+    return 2.0 * n * tokens

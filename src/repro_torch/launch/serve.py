@@ -145,8 +145,14 @@ def step_batch(cfg, params, toks: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def resolve_pcfg(pcfg: ParallelConfig, store: str, arch: str, shape: str,
-                 mesh: str = "single") -> ParallelConfig:
-    """Best stored tuning config for this serving cell, else defaults."""
+                 mesh: Optional[str] = None) -> ParallelConfig:
+    """Best stored tuning config for this serving cell, else defaults.
+    ``mesh`` None keys the cell by this process's device kind
+    (``dryrun[arch×shape×cuda-<card>]``, what ``DryRunObjective`` journals
+    on the card): a record tuned for the reference's pod mesh
+    (``single``) configures one card only when the caller names it."""
+    if mesh is None:
+        mesh = tuning.device_kind()
     hit = best_sharding_config(store, arch, shape, mesh=mesh)
     if hit is None:
         print(f"[serve] no tuning record for ({arch}, {shape}, {mesh}) in "
@@ -635,18 +641,19 @@ def main(argv=None) -> Dict[str, object]:
         # one code path for startup resolution AND hot reload: the first
         # refresh replays the store; later refreshes see only new records
         source = HotConfigSource(args.store, args.arch, args.tuned_shape,
+                                 mesh=tuning.device_kind(device),
                                  swap_margin=args.swap_margin)
         hit = source.refresh()
         if hit is None:
-            print(f"[serve] no tuning record for ({args.arch}, "
-                  f"{args.tuned_shape}, single) in {args.store} — using "
-                  "built-in defaults")
+            print(f"[serve] no tuning record for {source.objective_id} in "
+                  f"{args.store} — using built-in defaults")
         else:
             print(f"[serve] tuned config from store ({hit[1]:.3f}s "
                   f"roofline): {hit[0]}")
             pcfg = apply_sharding_config(pcfg, hit[0])
     elif args.store:
-        pcfg = resolve_pcfg(pcfg, args.store, args.arch, args.tuned_shape)
+        pcfg = resolve_pcfg(pcfg, args.store, args.arch, args.tuned_shape,
+                            mesh=tuning.device_kind(device))
     if device.type == "cuda" or args.kernels:
         pcfg = pcfg.replace(kernel=serving_kernel_config(
             cfg, device=device, prompt_len=args.prompt_len,

@@ -20,6 +20,12 @@ of the step replays into the same buffers. Train mode (no cache) writes
 nothing in place, so autograd differentiates every block; the flash gate
 refuses a gradient (the kernel, as the reference's Pallas kernel, has no
 backward).
+
+For the dry-run (``launch/dryrun.py``), which traces the steps on meta
+tensors, the per-step scans (the sLSTM, the mLSTM without chunks) run at
+most ``trace_scan_steps`` steps on meta tensors (:func:`_scan_len`); the
+dry-run scales what those steps cost to the whole sequence. The kernel
+gates raise on meta tensors: the kernels take CPU or CUDA tensors.
 """
 from __future__ import annotations
 
@@ -33,6 +39,60 @@ from repro_torch.configs.arch import ArchConfig
 from repro_torch.parallel.sharding import ParallelConfig
 
 Cache = Optional[Dict[str, torch.Tensor]]
+
+#: Steps a per-step scan runs on meta tensors, or None for all of them;
+#: set by the dry-run around a trace, and read by no other path.
+trace_scan_steps: Optional[int] = None
+#: (block, sequence length, steps run) of each scan cut since the dry-run
+#: last cleared it
+scans_cut: list = []
+
+
+def _scan_len(x: torch.Tensor, S: int, block: str) -> int:
+    """Steps a per-step scan over ``S`` positions runs: all of them, but on
+    meta tensors while the dry-run bounds them (``trace_scan_steps``).
+    The steps not run produce no values (a meta tensor holds none):
+    :func:`_stack_steps` fills their place."""
+    if trace_scan_steps is None or S <= trace_scan_steps:
+        return S
+    if x.device.type != "meta":
+        raise RuntimeError("trace_scan_steps bounds scans on meta tensors "
+                           "only")
+    scans_cut.append((block, S, trace_scan_steps))
+    return trace_scan_steps
+
+
+class _FillSteps(torch.autograd.Function):
+    """The output of a scan the dry-run cut, at its whole length: a new
+    (B, S, ...) tensor in place of the stack of all S steps' outputs (on
+    meta tensors no value is read), whose gradient is the first T steps'.
+    The stack of the T steps run plus this moves the bytes the whole
+    stack would move a step, so the dry-run carries them to S exactly."""
+
+    @staticmethod
+    def forward(ctx, y, S):
+        ctx.T = y.shape[1]
+        return y.new_empty((y.shape[0], S) + tuple(y.shape[2:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, :ctx.T], None
+
+
+def _stack_steps(hs, S: int) -> torch.Tensor:
+    """The steps' outputs stacked along dim 1, S of them; a scan the
+    dry-run cut (fewer than S outputs, on meta tensors) is filled to S
+    by :class:`_FillSteps`, so every shape downstream is whole."""
+    y = torch.stack(hs, dim=1)
+    return y if len(hs) == S else _FillSteps.apply(y, S)
+
+
+def _refuse_meta(device) -> None:
+    if torch.device(device).type == "meta":
+        raise ValueError("a KernelConfig opts into a kernel, and the kernels "
+                         "take CPU or CUDA tensors, not meta tensors: the "
+                         "dry-run traces with kernel=None, as the "
+                         "reference's does")
 
 # ---------------------------------------------------------------------------
 # basics
@@ -188,6 +248,7 @@ def _flash_kernel_ok(S: int, hd: int, hd_v: int, window, kc,
     do not tile: see ``_refuse_on_card``."""
     if kc is None or not kc.use_flash or window is not None or hd != hd_v:
         return False
+    _refuse_meta(device)
     if grad:
         raise ValueError("the flash kernel has no backward (nor has the "
                          "reference's Pallas kernel): train with "
@@ -217,6 +278,7 @@ def _decode_kernel_ok(hd: int, hd_v: int, kc, device) -> bool:
     ``_refuse_on_card``."""
     if kc is None or not kc.use_decode:
         return False
+    _refuse_meta(device)
     if hd != hd_v:
         return _refuse_on_card(device, f"decode kernel takes equal k and v "
                                        f"head dims, not {hd} and {hd_v}")
@@ -708,7 +770,8 @@ def _mlstm_steps(q, k, v, ig, fg, c, n, m):
     """The per-step stabilized mLSTM recurrence (the reference's
     ``lax.scan``), one token at a time. Returns (h (B,S,nh,dv), state)."""
     hs = []
-    for t in range(q.shape[1]):
+    S = q.shape[1]
+    for t in range(_scan_len(q, S, "mlstm")):
         q_t, k_t, v_t = q[:, t].float(), k[:, t].float(), v[:, t].float()
         ig_t = ig[:, t]
         logf = F.logsigmoid(fg[:, t])                             # (B,nh)
@@ -723,7 +786,7 @@ def _mlstm_steps(q, k, v, ig, fg, c, n, m):
         den = torch.maximum(den, torch.exp(-m_new))
         hs.append(num / den[..., None])
         m = m_new
-    return torch.stack(hs, dim=1), (c, n, m)
+    return _stack_steps(hs, S), (c, n, m)
 
 
 def mlstm_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
@@ -784,7 +847,7 @@ def slstm_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
         c, n, h, m = z, z + 1e-6, z, z
     r = p["r"].float()
     hs = []
-    for t in range(S):
+    for t in range(_scan_len(x, S, "slstm")):
         rec = torch.einsum("bhk,ghkl->bghl", h, r)
         pre = xg[:, t] + rec + p["b"]
         i_raw, f_raw, z_raw, o_raw = pre.unbind(dim=1)
@@ -796,6 +859,6 @@ def slstm_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
         h = torch.sigmoid(o_raw) * (c / torch.clamp(n, min=1e-6))
         m = m_new
         hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, d)
+    y = _stack_steps(hs, S).reshape(B, S, d)
     y = rms_norm(y, p["group_norm"]["scale"], cfg.norm_eps).to(x.dtype)
     return y, _new_state(cache, mode, c=c, n=n, h=h, m=m)

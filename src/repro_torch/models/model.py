@@ -9,7 +9,9 @@ each segment's stacked parameters with ``lax.scan``; eager PyTorch has no
 compile time to save, so the port loops over ``params["layers"]`` in
 Python, and its cache is one dict a layer in the same order. Train mode
 (no cache) runs each layer under the reference's ``remat`` policy
-(``_remat_wrap`` on ``torch.utils.checkpoint``).
+(``_remat_wrap`` on ``torch.utils.checkpoint``). ``cache_specs`` and
+``abstract_cache`` are the dry-run's views of the cache: its shapes and
+dtypes, and the cache as tensors on the ``meta`` device (no storage).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.params import DTYPES, check_supported, layer_kinds
+from repro_torch.models.params import DTYPES, layer_kinds
 from repro_torch.parallel.sharding import ParallelConfig
 
 Tree = Dict[str, Any]
@@ -104,9 +106,26 @@ def _cache_layer(cfg: ArchConfig, kind: str, batch: int, cap: int,
 def init_cache(cfg: ArchConfig, batch: int, cap: int, device=None
                ) -> List[Tree]:
     """One cache dict a layer, in layer order (:func:`_cache_layer`)."""
-    check_supported(cfg)
     return [_cache_layer(cfg, kind, batch, cap, device)
             for kind in layer_kinds(cfg)]
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, cap: int,
+                   shardings: Optional[Tree] = None) -> List[Tree]:
+    """The cache as meta tensors (the reference's ``ShapeDtypeStruct``
+    tree): :func:`init_cache`'s shapes and dtypes, no storage.
+    ``shardings`` must be None: one card has no mesh."""
+    if shardings is not None:
+        raise ValueError("abstract_cache: one card has no mesh; shardings "
+                         "must be None")
+    return init_cache(cfg, batch, cap, device="meta")
+
+
+def cache_specs(cfg: ArchConfig, batch: int, cap: int) -> List[Tree]:
+    """Each layer's cache as (shape, dtype name) pairs, in layer order."""
+    return [{k: (tuple(t.shape), str(t.dtype).split(".")[-1])
+             for k, t in layer.items()}
+            for layer in abstract_cache(cfg, batch, cap)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -304,7 +323,6 @@ class Decoder(nn.Module):
     def __init__(self, cfg: ArchConfig, params: Tree,
                  pcfg: Optional[ParallelConfig] = None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.params = params
         self.pcfg = pcfg or ParallelConfig()

@@ -3,9 +3,12 @@
 Port of ``repro/models/params.py``: ``ParamSpec``, the specs of every
 layer kind (GQA attention and its cross-attention, MLA, the MLP and the
 mixture of experts, RG-LRU, mLSTM and sLSTM), ``layer_specs``,
-``model_specs``, ``count_params`` and ``init_params``. The sharding and
-``ShapeDtypeStruct`` views of the spec tree have no use on one card and
-are cut.
+``model_specs``, ``count_params``, ``init_params`` and the dry-run's
+views of the spec tree, ``is_spec``, ``spec_leaves`` and
+``abstract_params``: a ``jax.ShapeDtypeStruct`` becomes a tensor on the
+``meta`` device (a shape and a dtype, no storage). The reference's
+shardings attached to those structs have no counterpart on one card, and
+``abstract_params`` takes none.
 
 The port's tree differs from the reference's in one way: layers are a
 Python list of per-layer dicts (``params["layers"][i]``), where the
@@ -164,16 +167,6 @@ def _moe_specs(cfg: ArchConfig) -> Tree:
     return t
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the one part of a config the port does not run: the
-    DeepSeek multi-token-prediction head (``mtp``, which no config of the
-    registry sets)."""
-    if cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: the multi-token-prediction head (mtp=True) is not "
-            "ported")
-
-
 def layer_specs(cfg: ArchConfig, kind: str = "attn") -> Tree:
     """Specs for one layer of a kind: ``attn`` (attention, GQA or MLA, with
     cross-attention where the config has it, then the MoE where the config
@@ -216,8 +209,10 @@ def layer_kinds(cfg: ArchConfig) -> List[str]:
 def model_specs(cfg: ArchConfig) -> Tree:
     """Full spec tree: the embed table (none for the ``embeddings``
     frontend), one tree per layer, final norm, and a head where the config
-    is untied or has no table to tie it to."""
-    check_supported(cfg)
+    is untied or has no table to tie it to. ``cfg.mtp`` changes nothing:
+    the reference has no multi-token-prediction head and reads the flag
+    nowhere, so a config with ``mtp=True`` builds and runs as with
+    False."""
     t: Tree = {"layers": [layer_specs(cfg, kind)
                           for kind in layer_kinds(cfg)],
                "final_norm": _norm(cfg.d_model)}
@@ -263,6 +258,28 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
                 n = int(n * cfg.moe.top_k / cfg.moe.num_experts)
         total += n
     return total
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def spec_leaves(tree: Tree) -> List[ParamSpec]:
+    """The specs of a spec tree in :func:`leaves` order."""
+    return [s for _, s in leaves(tree)]
+
+
+def abstract_params(cfg: ArchConfig, shardings: Optional[Tree] = None
+                    ) -> Tree:
+    """The parameter tree as meta tensors: each leaf's shape and dtype,
+    no storage (the reference's ``ShapeDtypeStruct`` tree). ``shardings``
+    must be None: one card has no mesh to shard over."""
+    if shardings is not None:
+        raise ValueError("abstract_params: one card has no mesh; shardings "
+                         "must be None")
+    return map_tree(lambda spec: torch.empty(
+        spec.shape, dtype=DTYPES[spec.dtype or cfg.dtype], device="meta"),
+        model_specs(cfg))
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -323,7 +340,6 @@ def params_from_jax(tree: Tree, cfg: ArchConfig, device="cpu") -> Tree:
     as the port's per-layer tree, values and dtypes unchanged: segment by
     segment, repeat by repeat, the cycle's kinds in order (the order of
     :func:`layer_kinds`)."""
-    check_supported(cfg)
     layers: List[Tree] = []
     for si, (n_rep, cycle) in enumerate(cfg.pattern_layers()):
         seg = tree["segments"][si]

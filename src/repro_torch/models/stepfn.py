@@ -40,10 +40,16 @@ def _inputs(cfg: ArchConfig, batch: Tree):
 
 
 def _chunk_loss(xc: torch.Tensor, head_w: torch.Tensor, lc: torch.Tensor):
-    """(summed token loss, valid tokens) of one chunk, fp32: logits in fp32
-    (a bf16 model's product is rounded to bf16 first, as ``output_head``'s
-    is), log-sum-exp less the label's logit, labels -1 masked."""
-    logits = (xc @ head_w.to(xc.dtype)).float()
+    """(summed token loss, valid tokens) of one chunk, fp32: the logits are
+    the head product with an fp32 result, as the reference's
+    ``preferred_element_type=float32`` gives it (a bf16 model's logits are
+    not rounded to bf16 before the loss), then log-sum-exp less the label's
+    logit, labels -1 masked. The product takes fp32 operands: a bf16 value
+    is exact in fp32, and ``torch.mm(..., out_dtype=torch.float32)``, the
+    bf16-operand form, has no backward (its autograd formula is missing)
+    and no CPU kernel. On a bf16 model this casts the head to fp32 once a
+    chunk."""
+    logits = xc.float() @ head_w.float()
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1,
                       torch.clamp(lc, min=0).long()[..., None])[..., 0]

@@ -15,8 +15,13 @@ elsewhere) and is not used.
 given (the reference donates them to its jitted step) and returns them, so
 one card holds one copy of the weights and the moments. Scalars (``count``,
 ``lr``, the global norm) stay tensors on the parameters' device: a step
-reads nothing back to the host. ``abstract_state`` is cut: it builds the
-reference's dry-run shapes, and the port has no dry-run.
+reads nothing back to the host. ``abstract_state`` is the state
+``init`` builds for a tree of meta tensors (the dry-run's shapes, no
+storage). It follows the port's per-layer tree: where the reference
+stacks a segment's layers on a leading axis, Adafactor factors the
+stacked leaf, so a stacked vector (a norm's scale, a bias) is a matrix
+there, with a row and a column state, and a vector with one full state
+here (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -59,6 +64,10 @@ def clip_by_global_norm(grads, max_norm: float):
     return map_tree(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
 
+def _meta(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
 def _count(like: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=like.device)
 
@@ -78,6 +87,10 @@ class AdamW:
         zeros = lambda p: torch.zeros(p.shape, dtype=md, device=p.device)
         return {"mu": map_tree(zeros, params), "nu": map_tree(zeros, params),
                 "count": _count(_flat(params)[0])}
+
+    def abstract_state(self, param_structs):
+        """The state of a tree of meta tensors, as meta tensors."""
+        return self.init(map_tree(_meta, param_structs))
 
     @torch.no_grad()
     def update(self, grads, state, params):
@@ -126,6 +139,10 @@ class Adafactor:
                         "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
             return {"v": torch.zeros(p.shape, **f32)}
         return {"v": map_tree(one, params), "count": _count(_flat(params)[0])}
+
+    def abstract_state(self, param_structs):
+        """The state of a tree of meta tensors, as meta tensors."""
+        return self.init(map_tree(_meta, param_structs))
 
     @torch.no_grad()
     def update(self, grads, state, params):

@@ -8,19 +8,17 @@ host writing to the same store) has already explored.
 
 Port of ``repro/store/resolve.py``. The sharding cell's space and
 fingerprint are the reference's (``core/tuning_targets.sharding_space``),
-so records resolve across the two packages. One card has no mesh, so
-``apply_sharding_config`` overlays the fields the port's ``ParallelConfig``
-owns (the MoE ``capacity_factor``, the blockwise attention's
-``attn_block_kv``, ``attn_q_chunks`` and ``flash_threshold``, which
-``flash`` sets, ``mlstm_chunk``, and the training fields ``remat``,
-``microbatches``, ``logits_chunk`` and ``opt_moment_dtype``, which serving
-carries and never reads, as the reference's does) and logs the rest (the
-mesh rules, ``moe_combine``, gradient compression) as not applicable on one
-card. ``apply_kernel_config`` is the reference's.
+so records resolve across the two packages. ``apply_sharding_config``
+overlays every field the reference's does (the port's ``ParallelConfig``
+has them all), ``flash`` as ``flash_threshold``. The mesh rules
+(``embed_rule``, ``experts_rule``) are not ``ParallelConfig`` fields: the
+reference applies them nowhere here either (its dry-run takes them as
+``--rules`` overrides of ``param_rules``); they are logged, since one card
+has no mesh for them to shard over. ``apply_kernel_config`` is the
+reference's.
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 from typing import Any, Dict, Optional, Tuple
 
@@ -72,19 +70,18 @@ def best_sharding_config(store, arch: str, shape: str, mesh: str = "single",
 def apply_sharding_config(pcfg, cfg: Dict[str, Any], log=print):
     """Overlay a stored tuning config onto a ParallelConfig (dataclass
     ``replace``): only the knobs ParallelConfig owns, ``flash`` as the
-    reference maps it to ``flash_threshold``; mesh rules (experts/embed)
-    are applied by the launch layer, not here. Each field the port's
-    ParallelConfig lacks is logged as not applicable on one card."""
-    owned = {f.name for f in dataclasses.fields(pcfg)}
-    kw = {k: cfg[k] for k in _PCFG_FIELDS if k in cfg and k in owned}
-    if "flash" in cfg and "flash_threshold" in owned:
+    reference maps it to ``flash_threshold``; the mesh rules
+    (experts/embed) are the launch layer's, as in the reference, and are
+    logged as not applicable on one card."""
+    kw = {k: cfg[k] for k in _PCFG_FIELDS if k in cfg}
+    if "flash" in cfg:
         # flash=1: blockwise attention always on; flash=0: never
         kw["flash_threshold"] = 0 if cfg["flash"] else 1 << 30
-    applied = set(kw) | ({"flash"} if "flash_threshold" in kw else set())
+    applied = set(kw) | ({"flash"} if "flash" in cfg else set())
     skipped = sorted(k for k in cfg if k not in applied)
     if skipped:
         log(f"[serve] sharding fields {skipped} do not apply on one card "
-            "(mesh and pod-axis knobs)")
+            "(mesh rules: one card has no mesh)")
     return pcfg.replace(**kw)
 
 

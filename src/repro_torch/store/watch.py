@@ -265,12 +265,17 @@ class HotConfigSource:
     """
 
     def __init__(self, path: str, arch: str, shape: str,
-                 mesh: str = "single", *, wide: bool = False,
+                 mesh: Optional[str] = None, *, wide: bool = False,
                  swap_margin: float = 0.0, space=None,
                  objective_id: Optional[str] = None):
         if space is None:
             from repro_torch.core.tuning_targets import sharding_space
             space = sharding_space(arch, shape, wide=wide)
+        if mesh is None and objective_id is None:
+            # the card's own cells: a pod-era ``single`` record configures
+            # one card only when the caller names that mesh
+            from repro_torch.kernels.tuning import device_kind
+            mesh = device_kind()
         self.objective_id = objective_id or cell_objective(arch, shape, mesh)
         self.fp = SpaceFingerprint.of(space, objective=self.objective_id)
         # controls are collected too: job-claim records carry the fencing

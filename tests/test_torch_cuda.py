@@ -813,3 +813,81 @@ def test_a_train_step_on_the_card_matches_the_cpu(card):
     with pytest.raises(ValueError, match="no backward"):
         make_train_step(cfg, pcfg.replace(kernel=KernelConfig(
             use_flash=True)), AdamW(schedule=warmup_cosine(3e-3, 1, 3)))
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_the_dry_run_matches_a_step_on_the_card(card, kind):
+    """gemma-2b's smoke layers widened (5 layers, d_model 512, hd 128, a
+    vocab of 8,192) traced on meta tensors (depth cut: traced at 1 and 2
+    layers) against the same step on the card: the arguments' bytes
+    equal, the FLOPs equal to FlopCounterMode over the card's step, the
+    dry peak within 10% of the arguments plus max_memory_allocated above
+    them (at these widths the allocator's 512-byte rounding of small
+    tensors is far below 10% of the peak; at the smoke widths it is
+    not)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.arch import ShapeConfig
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.models.stepfn import (make_decode_step,
+                                           make_prefill_step, make_train_step)
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+    from repro_torch.optim.optimizers import AdamW, constant_lr
+    from repro_torch.parallel.sharding import ParallelConfig
+    cfg = smoke_config("gemma-2b").replace(
+        num_layers=5, d_model=512, d_ff=2048, head_dim=128, vocab_size=8192)
+    shape = ShapeConfig("s", 256, 4, kind)
+    pcfg = ParallelConfig(logits_chunk=0)
+    dry = dryrun.measure(cfg, shape, pcfg)
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = P.init_params(cfg, gen, card)
+    toks = torch.randint(0, cfg.vocab_size, (4, 1 if kind == "decode"
+                                             else 256), device=card,
+                         generator=gen)
+    if kind == "train":
+        opt = AdamW(schedule=constant_lr(1e-4))
+        args = (params, opt.init(params), {"tokens": toks}, 0)
+        step = make_train_step(cfg, pcfg, opt)
+    elif kind == "prefill":
+        args = (params, {"tokens": toks})
+        step = make_prefill_step(cfg, pcfg, 256)
+    else:
+        args = (params, M.init_cache(cfg, 4, 256, device=card),
+                {"tokens": toks}, torch.tensor(10, device=card))
+        step = make_decode_step(cfg, pcfg)
+    assert dryrun.storage_bytes(args) == dry["args"] == dryrun.storage_bytes(
+        input_specs(cfg, shape, None, pcfg, optimizer=AdamW(
+            schedule=constant_lr(1e-4)) if kind == "train" else None))
+    torch.cuda.synchronize(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    base = torch.cuda.memory_allocated(card)
+    step(*args)
+    torch.cuda.synchronize(card)
+    real = dry["args"] + torch.cuda.max_memory_allocated(card) - base
+    with FlopCounterMode(display=False) as fc:
+        step(*args)
+    assert fc.get_total_flops() == dry["flops"]
+    dry_peak = dry["args"] + dry["temp"]
+    assert abs(dry_peak - real) <= 0.1 * real, (dry_peak, real)
+
+
+def test_compression_on_the_card_matches_the_cpu(card):
+    """At world size 1: the plain mean and top-k (values and residuals)
+    equal to the CPU's; int8 within 0.02 of the largest entry (the card's
+    generator draws another dither)."""
+    from repro_torch.parallel import compression as C
+    g = torch.randn(128, 32, generator=torch.Generator().manual_seed(0))
+    r = torch.randn(128, 32, generator=torch.Generator().manual_seed(1))
+    out = {}
+    for where in ("cpu", card):
+        out[str(where)] = {m: C.compress_tree_psum(
+            {"w": g.to(where)}, {"w": r.to(where)}, C.Reduction.local(), m,
+            seed=0, k_frac=0.25) for m in ("none", "topk", "int8")}
+    cpu, gpu = out["cpu"], out[str(card)]
+    for m in ("none", "topk"):
+        for i in (0, 1):
+            assert torch.equal(gpu[m][i]["w"].cpu(), cpu[m][i]["w"])
+    d = (gpu["int8"][0]["w"].cpu() - cpu["int8"][0]["w"]).abs().max()
+    assert float(d) <= 0.02 * float(g.abs().max())

@@ -249,8 +249,18 @@ def test_wide_moe_sharding_space_builds_with_reference_digest(arch, shape):
 
 
 def test_hard_sharding_space_stays_cut():
-    with pytest.raises(ValueError, match="VMEM residency"):
-        sharding_space("deepseek-v3-671b", "train_4k", hard=True)
+    """The hard grid is ported (it was cut before the dry-run tooling):
+    deepseek-v3's train_4k cell builds under the reference's name and
+    fingerprint."""
+    from repro.core.tuning_targets import sharding_space as jax_sharding_space
+    from repro.store.records import SpaceFingerprint as JaxSpaceFingerprint
+    from repro_torch.store.records import SpaceFingerprint
+    mine = sharding_space("deepseek-v3-671b", "train_4k", hard=True)
+    theirs = jax_sharding_space("deepseek-v3-671b", "train_4k", hard=True)
+    assert mine.name == theirs.name == "sharding_hard[deepseek-v3-671b×train_4k]"
+    oid = "dryrun[deepseek-v3-671b×train_4k×single]"
+    assert SpaceFingerprint.of(mine, objective=oid).digest == \
+        JaxSpaceFingerprint.of(theirs, objective=oid).digest
 
 
 # -- pool BO end to end -------------------------------------------------------

@@ -154,7 +154,8 @@ def test_hot_config_sources_agree(tmp_path, cell, margin):
                          j_sharding_space(ARCH, SHAPE))
         alt, jalt = (sharding_space(ARCH, SHAPE, wide=True),
                      j_sharding_space(ARCH, SHAPE, wide=True))
-        srcs = (P.HotConfigSource(path, ARCH, SHAPE, swap_margin=margin),
+        srcs = (P.HotConfigSource(path, ARCH, SHAPE, mesh="single",
+                                  swap_margin=margin),
                 J.HotConfigSource(path, ARCH, SHAPE, swap_margin=margin))
         objective = P.cell_objective(ARCH, SHAPE)
         assert objective == J.cell_objective(ARCH, SHAPE)
@@ -414,7 +415,7 @@ def _world(pkg, path, space, kspace, times, ksurf, sspace):
     clock = _Clock()
     store = pkg.TuningRecordStore(path, load=False)
     server = _StubServer(sspace, times, clock)
-    source = pkg.HotConfigSource(path, ARCH, SHAPE)
+    source = pkg.HotConfigSource(path, ARCH, SHAPE, mesh="single")
     ksource = pkg.HotConfigSource(path, "", "", space=kspace,
                                   objective_id=KERNEL_ID)
     recorder = pkg.ProdRecorder(store, ARCH, SHAPE, run_id="serve",

@@ -60,8 +60,31 @@ def test_the_new_configs_count_as_their_names_say():
     ds = get_arch("deepseek-v3-671b")
     assert P.count_params(ds.replace(num_layers=5)) == 26_618_387_968
     assert 6.5e11 < P.count_params(ds) < 7e11
-    with pytest.raises(NotImplementedError, match="mtp"):
-        P.model_specs(ds.replace(mtp=True))
+    # the reference has no multi-token-prediction head: mtp=True builds the
+    # same tree, as the reference's does
+    assert P.model_specs(ds.replace(mtp=True)) == P.model_specs(ds)
+    assert P.count_params(ds.replace(mtp=True)) == P.count_params(ds)
+
+
+def test_an_mtp_config_runs_and_gives_its_twins_logits():
+    """deepseek-v3's smoke config with mtp=True builds its weights and
+    cache and serves a prefill and a decode step, with the logits of its
+    mtp=False twin bit for bit (the reference reads the flag nowhere)."""
+    from repro_torch.models.stepfn import make_decode_step, make_prefill_step
+    base = smoke_config("deepseek-v3-671b")
+    assert not base.mtp
+    outs = []
+    for cfg in (base, base.replace(mtp=True)):
+        params = P.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        toks = torch.randint(0, cfg.vocab_size, (2, 8),
+                             generator=torch.Generator().manual_seed(1))
+        logits, cache = make_prefill_step(cfg, ParallelConfig(), 12)(
+            params, {"tokens": toks})
+        step, _ = make_decode_step(cfg, ParallelConfig())(
+            params, cache, {"tokens": toks[:, -1:]}, 8)
+        outs.append((logits, step))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b) and bool(torch.isfinite(a).all())
 
 
 @pytest.mark.parametrize("name", NEW)

@@ -17,13 +17,14 @@ import pytest
 import torch
 
 from repro.configs.registry import get_arch as jax_get_arch
+from repro.configs.registry import smoke_config as jax_smoke_config
 from repro.models.stepfn import make_train_step as jax_make_train_step
 from repro.optim.optimizers import AdamW as JaxAdamW
 from repro.optim.optimizers import warmup_cosine as jax_warmup_cosine
 from repro.parallel.sharding import ParallelConfig as JaxParallelConfig
 from repro.parallel.sharding import ShardCtx
 
-from repro_torch.configs.registry import get_arch
+from repro_torch.configs.registry import get_arch, smoke_config
 from repro_torch.models import params as P
 from repro_torch.models.stepfn import make_train_step
 from repro_torch.optim.optimizers import AdamW, warmup_cosine
@@ -138,3 +139,75 @@ def test_microbatches_2_match_the_reference_train_step():
         {p: t.numpy() for p, t in before.items()}, dict(P.leaves(params)),
         dict(P.leaves(P.params_from_jax(jax.tree.map(np.asarray, new_tree),
                                         cfg))))
+
+
+def _bf16_model_case():
+    """gemma-2b's smoke layers in bf16 at d_model 256 and a vocab of 4,096,
+    B 2 x S 64: (loss, {path: grad}) of both packages."""
+    kw = dict(d_model=256, vocab_size=4096, dtype="bfloat16")
+    ref_cfg = jax_smoke_config("gemma-2b").replace(**kw)
+    cfg = smoke_config("gemma-2b").replace(**kw)
+    tree = ref_tree(ref_cfg)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 64)).astype(
+        np.int32)}
+    want_loss, _, want_g = jax_loss_and_grads(ref_cfg, tree, batch, {})
+    loss, _, grads = torch_loss_and_grads(
+        cfg, P.params_from_jax(tree, cfg), batch, {})
+    return (loss, grads), (want_loss,
+                           dict(P.leaves(P.params_from_jax(want_g, cfg))))
+
+
+def _bf16_xent_case():
+    """The unchunked cross-entropy alone on random bf16 hidden states
+    (B 2 x S 64 x d 256) and a random bf16 head (d 256 x V 4,096), both
+    unit normal, so that the logits are large (a loss near 118) and bf16
+    rounding of them shows: (loss, {name: grad}) of both packages."""
+    from repro.models.stepfn import chunked_xent as jax_chunked_xent
+    from repro_torch.models.stepfn import chunked_xent
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 64, 256)).astype(np.float32)
+    w = rng.normal(size=(256, 4096)).astype(np.float32)
+    labels = rng.integers(0, 4096, (2, 64)).astype(np.int32)
+    labels[1, -5:] = -1
+    px = ShardCtx(None, JaxParallelConfig(logits_chunk=0))
+
+    def jloss(xx, ww):
+        tot, cnt = jax_chunked_xent(xx, ww, jnp.asarray(labels), px)
+        return tot / cnt
+
+    jl, (jgx, jgw) = jax.value_and_grad(jloss, argnums=(0, 1))(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16))
+    tx, tw = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True)
+              for a in (x, w))
+    tot, cnt = chunked_xent(tx, tw, torch.from_numpy(labels).long(),
+                            ParallelConfig(logits_chunk=0))
+    loss = tot / cnt
+    gx, gw = torch.autograd.grad(loss, [tx, tw])
+    want = {n: P._to_torch(np.asarray(g), "cpu")
+            for n, g in (("x", jgx), ("head", jgw))}
+    return (float(loss), {"x": gx, "head": gw}), (float(jl), want)
+
+
+@pytest.mark.parametrize("case", [_bf16_model_case, _bf16_xent_case],
+                         ids=["model", "xent"])
+def test_bf16_loss_and_grads_match_jax(case):
+    """bf16 operands, B 2 x S 64, d 256, V 4,096, the unchunked loss: the
+    loss within 1e-5 relative of ``jax.value_and_grad``'s, which holds
+    only if the head product's result stays fp32, as the reference's
+    ``preferred_element_type`` keeps it (rounding the logits to bf16
+    first moves the xent case's loss by 1.7e-4 relative). Each gradient,
+    in its parameter's dtype, within 2e-2 of its largest entry, the limit
+    the served bf16 logits are held to: the two packages round bf16
+    intermediates at different points (XLA's CPU fusions keep some in
+    fp32), which moves most bf16 gradient entries of the model case by
+    more than an ulp (up to about 1e-2 of a leaf's largest entry,
+    measured)."""
+    (loss, grads), (want_loss, want) = case()
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss), (loss, want_loss)
+    assert sorted(grads) == sorted(want)
+    for path, g in grads.items():
+        w = want[path].float().numpy()
+        assert g.dtype == want[path].dtype, path
+        err = float(np.abs(g.float().numpy() - w).max())
+        assert err <= 2e-2 * float(np.abs(w).max()), (path, err)

@@ -212,7 +212,7 @@ def test_a_stored_mlstm_chunk_reaches_the_server_and_picks_the_path(
     assert pcfg.mlstm_chunk == 32 and pcfg.flash_threshold == 1 << 30
     assert len(logged) == 1 and "mlstm_chunk" not in logged[0]
     resolved = serve.resolve_pcfg(ParallelConfig(), str(tmp_path / "store"),
-                                  ARCH, shape)
+                                  ARCH, shape, mesh="single")
     assert resolved.mlstm_chunk == 32
 
     calls = []
