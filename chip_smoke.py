@@ -154,6 +154,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      card's key, dryrun_objective_for serving the key and refusing
      "single"; (d) gradient compression on CUDA tensors at world size 1
      against the CPU's.
+ 16. slice 12, training on a device mesh: an NCCL process group of one
+     rank, make_host_mesh(data=1, model=1), gemma-2b's TrainLoop(mesh=...)
+     at phase 14's cell and parallel config for 2 steps, its weights,
+     moments and batches DTensors: the losses held to phase 14's first two
+     (REMAT_RTOL, bit equality stated), step times and peak memory beside
+     phase 14's, no kernel launched; the group destroyed before the
+     summary. More than one rank runs on the CPU only (tests over gloo).
 The line before the last holds the kernels' JSON summary (times are the
 phase-9 device times, the phase-6 event times where the profiler saw none;
 the GEMM's and the GP kernel's launches are phases 4 and 11 together; the
@@ -308,6 +315,9 @@ TRAIN_PCFG = {"flash_threshold": 1 << 30, "logits_chunk": 0}
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_SHAPE = 2, (1, 256)
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, REMAT_RTOL = 1e-5, 1e-3, 1e-6
 RESTART_ARCH = "internlm2-1.8b"
+# phase 16, training on a one-rank device mesh: steps, held to phase 14's
+# first ones
+MESH_STEPS = 2
 # phase 15, the dry-run: the peak's limit against max_memory_allocated, the
 # processes the sweep traces in, BO's cell and budget (the reference's
 # prefill_32k cell, then the one-card cell at phase 8's batch)
@@ -2548,15 +2558,15 @@ def train_card_vs_cpu(dev) -> None:
              f"max|d| / max|g| {worst:.2e}")
 
 
-def _train_loop(cfg, pcfg, steps: int, dev):
+def _train_loop(cfg, pcfg, steps: int, dev, mesh=None):
     """TrainLoop on ``cfg`` over the synthetic source at TRAIN_SHAPE, the
-    launcher's peak LR, no checkpoint directory."""
+    launcher's peak LR, no checkpoint directory, on ``mesh`` if given."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.runtime.train import LoopConfig, TrainLoop
     B, S = TRAIN_SHAPE
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
     lc = LoopConfig(steps=steps, log_every=0, peak_lr=TRAIN_PEAK_LR)
-    return TrainLoop(cfg, dc, lc, pcfg=pcfg, device=dev)
+    return TrainLoop(cfg, dc, lc, pcfg=pcfg, device=dev, mesh=mesh)
 
 
 def train_step_bounds(cfg, card: str):
@@ -2720,7 +2730,7 @@ def train_on_card(dev, card: str) -> dict:
     parts = profile_train_step(loop)
     log(f"[14b] one step in parts (CUDA events around each, profiler off): "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()))
-    out.update(step_ms=step_ms, peak=peak, loss0=losses[0])
+    out.update(step_ms=step_ms, peak=peak, losses=losses, pcfg=pcfg)
     loop = met = None
     gc.collect()
     torch.cuda.empty_cache()
@@ -3018,6 +3028,89 @@ def dryrun_on_card(dev, card: str, sdir: str) -> None:
     if not same or not int8_d <= 0.02 * scale:
         fail("compression on the card differs from the CPU's")
     return {"train": train, "decode": decode}
+
+
+# -- phase 16 ------------------------------------------------------------------
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def train_on_mesh(dev, card: str, phase14: dict) -> None:
+    """Phase 16: gemma-2b's TrainLoop on a device mesh of one rank (an NCCL
+    process group of world size 1, ``make_host_mesh(data=1, model=1)``):
+    the weights, moments and batches are DTensors, the reference's
+    activation constraints placed, at phase 14's cell and parallel
+    config, MESH_STEPS steps; its losses held to phase 14's first ones
+    (the same seed, data and schedule) by phase 14's bf16 rule
+    (REMAT_RTOL), its step time and peak memory beside phase 14's, no
+    kernel launched. The process group is destroyed before returning."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels import matern_gp as kgp
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as P
+    from torch.distributed.tensor import DTensor
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, pcfg = get_arch(TRAIN_ARCH), phase14["pcfg"]
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh(data=1, model=1)
+        kg.launches = kgp.launches = kfa.launches = kfd.split_launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loop = _train_loop(cfg, pcfg, MESH_STEPS, dev, mesh=mesh)
+        state = list(P.leaves(loop._state_tree()))
+        placed = sum(isinstance(t, DTensor) for _, t in state)
+        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        state = None
+        met = loop.run()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        counts = (kg.launches, kgp.launches, kfa.launches,
+                  kfd.split_launches)
+        loop = None
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = phase14["losses"][:MESH_STEPS]
+    rels = [abs(a - b) / abs(b) for a, b in zip(met.losses, want)]
+    B, S = TRAIN_SHAPE
+    n = len(list(P.leaves(P.model_specs(cfg))))
+    log(f"[16] {cfg.name} TrainLoop on a one-rank mesh {shape} (NCCL, "
+        f"{placed} DTensor leaves of {3 * n} weights and moments), remat "
+        f"{pcfg.remat!r}, B {B} x S "
+        f"{S}, {MESH_STEPS} steps in {run_s:.1f} s (weights from the seed "
+        f"included); on {card} ({smi_line()})")
+    log(f"[16] losses {[round(x, 6) for x in met.losses]} against phase "
+        f"14's {[round(x, 6) for x in want]}: rel {[f'{r:.2e}' for r in rels]}"
+        f" (limit {REMAT_RTOL}); bit-equal: {met.losses == want}")
+    log(f"[16] step times {[round(1e3 * t, 3) for t in met.step_times]} ms "
+        f"(the first holds DTensor's first placement plans), phase 14 "
+        f"{phase14['step_ms']:.3f} ms/step; peak memory {peak / 2**30:.2f} "
+        f"GiB, phase 14 {phase14['peak'] / 2**30:.2f} GiB; kernel launches "
+        f"(gemm, gp, flash, decode) {counts}")
+    if placed != 3 * n:
+        fail(f"the mesh loop placed {placed} of {3 * n} weights and moments "
+             "as DTensors")
+    if any(counts):
+        fail(f"the mesh loop launched kernels {counts}: the training path "
+             "reaches none")
+    if len(met.losses) != MESH_STEPS or not all(r <= REMAT_RTOL
+                                                for r in rels):
+        fail(f"the mesh loop's losses {met.losses} against phase 14's "
+             f"{want}")
 
 
 def shutil_rmtree(path: str) -> None:
@@ -3356,7 +3449,7 @@ def main() -> int:
 
     # 14. training on the card, after the last model is freed
     t0 = time.perf_counter()
-    train_on_card(dev, card)
+    trained = train_on_card(dev, card)
     log(f"[14] done in {time.perf_counter() - t0:.1f} s")
 
     # 15. the dry-run tooling against the card
@@ -3364,6 +3457,11 @@ def main() -> int:
     dryrun_on_card(dev, card, sdir)
     store_tmp.cleanup()
     log(f"[15] done in {time.perf_counter() - t0:.1f} s")
+
+    # 16. training on a device mesh of one rank, beside phase 14
+    t0 = time.perf_counter()
+    train_on_mesh(dev, card, trained)
+    log(f"[16] done in {time.perf_counter() - t0:.1f} s")
 
     summary = {"kernels": []}
     for name, src, line in (

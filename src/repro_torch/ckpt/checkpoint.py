@@ -21,8 +21,10 @@ port does not use): a bf16 leaf is stored as its ``uint16`` bits, tagged
 so a directory either package writes is read by the other's ``latest`` and
 ``load_manifest``, and its leaves by the other's ``restore``. ``restore``
 returns CPU tensors; ``restore_sharded`` is the reference's elastic
-restore on one card: restore, then place each leaf on its target device
-(the reference's target sharding).
+restore: each leaf is saved whole (a DTensor gathered by every rank, rank
+0 writing), and placed on restore onto its target, a device or a
+``(DeviceMesh, placements)`` pair, which may be another mesh than the
+one it was saved from, or none.
 """
 from __future__ import annotations
 
@@ -117,34 +119,68 @@ def restore(path: str, like_tree) -> Tuple[Any, Dict]:
     return map_tree_paths(like_tree, out), meta["extras"]
 
 
+def _place(t: torch.Tensor, target) -> torch.Tensor:
+    """``t`` (whole, on the host) on a device, or as a DTensor on a
+    ``(mesh, placements)`` target: each rank keeps its own slice."""
+    if isinstance(target, tuple):
+        from torch.distributed.tensor import distribute_tensor
+        mesh, placements = target
+        return distribute_tensor(t.to(mesh.device_type), mesh, placements,
+                                 src_data_rank=None)
+    return t.to(target)
+
+
 def restore_sharded(path: str, like_tree, shardings) -> Tuple[Any, Dict]:
-    """Restore, then place each leaf on its target: ``shardings`` is a
-    device for every leaf, or a tree like ``like_tree`` of devices (the
-    reference's target shardings, which may differ from the placement at
-    save time)."""
+    """Restore, then place each leaf on its target: ``shardings`` is one
+    target for every leaf, or a tree like ``like_tree`` of them; a target
+    is a device or a ``(DeviceMesh, placements)`` pair (the reference's
+    target shardings, which may differ from the placement at save time)."""
     host, extras = restore(path, like_tree)
     if isinstance(shardings, (dict, list)):
         where = dict(leaves(shardings))
-        placed = {p: t.to(where[p]) for p, t in leaves(host)}
+        placed = {p: _place(t, where[p]) for p, t in leaves(host)}
     else:
-        placed = {p: t.to(shardings) for p, t in leaves(host)}
+        placed = {p: _place(t, shardings) for p, t in leaves(host)}
     return map_tree_paths(like_tree, placed), extras
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A CPU copy of the whole tensor: a DTensor is gathered first (every
+    rank of its mesh takes part)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    # a copy even of a CPU leaf: the train step updates its weights in
+    # place while the thread writes
+    return t.detach().to("cpu", copy=True)
+
+
+def _writes() -> bool:
+    """Rank 0 of a process group, or a process without one, writes."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 class AsyncCheckpointer:
-    """Copy to the host synchronously, write in a background thread."""
+    """Copy to the host synchronously, write in a background thread. With
+    DTensor leaves every rank gathers them and rank 0 writes; ``wait``
+    then holds every rank until the write is done, so that none reads a
+    directory rank 0 is still writing."""
 
     def __init__(self, ckpt_dir: str, keep: int = 3):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
+        self._sharded = False
         self.last_path: Optional[str] = None
 
     def save(self, step: int, tree, extras: Optional[Dict] = None):
+        from torch.distributed.tensor import DTensor
         self.wait()
-        # a copy even of a CPU leaf: the train step updates its weights in
-        # place while the thread writes
-        host = map_tree(lambda t: t.detach().to("cpu", copy=True), tree)
+        self._sharded = any(isinstance(t, DTensor) for _, t in leaves(tree))
+        host = map_tree(_whole, tree)
+        if not _writes():
+            return
 
         def work():
             self.last_path = save(self.ckpt_dir, step, host, extras)
@@ -157,6 +193,9 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            import torch.distributed as dist
+            dist.barrier()
 
     def _gc(self):
         if not os.path.isdir(self.ckpt_dir):

@@ -52,8 +52,10 @@ decide. In one process a cell is traced once for the knobs its step
 reads (``_traced_knobs``): configs that differ only in knobs it never
 reads share the trace (``memo`` in the record).
 
-Cut, with reasons: ``launch/mesh.py`` (one card has no mesh; ``--card``
-takes the place of ``--mesh``), ``launch/hlo.py`` and
+The dry-run plans one card: ``--card`` takes the place of the
+reference's ``--mesh`` (the port's meshes, ``launch/mesh.py``, are the
+training loop's, over a process group's ranks). Cut, with reasons:
+``launch/hlo.py`` and
 ``launch/hlo_cost.py`` (both parse XLA's HLO text, which the port never
 produces; ``FlopCounterMode`` and the byte count above are their
 counterparts), ``--save-hlo`` with them.

@@ -26,7 +26,7 @@ from repro_torch.parallel.sharding import ParallelConfig
 
 def _no_mesh(mesh) -> None:
     if mesh is not None:
-        raise ValueError("one card has no mesh: the dry-run's specs take "
+        raise ValueError("the dry-run plans one card: its specs take "
                          "mesh=None only")
 
 

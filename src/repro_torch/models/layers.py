@@ -1,7 +1,7 @@
 """Forward functions of every layer family.
 
-Port of ``repro/models/layers.py``, whole but for the reference's mesh
-constraints: ``rms_norm``, ``mlp``, RoPE, the plain attention cores
+Port of ``repro/models/layers.py``: ``rms_norm``, ``mlp``, RoPE, the plain
+attention cores
 (``_direct_attention``, the blockwise ``_flash_attention`` as a Python loop
 over KV blocks where the reference runs ``lax.scan``, and
 ``_decode_attention``), ``gqa_attention`` with its kernel dispatch gates,
@@ -11,8 +11,13 @@ log-depth doubling scan of the same combine) and the mLSTM and sLSTM
 blocks (their ``lax.scan`` s as Python loops).
 
 Functions take ``(params, x, *, cfg, pcfg, mode, cache, positions)`` and
-return ``(y, new_cache)``; ``pcfg`` is the port's ``ParallelConfig`` (the
-reference threads it inside a ``ShardCtx`` with a mesh the port has not).
+return ``(y, new_cache)``; ``pcfg`` is the port's ``ParallelConfig``. On a
+device mesh the training path also passes ``px``, a ``ShardCtx``
+(``parallel/sharding.py``): ``mlp``, ``gqa_attention`` and ``moe_block``
+place the reference's activation constraints through it, and
+``moe_block`` splits its dispatch into the reference's data x pod
+groups. ``px=None`` (every serving path, as the reference serves off a
+mesh) places nothing and dispatches in one group.
 In decode every cache entry is updated in place (the reference returns
 new arrays): a KV or latent cache has one slot a step written, a
 recurrent state is copied into its buffer, so that a captured CUDA graph
@@ -36,7 +41,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.arch import ArchConfig
-from repro_torch.parallel.sharding import ParallelConfig
+from repro_torch.parallel.sharding import (ParallelConfig, ShardCtx,
+                                           act_sharding, constrain,
+                                           rows_local)
 
 Cache = Optional[Dict[str, torch.Tensor]]
 
@@ -113,8 +120,10 @@ def _act(name: str):
     return F.silu
 
 
-def mlp(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mlp(p, x: torch.Tensor, cfg: ArchConfig,
+        px: Optional[ShardCtx] = None) -> torch.Tensor:
     h = _act(cfg.mlp_act)(x @ p["wg"]) * (x @ p["wu"])
+    h = constrain(h, ("act_batch", "act_seq", "act_mlp"), px)
     return h @ p["wd"]
 
 
@@ -317,7 +326,8 @@ def _decode_attention(q, k_cache, v_cache, *, cache_pos, cur_pos, window,
 
 
 def gqa_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
-                  cache: Cache, positions, window=None
+                  cache: Cache, positions, window=None,
+                  px: Optional[ShardCtx] = None
                   ) -> Tuple[torch.Tensor, Cache]:
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -331,6 +341,8 @@ def gqa_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q = constrain(q, ("act_batch", "act_seq", "act_heads", None), px)
+    k = constrain(k, ("act_batch", "act_seq", "act_kv_heads", None), px)
     kc = pcfg.kernel
 
     new_cache = cache
@@ -351,15 +363,57 @@ def gqa_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
                                     cur_pos=positions[:, 0], window=window,
                                     scale=scale)
     else:
-        out = _prefill_attention(q, k, v, positions=positions, window=window,
-                                 scale=scale, pcfg=pcfg, device=x.device)
+        out = _heads_local(px, lambda *t: _prefill_attention(
+            *t[:3], positions=t[3], window=window, scale=scale, pcfg=pcfg,
+            device=x.device), q, k, v, positions)
         if mode == "prefill":
             if cache is None:
                 raise ValueError("prefill fills a cache")
             new_cache = _prefill_cache(k, v, positions, cache["k"].shape[1],
                                        window)
+    out = constrain(out, ("act_batch", "act_seq", "act_heads", None), px)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, new_cache
+
+
+def _heads_local(px: Optional[ShardCtx], core, q, k, v, positions):
+    """``core(q, k, v, positions)``, an attention core. Off a mesh, the
+    call. On a mesh, each rank runs it on its own batch rows and query
+    heads, as ``q``'s constraint placed them (GSPMD computes there too):
+    K and V are placed by the ``act_kv_heads`` rule, and where a rank holds
+    a slice of the query heads but every KV head, it takes the KV head of
+    each of its query heads (a gradient it gives K or V is then its share
+    of a sum over the ranks of those mesh dims). A sharded sequence is
+    refused: the core attends over the whole sequence."""
+    if px is None or px.mesh is None:
+        return core(q, k, v, positions)
+    from torch.distributed.tensor import (DTensor, Partial, Shard,
+                                          distribute_tensor)
+    mesh = px.mesh
+    qp = tuple(q.placements)
+    _, kp = act_sharding(k.shape, ("act_batch", "act_seq", "act_kv_heads",
+                                   None), mesh, px.pcfg)
+    if Shard(1) in qp + kp:
+        raise NotImplementedError("attention over a sharded sequence")
+    heads = [i for i, pl in enumerate(qp) if pl == Shard(2)]
+    share = tuple(Partial() if i in heads and kp[i] != Shard(2) else pl
+                  for i, pl in enumerate(kp))
+    k, v = (t.redistribute(mesh, kp).to_local(grad_placements=share)
+            for t in (k, v))
+    ql = q.to_local()
+    if heads and all(kp[i] != Shard(2) for i in heads):
+        first = 0                          # the rank's first query head
+        for i in heads:
+            first = first * mesh.size(i) + mesh.get_coordinate()[i]
+        first *= ql.shape[2]
+        G = q.shape[2] // k.shape[2]
+        idx = (first + torch.arange(ql.shape[2], device=ql.device)) // G
+        k, v = k[:, :, idx], v[:, :, idx]
+    _, pp = act_sharding(positions.shape, ("act_batch", "act_seq"), mesh,
+                         px.pcfg)
+    pos = distribute_tensor(positions, mesh, pp, src_data_rank=None)
+    out = core(ql, k, v, pos.to_local())
+    return DTensor.from_local(out, mesh, qp, run_check=False)
 
 
 def _prefill_attention(q, k, v, *, positions, window, scale,
@@ -448,91 +502,184 @@ def moe_capacity(T: int, cfg: ArchConfig, pcfg: ParallelConfig) -> int:
 
 
 def moe_route(p, xg: torch.Tensor, *, cfg: ArchConfig, C: int):
-    """The router and the dispatch plan of T tokens xg (T, d), as the
-    reference computes them: fp32 scores (T, E) (softmax, or sigmoid with
+    """The router and the dispatch plan of T tokens xg (..., T, d), each
+    leading index a dispatch group of its own, as the reference computes
+    them: fp32 scores (..., T, E) (softmax, or sigmoid with
     ``router_bias`` added for the choice only), the top_k experts of each
-    token (T, K) by a stable descending sort, so that ties go to the lower
-    expert index as ``lax.top_k`` breaks them, the gate weights renormalized
-    over the chosen k, and each (token, k) copy's slot in its expert from a
-    cumsum of one-hot rows over the copies in token-major order: slot C (the
-    drop slot) where the expert is full. Returns (top_idx, weights, slot
-    (T*K,), keep (T*K,), scores, one-hot (E, T*K) bool)."""
+    token (..., T, K) by a stable descending sort, so that ties go to the
+    lower expert index as ``lax.top_k`` breaks them, the gate weights
+    renormalized over the chosen k, and each (token, k) copy's slot in its
+    expert from a cumsum of one-hot rows over the group's copies in
+    token-major order: slot C (the drop slot) where the expert is full.
+    Returns (top_idx, weights, slot (..., T*K), keep (..., T*K), scores,
+    one-hot (..., E, T*K) bool)."""
     mo = cfg.moe
     E, K = mo.num_experts, mo.top_k
-    logits = xg.float() @ p["router"].float()                  # (T, E)
+    logits = xg.float() @ p["router"].float()                  # (..., T, E)
     if mo.router_score == "sigmoid":
         scores = torch.sigmoid(logits)
-        sel = scores + p["router_bias"].float()[None, :]
+        sel = scores + p["router_bias"].float()
     else:
         scores = torch.softmax(logits, dim=-1)
         sel = scores
     top_idx = torch.sort(sel, dim=-1, descending=True,
-                         stable=True).indices[:, :K]            # (T, K)
-    gate = torch.gather(scores, 1, top_idx)
+                         stable=True).indices[..., :K]          # (..., T, K)
+    gate = torch.gather(scores, -1, top_idx)
     weights = gate / (gate.sum(-1, keepdim=True) + 1e-9)
-    # one-hot rows expert-major, (E, T*K), so that the cumsum runs along
-    # the contiguous dim (a scan down the copies' dim of a (T*K, E) table
-    # takes most of a prefill on the card)
-    flat_e = top_idx.reshape(-1)
-    oh = torch.arange(E, device=xg.device)[:, None] == flat_e[None, :]
-    pos = torch.gather(torch.cumsum(oh, dim=1, dtype=torch.int32), 0,
-                       flat_e[None, :])[0].long() - 1
+    # one-hot rows expert-major, (..., E, T*K), so that the cumsum runs
+    # along the contiguous dim (a scan down the copies' dim of a (T*K, E)
+    # table takes most of a prefill on the card)
+    flat_e = top_idx.flatten(-2)
+    oh = torch.arange(E, device=xg.device)[:, None] == flat_e[..., None, :]
+    pos = torch.gather(torch.cumsum(oh, dim=-1, dtype=torch.int32), -2,
+                       flat_e[..., None, :])[..., 0, :].long() - 1
     keep = pos < C
     slot = torch.where(keep, pos, torch.full_like(pos, C))
     return top_idx, weights, slot, keep, scores, oh
 
 
-def moe_block(p, x: torch.Tensor, *, cfg: ArchConfig, pcfg: ParallelConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output (B,S,d), aux loss (fp32 scalar)). The reference's
-    ``moe_block`` whole, cut to one dispatch group: one card has no data
-    axis, so the reference's G = data x pod groups is 1 and every token of
-    the batch competes for the same C slots of each expert
-    (:func:`moe_capacity`).
+def moe_groups(T: int, px: Optional[ShardCtx]) -> int:
+    """Dispatch groups of T tokens: the reference's data x pod groups on a
+    mesh (each rank routes its own), 1 off a mesh or where T is not a
+    whole number of them."""
+    sizes = px.axis_sizes if px is not None else {}
+    G = max(sizes.get("data", 1) * sizes.get("pod", 1), 1)
+    return G if T % G == 0 else 1
 
-    The router and the plan are :func:`moe_route`. The dispatch is one
-    scatter of token ids into an (E, C + 1) table and one gather of the
-    activations: a dropped copy's id goes to column C, which is sliced
-    away before the gather, so which duplicate lands there (the scatter's
-    order is not fixed on the card) never reaches the output; the sentinel
-    id T reads a row of zeros for an unfilled slot. The experts are batched
-    products over (E, C, d), and the combine gathers each copy's row back
-    (the drop slot reads zeros), weighted by its gate. Every shape is
-    static and nothing is read back to the host, so a decode step that
-    holds this block is captured as a CUDA graph."""
+
+def _dispatch(p, xg: torch.Tensor, *, cfg: ArchConfig, C: int):
+    """Route each group of xg (G, Tg, d) (:func:`moe_route`) and gather its
+    tokens into the experts' buffers (G, E, C, d): one scatter of token ids
+    into a (G, E, C + 1) table and one gather of the activations. A
+    dropped copy's id goes to column C, which is sliced away before the
+    gather, so which duplicate lands there (the scatter's order is not
+    fixed on the card) never reaches the output; the sentinel id Tg reads
+    a row of zeros for an unfilled slot. Also returns each group's
+    load-balance term, sum over experts of f_e x p_e (Switch): (G,)."""
+    G, Tg, d = xg.shape
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    top_idx, weights, slot, keep, scores, oh = moe_route(p, xg, cfg=cfg, C=C)
+    g = torch.arange(G, device=xg.device)[:, None]
+    idx_buf = torch.full((G, E, C + 1), Tg, dtype=torch.long,
+                         device=xg.device)
+    idx_buf[g, top_idx.flatten(-2), slot] = torch.arange(
+        Tg, device=xg.device).repeat_interleave(K)
+    x_pad = torch.cat([xg, xg.new_zeros((G, 1, d))], dim=1)
+    buf = x_pad[g, idx_buf[:, :, :C].reshape(G, E * C)].reshape(G, E, C, d)
+    balance = torch.sum(oh.float().mean(dim=-1) * scores.mean(dim=-2), dim=-1)
+    return buf, top_idx, weights, slot, keep, balance
+
+
+def _combine(out_buf: torch.Tensor, top_idx, slot, keep, weights, K: int):
+    """Each copy's row of the experts' outputs (G, E, C, d), padded with a
+    drop slot C of zeros, weighted by its gate, summed over the k copies
+    of each token: (G, Tg, d)."""
+    G, Tg = top_idx.shape[:2]
+    out_buf = F.pad(out_buf, (0, 0, 0, 1))                      # drop slot -> 0
+    g = torch.arange(G, device=out_buf.device)[:, None]
+    pos_k, keep_k = slot.reshape(G, Tg, K), keep.reshape(G, Tg, K)
+    y = torch.zeros((G, Tg, out_buf.shape[-1]), dtype=out_buf.dtype,
+                    device=out_buf.device)
+    for j in range(K):
+        gathered = out_buf[g, top_idx[:, :, j], pos_k[:, :, j]]  # (G, Tg, d)
+        w = (weights[:, :, j] * keep_k[:, :, j]).to(out_buf.dtype)
+        y = y + gathered * w[..., None]
+    return y
+
+
+def _experts(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The reference's einsum ``gecd,edf->gecf``: for each expert e, the
+    rows of every group (G, E, C, d) times w[e] (E, d, f), as one batched
+    product over E with the groups' rows stacked (E, G x C, d), E the
+    outer dim (the one placed over ``model``)."""
+    G, E, C, _ = a.shape
+    rows = a.transpose(0, 1).reshape(E, G * C, a.shape[-1])
+    return torch.bmm(rows, w).reshape(E, G, C, -1).transpose(0, 1)
+
+
+def _experts_local(px: Optional[ShardCtx], fn, w, buf: torch.Tensor):
+    """``fn(w, buf)``, the experts' products of their buffers (G, E, C, d).
+    Off a mesh, the call. On a mesh each rank runs it on the block of
+    groups and experts it holds, in plain tensors: each weight placed with
+    its experts' dim as ``buf``'s E dim and gathered whole elsewhere (the
+    FSDP gather), ``buf`` as constrained; the output placed as ``buf``. A
+    weight's gradient from a rank's groups is its share of the sum over the
+    mesh dims that split the groups. The reference's constraint on the
+    hidden activation resolves to ``buf``'s placement (``mlp``'s model axis
+    is the experts'), which the block keeps."""
+    if px is None or px.mesh is None:
+        return fn(w, buf)
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard)
+    from repro_torch.models.params import map_tree
+    mesh, bp = px.mesh, tuple(buf.placements)
+    wp = tuple(Shard(0) if pl == Shard(1) else Replicate() for pl in bp)
+    share = tuple(Partial() if pl == Shard(0) else q
+                  for pl, q in zip(bp, wp))
+    local = map_tree(lambda t: t.redistribute(mesh, wp).to_local(
+        grad_placements=share), w)
+    out = fn(local, buf.to_local())
+    return DTensor.from_local(out, mesh, bp, run_check=False)
+
+
+def moe_block(p, x: torch.Tensor, *, cfg: ArchConfig, pcfg: ParallelConfig,
+              px: Optional[ShardCtx] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output (B,S,d), aux loss (fp32 scalar)), the reference's
+    ``moe_block``: the T = B x S tokens in G dispatch groups
+    (:func:`moe_groups`), each routing its Tg = T / G tokens into C slots
+    of each expert (:func:`moe_capacity` of Tg), so that the groups, and
+    not the whole batch, decide which copies drop.
+
+    :func:`_dispatch` routes and gathers each group's tokens, on a mesh on
+    the ranks that hold the group (``sharding.rows_local``); the experts are
+    batched products over (G, E, C, d) with E placed over ``model`` (the
+    reference's expert parallelism); :func:`_combine` gathers each copy's
+    row back, weighted by its gate. Every shape is static and nothing is
+    read back to the host, so a decode step that holds this block is
+    captured as a CUDA graph."""
     mo = cfg.moe
     B, S, d = x.shape
     E, K = mo.num_experts, mo.top_k
     T = B * S
-    C = moe_capacity(T, cfg, pcfg)
-    xg = x.reshape(T, d)
-    top_idx, weights, slot, keep, scores, oh = moe_route(p, xg, cfg=cfg, C=C)
-    pos_k, keep_k = slot.reshape(T, K), keep.reshape(T, K)
+    G = moe_groups(T, px)
+    C = moe_capacity(T // G, cfg, pcfg)
+    # on a mesh the residual stream arrives as a sum pending over model (the
+    # attention's output product) and its gradient placed as the next
+    # layer leaves it: both are placed by batch about the group reshapes
+    # (DTensor gets a reshape's local shapes wrong for other placements)
+    x = constrain(x, ("act_batch", "act_seq", "act_embed"), px)
+    xg = constrain(x.reshape(G, T // G, d), ("act_group", None, "act_embed"),
+                   px)
+    route = {k: p[k] for k in ("router", "router_bias") if k in p}
+    buf, top_idx, weights, slot, keep, balance = rows_local(
+        px, "act_group", lambda rp, xl: _dispatch(rp, xl, cfg=cfg, C=C),
+        route, xg)
+    buf = constrain(buf, ("act_group", "act_experts", None, None), px)
 
-    idx_buf = torch.full((E, C + 1), T, dtype=torch.long, device=x.device)
-    idx_buf[top_idx.reshape(-1), slot] = torch.arange(
-        T, device=x.device).repeat_interleave(K)
-    x_pad = torch.cat([xg, xg.new_zeros((1, d))], dim=0)
-    buf = x_pad[idx_buf[:, :C].reshape(E * C)].reshape(E, C, d)
-
-    h = _act(cfg.mlp_act)(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wu"])
-    out_buf = torch.bmm(h, p["wd"])                             # (E, C, d)
-    out_buf = F.pad(out_buf, (0, 0, 0, 1))                      # drop slot -> 0
-
-    y = torch.zeros_like(xg)
-    for j in range(K):
-        gathered = out_buf[top_idx[:, j], pos_k[:, j]]          # (T, d)
-        w = (weights[:, j] * keep_k[:, j]).to(x.dtype)
-        y = y + gathered * w[:, None]
+    def experts(w, b):
+        h = _act(cfg.mlp_act)(_experts(b, w["wg"])) * _experts(b, w["wu"])
+        return _experts(h, w["wd"])
+    out_buf = _experts_local(px, experts, {k: p[k] for k in ("wg", "wu",
+                                                              "wd")}, buf)
+    a2a = pcfg.moe_combine == "a2a"
+    # "a2a": the reference's axis swap of E for d over model (an all-to-all
+    # in GSPMD); the combine then reads every expert of its groups
+    out_buf = constrain(out_buf, ("act_group", None, None, "act_mlp") if a2a
+                        else ("act_group", "act_experts", None, None), px)
+    (y,) = rows_local(px, "act_group", lambda _, *t: (_combine(*t, K),), {},
+                      out_buf, top_idx, slot, keep, weights)
+    if a2a:
+        y = constrain(y, ("act_group", None, "act_mlp"), px)
 
     if mo.num_shared_experts > 0:
-        y = y + mlp(p["shared"], xg, cfg)
+        y = y + mlp(p["shared"], xg, cfg, px)
 
-    # load-balance aux (Switch-style): E * sum_e f_e * p_e
-    me = oh.float().mean(dim=1)
-    ce = scores.mean(dim=0)
-    aux = torch.sum(me * ce) * E * mo.router_aux_weight
-    return y.reshape(B, S, d), aux
+    # load-balance aux (Switch-style): E * mean over groups of
+    # sum_e f_e * p_e
+    aux = torch.mean(balance) * E * mo.router_aux_weight
+    y = constrain(y.reshape(B, S, d), ("act_batch", "act_seq", "act_embed"), px)
+    return y, aux
 
 
 # ---------------------------------------------------------------------------

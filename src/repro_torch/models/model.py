@@ -9,7 +9,10 @@ each segment's stacked parameters with ``lax.scan``; eager PyTorch has no
 compile time to save, so the port loops over ``params["layers"]`` in
 Python, and its cache is one dict a layer in the same order. Train mode
 (no cache) runs each layer under the reference's ``remat`` policy
-(``_remat_wrap`` on ``torch.utils.checkpoint``). ``cache_specs`` and
+(``_remat_wrap`` on ``torch.utils.checkpoint``). On a device mesh
+(``px``, a ``ShardCtx``) the embedding output takes the reference's
+constraint and the layers theirs; the layer kinds whose constraint sites
+the port has not placed yet raise (:func:`mesh_refusal`). ``cache_specs`` and
 ``abstract_cache`` are the dry-run's views of the cache: its shapes and
 dtypes, and the cache as tensors on the ``meta`` device (no storage).
 """
@@ -27,7 +30,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.params import DTYPES, layer_kinds
-from repro_torch.parallel.sharding import ParallelConfig
+from repro_torch.parallel.sharding import (ParallelConfig, ShardCtx,
+                                           constrain, rows_local)
 
 Tree = Dict[str, Any]
 
@@ -114,10 +118,10 @@ def abstract_cache(cfg: ArchConfig, batch: int, cap: int,
                    shardings: Optional[Tree] = None) -> List[Tree]:
     """The cache as meta tensors (the reference's ``ShapeDtypeStruct``
     tree): :func:`init_cache`'s shapes and dtypes, no storage.
-    ``shardings`` must be None: one card has no mesh."""
+    ``shardings`` must be None: the dry-run plans one card."""
     if shardings is not None:
-        raise ValueError("abstract_cache: one card has no mesh; shardings "
-                         "must be None")
+        raise ValueError("abstract_cache: the dry-run plans one card; "
+                         "shardings must be None")
     return init_cache(cfg, batch, cap, device="meta")
 
 
@@ -149,7 +153,8 @@ def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def _apply_layer(kind: str, p: Tree, x: torch.Tensor, *, cfg: ArchConfig,
-                 pcfg: ParallelConfig, mode: str, cache, positions, cond):
+                 pcfg: ParallelConfig, mode: str, cache, positions, cond,
+                 px: Optional[ShardCtx] = None):
     """One layer, as the reference's ``_apply_layer``. Returns (x, new
     cache, aux): aux is an MoE layer's load-balance loss, else None (no
     zero is launched for it). In decode the new cache is ``cache`` itself,
@@ -167,7 +172,7 @@ def _apply_layer(kind: str, p: Tree, x: torch.Tensor, *, cfg: ArchConfig,
             a_out, a_cache = L.mla_attention(p["attn"], h, **kw)
         else:
             a_out, a_cache = L.gqa_attention(
-                p["attn"], h, window=layer_window(cfg, kind), **kw)
+                p["attn"], h, window=layer_window(cfg, kind), px=px, **kw)
         x = x + a_out
         if cache is not None and mode != "decode":
             new_cache = dict(cache)
@@ -183,9 +188,9 @@ def _apply_layer(kind: str, p: Tree, x: torch.Tensor, *, cfg: ArchConfig,
             x = x + L.cross_attention(p["cross"], hc, ckv, cfg=cfg)
         h2 = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
         if "moe" in p:
-            m_out, aux = L.moe_block(p["moe"], h2, cfg=cfg, pcfg=pcfg)
+            m_out, aux = L.moe_block(p["moe"], h2, cfg=cfg, pcfg=pcfg, px=px)
         else:
-            m_out = L.mlp(p["mlp"], h2, cfg)
+            m_out = L.mlp(p["mlp"], h2, cfg, px)
         return x + m_out, new_cache, aux
     h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     if kind == "rglru":
@@ -234,12 +239,29 @@ def _remat_wrap(fn, policy: str):
     return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
+def mesh_refusal(cfg: ArchConfig) -> Optional[str]:
+    """Why ``cfg`` does not run on a device mesh yet, or None: the port
+    has placed the reference's constraints for GQA attention layers (no
+    local window, no cross-attention) with an MLP or an MoE over token
+    inputs. Each family it lacks is an item of ROADMAP Queue 1."""
+    kinds = set(layer_kinds(cfg))
+    if cfg.frontend == "embeddings" or cfg.cross_attention:
+        return "frame embeddings and cross-attention (musicgen-large)"
+    if cfg.attention == "mla":
+        return "MLA attention (deepseek-v3-671b)"
+    if kinds - {"attn", "attn_dense"} or cfg.local_window:
+        return ("recurrent and windowed layers (recurrentgemma-9b, "
+                "xlstm-1.3b)")
+    return None
+
+
 def forward(params: Tree, *, cfg: ArchConfig, pcfg: ParallelConfig,
             mode: str, positions: torch.Tensor,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
             cond: Optional[torch.Tensor] = None,
-            cache: Optional[List[Tree]] = None, return_aux: bool = False):
+            cache: Optional[List[Tree]] = None, return_aux: bool = False,
+            px: Optional[ShardCtx] = None):
     """Returns (hidden (B,S,d) before the final norm, new cache), and the
     layers' summed MoE aux loss (fp32) after them with ``return_aux``; the
     serve path does not ask for it, as the reference's ignores it.
@@ -247,20 +269,34 @@ def forward(params: Tree, *, cfg: ArchConfig, pcfg: ParallelConfig,
     ``pcfg.remat`` (:func:`_train_layers`). The
     ``embeddings`` frontend takes ``embeds`` (B,S,d) and adds sinusoidal
     positions; the others take ``tokens``. ``cond`` (B,cross_seq,d) feeds
-    cross-attention outside decode (decode reads its K/V from the cache)."""
+    cross-attention outside decode (decode reads its K/V from the cache).
+    ``px`` with a mesh: parameters and inputs are DTensors on it, and the
+    reference's constraints are placed; a config :func:`mesh_refusal`
+    names raises ``NotImplementedError``."""
+    if px is not None and px.mesh is not None:
+        why = mesh_refusal(cfg)
+        if why is not None:
+            raise NotImplementedError(
+                f"{cfg.name} on a device mesh: the port has not placed the "
+                f"reference's constraints for {why} (ROADMAP Queue 1, "
+                "families on a mesh)")
     if cfg.frontend == "embeddings":
         if embeds is None:
             raise ValueError(f"{cfg.name} takes frame embeddings")
         x = embeds + _sinusoidal(positions, cfg.d_model).to(embeds.dtype)
     else:
-        x = params["embed"]["table"][tokens]
+        # on a mesh each rank looks its own rows up (DTensor places the
+        # lookup's backward, a scatter, wrongly)
+        (x,) = rows_local(px, "act_batch", lambda p, t: (p["table"][t],),
+                          params["embed"], tokens)
         if cfg.scale_embeddings:
             x = x * _embed_scale(cfg.d_model, x.dtype)
+    x = constrain(x, ("act_batch", "act_seq", "act_embed"), px)
     if mode == "train":
         if cache is not None:
             raise ValueError("train mode takes no cache")
         x, auxes = _train_layers(params, x, cfg=cfg, pcfg=pcfg,
-                                 positions=positions, cond=cond)
+                                 positions=positions, cond=cond, px=px)
         return (x, None, _aux_sum(auxes, x)) if return_aux else (x, None)
     new_cache = [] if cache is not None else None
     auxes = []
@@ -268,7 +304,7 @@ def forward(params: Tree, *, cfg: ArchConfig, pcfg: ParallelConfig,
         lc = cache[i] if cache is not None else None
         x, a_cache, aux = _apply_layer(kind, p, x, cfg=cfg, pcfg=pcfg,
                                        mode=mode, cache=lc,
-                                       positions=positions, cond=cond)
+                                       positions=positions, cond=cond, px=px)
         if aux is not None:
             auxes.append(aux)
         if new_cache is not None:
@@ -283,7 +319,7 @@ def _aux_sum(auxes, x) -> torch.Tensor:
 
 
 def _train_layers(params: Tree, x, *, cfg: ArchConfig, pcfg: ParallelConfig,
-                  positions, cond):
+                  positions, cond, px: Optional[ShardCtx] = None):
     """The layers in train mode (no cache): each layer under
     ``pcfg.remat`` (the reference wraps each scan body, one cycle of the
     pattern; the unit here is one layer, the same function). Returns
@@ -293,7 +329,7 @@ def _train_layers(params: Tree, x, *, cfg: ArchConfig, pcfg: ParallelConfig,
         def layer(x_, p_, kind=kind):
             y, _, a = _apply_layer(kind, p_, x_, cfg=cfg, pcfg=pcfg,
                                    mode="train", cache=None,
-                                   positions=positions, cond=cond)
+                                   positions=positions, cond=cond, px=px)
             return y, a
         x, aux = _remat_wrap(layer, pcfg.remat)(x, p)
         if aux is not None:

@@ -6,9 +6,12 @@ mixture of experts, RG-LRU, mLSTM and sLSTM), ``layer_specs``,
 ``model_specs``, ``count_params``, ``init_params`` and the dry-run's
 views of the spec tree, ``is_spec``, ``spec_leaves`` and
 ``abstract_params``: a ``jax.ShapeDtypeStruct`` becomes a tensor on the
-``meta`` device (a shape and a dtype, no storage). The reference's
-shardings attached to those structs have no counterpart on one card, and
-``abstract_params`` takes none.
+``meta`` device (a shape and a dtype, no storage); the dry-run plans one
+card, so ``abstract_params`` takes no shardings. Every spec carries the
+reference's logical sharding axes, less the stacked ``layers`` axis (its
+rule is None): :func:`shard_params` places a tree on a device mesh by
+them, and :func:`layer_stacks` says which per-layer leaves the reference
+stacks into one (Adafactor factors the stack).
 
 The port's tree differs from the reference's in one way: layers are a
 Python list of per-layer dicts (``params["layers"][i]``), where the
@@ -40,21 +43,27 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 @dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]   # the reference's sharding axes
     init: str = "normal"         # normal | zeros | ones | lru_a
     scale: Optional[float] = None
     dtype: Optional[str] = None  # None -> cfg.dtype; norms are fp32
 
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"shape {self.shape} and logical axes "
+                             f"{self.logical} differ in rank")
+
 
 def _norm(d: int) -> Tree:
-    return {"scale": ParamSpec((d,), init="ones", dtype="float32")}
+    return {"scale": ParamSpec((d,), (None,), init="ones", dtype="float32")}
 
 
 def _mlp_specs(cfg: ArchConfig, d_ff: int) -> Tree:
     d = cfg.d_model
     return {
-        "wg": ParamSpec((d, d_ff)),
-        "wu": ParamSpec((d, d_ff)),
-        "wd": ParamSpec((d_ff, d), scale=_out_scale(cfg)),
+        "wg": ParamSpec((d, d_ff), ("embed", "mlp")),
+        "wu": ParamSpec((d, d_ff), ("embed", "mlp")),
+        "wd": ParamSpec((d_ff, d), ("mlp", "embed"), scale=_out_scale(cfg)),
     }
 
 
@@ -66,10 +75,11 @@ def _gqa_specs(cfg: ArchConfig, cross: bool = False) -> Tree:
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     t: Tree = {
-        "wq": ParamSpec((d, h, hd)),
-        "wk": ParamSpec((d, kv, hd)),
-        "wv": ParamSpec((d, kv, hd)),
-        "wo": ParamSpec((h, hd, d), scale=_out_scale(cfg)),
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed"),
+                        scale=_out_scale(cfg)),
     }
     if cfg.qk_norm and not cross:
         t["q_norm"] = _norm(hd)
@@ -82,15 +92,18 @@ def _mla_specs(cfg: ArchConfig) -> Tree:
     d, h = cfg.d_model, cfg.num_heads
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     return {
-        "wq_a": ParamSpec((d, m.q_lora_rank)),
+        "wq_a": ParamSpec((d, m.q_lora_rank), ("embed", "lora")),
         "q_a_norm": _norm(m.q_lora_rank),
-        "wq_b": ParamSpec((m.q_lora_rank, h, dn + dr)),
-        "wkv_a": ParamSpec((d, m.kv_lora_rank)),
+        "wq_b": ParamSpec((m.q_lora_rank, h, dn + dr),
+                          ("lora", "heads", "head_dim")),
+        "wkv_a": ParamSpec((d, m.kv_lora_rank), ("embed", "lora")),
         "kv_a_norm": _norm(m.kv_lora_rank),
-        "wk_rope": ParamSpec((d, dr)),
-        "wk_nope": ParamSpec((m.kv_lora_rank, h, dn)),
-        "wv": ParamSpec((m.kv_lora_rank, h, dv)),
-        "wo": ParamSpec((h, dv, d), scale=_out_scale(cfg)),
+        "wk_rope": ParamSpec((d, dr), ("embed", None)),
+        "wk_nope": ParamSpec((m.kv_lora_rank, h, dn),
+                             ("lora", "heads", "head_dim")),
+        "wv": ParamSpec((m.kv_lora_rank, h, dv), ("lora", "heads", "head_dim")),
+        "wo": ParamSpec((h, dv, d), ("heads", "head_dim", "embed"),
+                        scale=_out_scale(cfg)),
     }
 
 
@@ -101,16 +114,17 @@ def _rglru_specs(cfg: ArchConfig) -> Tree:
     nb = cfg.num_heads                 # block-diagonal gate blocks
     bs = width // nb
     return {
-        "wx": ParamSpec((d, width)),
-        "wy": ParamSpec((d, width)),
-        "conv_w": ParamSpec((r.conv_width, width)),
-        "conv_b": ParamSpec((width,), init="zeros"),
-        "gate_r_w": ParamSpec((nb, bs, bs)),
-        "gate_r_b": ParamSpec((width,), init="zeros"),
-        "gate_i_w": ParamSpec((nb, bs, bs)),
-        "gate_i_b": ParamSpec((width,), init="zeros"),
-        "a_param": ParamSpec((width,), init="lru_a", dtype="float32"),
-        "wo": ParamSpec((width, d), scale=_out_scale(cfg)),
+        "wx": ParamSpec((d, width), ("embed", "mlp")),
+        "wy": ParamSpec((d, width), ("embed", "mlp")),
+        "conv_w": ParamSpec((r.conv_width, width), (None, "mlp")),
+        "conv_b": ParamSpec((width,), ("mlp",), init="zeros"),
+        "gate_r_w": ParamSpec((nb, bs, bs), ("heads", None, None)),
+        "gate_r_b": ParamSpec((width,), ("mlp",), init="zeros"),
+        "gate_i_w": ParamSpec((nb, bs, bs), ("heads", None, None)),
+        "gate_i_b": ParamSpec((width,), ("mlp",), init="zeros"),
+        "a_param": ParamSpec((width,), ("mlp",), init="lru_a",
+                             dtype="float32"),
+        "wo": ParamSpec((width, d), ("mlp", "embed"), scale=_out_scale(cfg)),
     }
 
 
@@ -122,18 +136,20 @@ def _mlstm_specs(cfg: ArchConfig) -> Tree:
     d_v = inner // nh
     d_qk = int(x.qk_dim_factor * d_v)
     return {
-        "w_up": ParamSpec((d, 2, inner)),
-        "conv_w": ParamSpec((4, inner)),
-        "conv_b": ParamSpec((inner,), init="zeros"),
-        "wq": ParamSpec((inner, nh, d_qk)),
-        "wk": ParamSpec((inner, nh, d_qk)),
-        "wv": ParamSpec((inner, nh, d_v)),
-        "w_igate": ParamSpec((inner, nh), dtype="float32"),
-        "b_igate": ParamSpec((nh,), init="zeros", dtype="float32"),
-        "w_fgate": ParamSpec((inner, nh), dtype="float32"),
-        "b_fgate": ParamSpec((nh,), init="ones", dtype="float32"),
+        "w_up": ParamSpec((d, 2, inner), ("embed", None, "mlp")),
+        "conv_w": ParamSpec((4, inner), (None, "mlp")),
+        "conv_b": ParamSpec((inner,), ("mlp",), init="zeros"),
+        "wq": ParamSpec((inner, nh, d_qk), ("mlp", "heads", None)),
+        "wk": ParamSpec((inner, nh, d_qk), ("mlp", "heads", None)),
+        "wv": ParamSpec((inner, nh, d_v), ("mlp", "heads", None)),
+        "w_igate": ParamSpec((inner, nh), ("mlp", "heads"), dtype="float32"),
+        "b_igate": ParamSpec((nh,), ("heads",), init="zeros",
+                             dtype="float32"),
+        "w_fgate": ParamSpec((inner, nh), ("mlp", "heads"), dtype="float32"),
+        "b_fgate": ParamSpec((nh,), ("heads",), init="ones", dtype="float32"),
         "out_norm": _norm(inner),
-        "w_down": ParamSpec((inner, d), scale=_out_scale(cfg)),
+        "w_down": ParamSpec((inner, d), ("mlp", "embed"),
+                            scale=_out_scale(cfg)),
     }
 
 
@@ -142,9 +158,10 @@ def _slstm_specs(cfg: ArchConfig) -> Tree:
     d = cfg.d_model
     dh = d // nh
     return {
-        "wx": ParamSpec((d, 4, nh, dh)),
-        "r": ParamSpec((4, nh, dh, dh)),
-        "b": ParamSpec((4, nh, dh), init="zeros", dtype="float32"),
+        "wx": ParamSpec((d, 4, nh, dh), ("embed", None, "heads", None)),
+        "r": ParamSpec((4, nh, dh, dh), (None, "heads", None, None)),
+        "b": ParamSpec((4, nh, dh), (None, "heads", None), init="zeros",
+                       dtype="float32"),
         "group_norm": _norm(d),
     }
 
@@ -155,13 +172,15 @@ def _moe_specs(cfg: ArchConfig) -> Tree:
     mo = cfg.moe
     d, e, f = cfg.d_model, mo.num_experts, mo.d_expert
     t: Tree = {
-        "router": ParamSpec((d, e), dtype="float32"),
-        "wg": ParamSpec((e, d, f)),
-        "wu": ParamSpec((e, d, f)),
-        "wd": ParamSpec((e, f, d), scale=_out_scale(cfg)),
+        "router": ParamSpec((d, e), ("embed", None), dtype="float32"),
+        "wg": ParamSpec((e, d, f), ("experts", "embed", "mlp")),
+        "wu": ParamSpec((e, d, f), ("experts", "embed", "mlp")),
+        "wd": ParamSpec((e, f, d), ("experts", "mlp", "embed"),
+                        scale=_out_scale(cfg)),
     }
     if mo.router_score == "sigmoid":
-        t["router_bias"] = ParamSpec((e,), init="zeros", dtype="float32")
+        t["router_bias"] = ParamSpec((e,), (None,), init="zeros",
+                                     dtype="float32")
     if mo.num_shared_experts > 0:
         t["shared"] = _mlp_specs(cfg, mo.num_shared_experts * mo.d_expert)
     return t
@@ -206,6 +225,20 @@ def layer_kinds(cfg: ArchConfig) -> List[str]:
             for _ in range(n_rep) for kind in cycle]
 
 
+def layer_stacks(cfg: ArchConfig) -> List[Dict[str, List[int]]]:
+    """The reference's stacking of the port's layers: one dict a segment of
+    ``cfg.pattern_layers()``, mapping each cycle position ``f"{j}:{kind}"``
+    (the reference's key) to the indices in ``params["layers"]`` of the
+    layers it stacks on its leading ``layers`` axis, in order."""
+    out, first = [], 0
+    for n_rep, cycle in cfg.pattern_layers():
+        out.append({f"{j}:{kind}": [first + i * len(cycle) + j
+                                    for i in range(n_rep)]
+                    for j, kind in enumerate(cycle)})
+        first += n_rep * len(cycle)
+    return out
+
+
 def model_specs(cfg: ArchConfig) -> Tree:
     """Full spec tree: the embed table (none for the ``embeddings``
     frontend), one tree per layer, final norm, and a head where the config
@@ -218,10 +251,10 @@ def model_specs(cfg: ArchConfig) -> Tree:
                "final_norm": _norm(cfg.d_model)}
     if cfg.frontend != "embeddings":
         t["embed"] = {"table": ParamSpec((cfg.vocab_size, cfg.d_model),
-                                         scale=0.02)}
+                                         ("vocab", "embed"), scale=0.02)}
     if cfg.frontend == "embeddings" or not cfg.tie_embeddings:
         t["lm_head"] = {"w": ParamSpec((cfg.d_model, cfg.vocab_size),
-                                       scale=0.02)}
+                                       ("embed", "vocab"), scale=0.02)}
     return t
 
 
@@ -273,10 +306,10 @@ def abstract_params(cfg: ArchConfig, shardings: Optional[Tree] = None
                     ) -> Tree:
     """The parameter tree as meta tensors: each leaf's shape and dtype,
     no storage (the reference's ``ShapeDtypeStruct`` tree). ``shardings``
-    must be None: one card has no mesh to shard over."""
+    must be None: the dry-run plans one card."""
     if shardings is not None:
-        raise ValueError("abstract_params: one card has no mesh; shardings "
-                         "must be None")
+        raise ValueError("abstract_params: the dry-run plans one card; "
+                         "shardings must be None")
     return map_tree(lambda spec: torch.empty(
         spec.shape, dtype=DTYPES[spec.dtype or cfg.dtype], device="meta"),
         model_specs(cfg))
@@ -361,6 +394,19 @@ def opt_state_from_jax(state: Tree, cfg: ArchConfig, device="cpu") -> Tree:
     return {"mu": params_from_jax(state["mu"], cfg, device),
             "nu": params_from_jax(state["nu"], cfg, device),
             "count": _to_torch(np.asarray(state["count"], np.int32), device)}
+
+
+def shard_params(params: Tree, specs: Tree, mesh, pcfg) -> Tree:
+    """Each leaf as a DTensor on ``mesh``, placed by the reference's
+    ``param_shardings`` (``parallel/sharding.py``). Every rank must hold
+    the same weights (made from one generator seed on every rank): each
+    keeps its own slice of them, and no rank sends any."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.parallel.sharding import param_shardings
+    where = dict(leaves(param_shardings(specs, mesh, pcfg)))
+    return map_tree_paths(params, {
+        path: distribute_tensor(t, *where[path], src_data_rank=None)
+        for path, t in leaves(params)})
 
 
 def trainable(params: Tree) -> Tree:

@@ -10,19 +10,29 @@ in inference mode cannot be saved for backward). The decode step takes its
 position as a device tensor, as the reference's jitted step takes a traced
 scalar, so a captured CUDA graph of it (``launch/serve.DecodeServer``)
 reads the position each replay instead of the one it was captured at.
+
+On a device mesh (``make_train_step(..., px=ShardCtx(mesh, pcfg))``) the
+weights, their moments and the batch are DTensors (``TrainLoop(mesh=...)``
+places them): the loss takes the reference's constraint on its logits,
+each gradient is placed as its weight before the optimizer's update, and
+the step runs under DTensor's implicit replication, so that a plain tensor
+every rank builds alike (positions, masks) joins the DTensors as a
+replicated value.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.models import model as M
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import leaves, map_tree_paths, trainable
-from repro_torch.parallel.sharding import ParallelConfig
+from repro_torch.parallel.sharding import (ParallelConfig, ShardCtx,
+                                           constrain, on_mesh)
 
 Tree = Dict[str, Any]
 
@@ -39,7 +49,8 @@ def _inputs(cfg: ArchConfig, batch: Tree):
 # loss
 
 
-def _chunk_loss(xc: torch.Tensor, head_w: torch.Tensor, lc: torch.Tensor):
+def _chunk_loss(xc: torch.Tensor, head_w: torch.Tensor, lc: torch.Tensor,
+                px: Optional[ShardCtx] = None):
     """(summed token loss, valid tokens) of one chunk, fp32: the logits are
     the head product with an fp32 result, as the reference's
     ``preferred_element_type=float32`` gives it (a bf16 model's logits are
@@ -48,17 +59,26 @@ def _chunk_loss(xc: torch.Tensor, head_w: torch.Tensor, lc: torch.Tensor):
     is exact in fp32, and ``torch.mm(..., out_dtype=torch.float32)``, the
     bf16-operand form, has no backward (its autograd formula is missing)
     and no CPU kernel. On a bf16 model this casts the head to fp32 once a
-    chunk."""
+    chunk. On a mesh the logits take the reference's constraint (vocab
+    over ``model``) and the label's logit is the sum over the vocabulary
+    of the logits masked to the label's column, exact (one term is not
+    zero): DTensor's gather along a sharded dim fails."""
     logits = xc.float() @ head_w.float()
+    logits = constrain(logits, ("act_batch", "act_seq", "act_vocab"), px)
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1,
-                      torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    label = torch.clamp(lc, min=0).long()[..., None]
+    if px is None or px.mesh is None:
+        ll = torch.gather(logits, -1, label)[..., 0]
+    else:
+        vocab = torch.arange(logits.shape[-1], device=lc.device)
+        ll = torch.where(vocab == label, logits, 0.0).sum(-1)
     mask = (lc >= 0).float()
     return torch.sum((logz - ll) * mask), torch.sum(mask)
 
 
 def chunked_xent(x: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
-                 pcfg: ParallelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                 pcfg: ParallelConfig, px: Optional[ShardCtx] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy with the (B,S,V) logits never fully materialized.
 
     With ``pcfg.logits_chunk`` dividing a longer sequence, the sequence
@@ -73,14 +93,15 @@ def chunked_xent(x: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
         cnt = torch.zeros((), device=x.device)
         for i in range(0, S, chunk):
             s, c = checkpoint(_chunk_loss, x[:, i:i + chunk], head_w,
-                              labels[:, i:i + chunk], use_reentrant=False)
+                              labels[:, i:i + chunk], px, use_reentrant=False)
             tot, cnt = tot + s, cnt + c
         return tot, cnt
-    return _chunk_loss(x, head_w, labels)
+    return _chunk_loss(x, head_w, labels, px)
 
 
 def loss_fn(params: Tree, batch: Tree, *, cfg: ArchConfig,
-            pcfg: ParallelConfig) -> Tuple[torch.Tensor, Tree]:
+            pcfg: ParallelConfig, px: Optional[ShardCtx] = None
+            ) -> Tuple[torch.Tensor, Tree]:
     """(loss, {"xent", "aux", "n_tokens"}): the mean token cross-entropy
     plus the MoE aux loss. Token models predict each next token (the last
     position's label is -1, masked); the ``embeddings`` frontend reads
@@ -96,11 +117,11 @@ def loss_fn(params: Tree, batch: Tree, *, cfg: ArchConfig,
                              device=labels.device)[None, :].expand(B, S)
     x, _, aux = M.forward(params, cfg=cfg, pcfg=pcfg, mode="train",
                           tokens=tokens, embeds=embeds, cond=batch.get("cond"),
-                          positions=positions, return_aux=True)
+                          positions=positions, return_aux=True, px=px)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     head = (params["lm_head"]["w"] if "lm_head" in params
             else params["embed"]["table"].T)
-    tot, cnt = chunked_xent(x, head, labels, pcfg)
+    tot, cnt = chunked_xent(x, head, labels, pcfg, px)
     xent = tot / torch.clamp(cnt, min=1.0)
     return xent + aux, {"xent": xent, "aux": aux, "n_tokens": cnt}
 
@@ -109,7 +130,8 @@ def loss_fn(params: Tree, batch: Tree, *, cfg: ArchConfig,
 # steps
 
 
-def make_train_step(cfg: ArchConfig, pcfg: ParallelConfig, optimizer):
+def make_train_step(cfg: ArchConfig, pcfg: ParallelConfig, optimizer,
+                    px: Optional[ShardCtx] = None):
     """Returns train_step(params, opt_state, batch, step) -> (params,
     opt_state, metrics): the loss and its gradients, then the optimizer's
     update, which writes the new weights and state into ``params`` and
@@ -119,24 +141,35 @@ def make_train_step(cfg: ArchConfig, pcfg: ParallelConfig, optimizer):
     hold only the loss and the optimizer's, as the reference's do). Metrics
     are device tensors; ``step`` is passed through.
 
+    ``px`` with a mesh: the step of DTensor weights and batch (the module
+    docstring), ``pcfg`` being ``px.pcfg``.
+
     Raises for a ``pcfg.kernel`` that opts into the flash kernel: it has no
-    backward (the reference's Pallas kernel has none either)."""
+    backward (the reference's Pallas kernel has none either); and for
+    microbatches on a mesh, whose row split the port has not placed."""
     kc = pcfg.kernel
     if kc is not None and kc.use_flash:
         raise ValueError("make_train_step: the flash kernel has no backward "
                          "(nor has the reference's Pallas kernel); train "
                          "with KernelConfig(use_flash=False)")
     mb = pcfg.microbatches
+    if px is not None and px.mesh is not None and mb > 1:
+        raise NotImplementedError("microbatches on a device mesh (ROADMAP "
+                                  "Queue 1)")
 
     def grads_of(params, batch):
         views = trainable(params)
-        loss, met = loss_fn(views, batch, cfg=cfg, pcfg=pcfg)
+        loss, met = loss_fn(views, batch, cfg=cfg, pcfg=pcfg, px=px)
+        flat = [t for _, t in leaves(views)]
         # a leaf the loss does not reach (the sigmoid router's bias, which
         # only picks experts) gets zeros, as jax.grad gives it
-        grads = torch.autograd.grad(loss, [t for _, t in leaves(views)],
-                                    materialize_grads=True)
+        grads = torch.autograd.grad(loss, flat, materialize_grads=True)
+        if px is not None and px.mesh is not None:
+            grads = [g.redistribute(w.device_mesh, w.placements)
+                     for g, w in zip(grads, flat)]
         return loss.detach(), {k: v.detach() for k, v in met.items()}, grads
 
+    @on_mesh(px)
     def train_step(params, opt_state, batch, step):
         if mb > 1:
             rows = next(iter(batch.values())).shape[0] // mb
@@ -154,8 +187,11 @@ def make_train_step(cfg: ArchConfig, pcfg: ParallelConfig, optimizer):
         grads = map_tree_paths(params, {path: g for (path, _), g in
                                         zip(leaves(params), grads)})
         params, opt_state, opt_met = optimizer.update(grads, opt_state, params)
-        return params, opt_state, {"loss": loss, **met, **opt_met,
-                                   "step": step}
+        met = {"loss": loss, **met, **opt_met}
+        if px is not None and px.mesh is not None:     # whole, on every rank
+            met = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                   for k, v in met.items()}
+        return params, opt_state, {**met, "step": step}
 
     return train_step
 

@@ -3,8 +3,9 @@
 Port of ``repro/parallel/compression.py``: ``int8_allreduce``,
 ``topk_error_feedback`` and ``compress_tree_psum``. Where the reference
 reduces over a named ``shard_map`` axis, these reduce over a
-``Reduction``: a ``torch.distributed`` process group (``Reduction.group``,
-world size 1 on one card) or a pair of callables, the sum and the max
+``Reduction``: a ``torch.distributed`` process group (``Reduction.group``;
+on a device mesh the ``pod`` dim's, ``Reduction.group(mesh.get_group(
+"pod"))``) or a pair of callables, the sum and the max
 over the ranks, with the caller's rank and world size. Randomness comes
 from an explicit ``torch.Generator`` seeded by (seed, rank): the
 reference decorrelates the ranks' dither with ``fold_in(key,

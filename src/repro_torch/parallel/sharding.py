@@ -1,4 +1,5 @@
-"""Logical-axis sharding rules, kernel-dispatch, serving and training knobs.
+"""Logical-axis sharding rules on a device mesh, kernel-dispatch, serving
+and training knobs.
 
 Port of ``repro/parallel/sharding.py``. ``ParallelConfig`` holds every
 field of the reference's, with its defaults: ``param_rules`` and
@@ -7,31 +8,36 @@ field of the reference's, with its defaults: ``param_rules`` and
 ``capacity_factor``, ``logits_chunk``, ``opt_moment_dtype``,
 ``grad_compression`` and ``grad_compression_topk``, ``flash_threshold``,
 ``mlstm_chunk``, ``mlstm_bf16_streams``, ``moe_combine`` and ``kernel``.
-``resolve_spec`` is the reference's pure rule resolution: it takes any
-object with ``axis_names`` and ``devices.shape`` and returns a tuple where
-the reference returns a ``PartitionSpec``. ``flash_vmem_bytes`` and
+``resolve_spec`` is the reference's pure rule resolution: it takes a
+``torch.distributed`` ``DeviceMesh`` (``launch/mesh.make_host_mesh``), or
+any object with ``axis_names`` and ``devices.shape``, and returns a tuple
+where the reference returns a ``PartitionSpec``.
+
+A JAX ``Mesh`` and ``NamedSharding`` become a ``DeviceMesh`` and DTensor
+placements: :func:`placements` turns a resolved spec into one placement a
+mesh dim, and a sharding is the pair ``(mesh, placements)``.
+``param_shardings``, ``act_sharding``, ``ShardCtx`` and ``constrain`` are
+the reference's on top of it; ``constrain`` is the identity off a mesh
+(``px`` None, or a ``ShardCtx`` whose mesh is None) and otherwise
+redistributes a DTensor to the resolved placements, the counterpart of
+``with_sharding_constraint``: where a value lives changes, not what it is.
+
+``scan_layers`` is cut: a compile knob with no eager counterpart (the port
+loops over layers). On a mesh ``moe_combine`` picks the constraint around
+the experts' outputs as the reference's does; gradient compression runs
+over the mesh's ``pod`` dim (``parallel/compression.py``) and, as in the
+reference, on no training path. ``flash_vmem_bytes`` and
 ``attn_tile_occupancy`` are the reference's column arithmetic for the hard
 sharding grids (``core/tuning_targets.sharding_space(hard=True)``); they
-model the TPU's VMEM and cores, as the reference's do.
-
-One card has no mesh, so on it the rule tables, ``attn_block_q``,
-``moe_combine`` (which only picks the mesh constraint around the expert
-outputs: an all-to-all reshard or none) and gradient compression (over
-the pod axis; ``parallel/compression.py`` has the functions) change no
-shape or value, and the dry-run (``launch/dryrun.py``) records them as
-such. ``param_shardings``, ``act_sharding`` and ``ShardCtx`` are cut: they
-build ``NamedSharding`` objects of a JAX mesh, which the port has no
-counterpart of; ``constrain`` is cut too: off a mesh it is the identity
-(the reference's branch for no mesh), and the port's model code has no
-constraint to place. ``scan_layers`` is cut too: a compile knob with no eager
-counterpart (the port loops over layers). The kernels' resource models
-live in ``kernels/ops.py``.
+model the TPU's VMEM and cores, as the reference's do. The kernels'
+resource models live in ``kernels/ops.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 Axis = Union[str, Tuple[str, ...], None]
 
@@ -123,14 +129,34 @@ class ParallelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class ShardCtx:
+    """Threaded through model code; mesh=None disables constraints."""
+
+    mesh: Any
+    pcfg: ParallelConfig
+
+    @property
+    def axis_sizes(self) -> Dict[str, int]:
+        return {} if self.mesh is None else axis_sizes(self.mesh)
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` or of a JAX-like mesh (an
+    object with ``axis_names`` and ``devices.shape``)."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
 def resolve_spec(shape: Sequence[int], logical: Sequence[Optional[str]],
                  rules: Mapping[str, Axis], mesh) -> Tuple:
     """Map logical axes to a partition spec, dropping invalid assignments:
     a mesh axis the mesh lacks, one another dimension of the tensor took,
-    or one that does not divide the dimension. ``mesh`` is anything with
-    ``axis_names`` and ``devices.shape``; the result is the reference's
-    ``PartitionSpec`` entries as a tuple (trailing ``None`` dropped)."""
-    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    or one that does not divide the dimension. The result is the
+    reference's ``PartitionSpec`` entries as a tuple (trailing ``None``
+    dropped)."""
+    sizes = axis_sizes(mesh)
     used: set = set()
     out = []
     for dim, name in zip(shape, logical):
@@ -158,6 +184,94 @@ def resolve_spec(shape: Sequence[int], logical: Sequence[Optional[str]],
     while out and out[-1] is None:
         out.pop()
     return tuple(out)
+
+
+def placements(spec: Tuple, mesh) -> Tuple:
+    """DTensor placements of a resolved spec, one a mesh dim: ``Shard(d)``
+    where the mesh dim is assigned to tensor dim ``d``, ``Replicate()``
+    elsewhere and on a mesh dim of size 1 (one shard is the whole tensor;
+    DTensor would refuse to reshape a dim sharded one way). A dim sharded
+    over several mesh dims (``("pod", "data")``) is split over them in
+    mesh order, the outer mesh dim first, as the reference's rule tables
+    name them."""
+    from torch.distributed.tensor import Replicate, Shard
+    where = {}
+    for d, axes in enumerate(spec):
+        for ax in ((axes,) if isinstance(axes, str) else axes or ()):
+            where[ax] = d
+    return tuple(Shard(where[n]) if n in where and size > 1 else Replicate()
+                 for n, size in zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def param_shardings(specs_tree: Any, mesh, pcfg: ParallelConfig) -> Any:
+    """A ``(mesh, placements)`` tree matching a ``ParamSpec`` tree."""
+    from repro_torch.models.params import map_tree
+    return map_tree(lambda spec: (mesh, placements(resolve_spec(
+        spec.shape, spec.logical, pcfg.param_rules, mesh), mesh)), specs_tree)
+
+
+def act_sharding(shape: Sequence[int], logical: Sequence[Optional[str]],
+                 mesh, pcfg: ParallelConfig) -> Tuple:
+    """``(mesh, placements)`` of an activation by its logical axes."""
+    return mesh, placements(resolve_spec(shape, logical, pcfg.act_rules,
+                                         mesh), mesh)
+
+
+def constrain(x, logical: Sequence[Optional[str]], px: Optional[ShardCtx]):
+    """The reference's ``with_sharding_constraint`` by logical activation
+    axes: the identity off a mesh, else ``x`` (a DTensor on the mesh)
+    redistributed to the resolved placements, and its gradient back to
+    the placements ``x`` had (the transpose of a sharding constraint is one
+    on the cotangent), also where the two are equal. A pending sum
+    (``Partial``) is reduced on the way."""
+    if px is None or px.mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        raise TypeError("constrain on a mesh takes a DTensor; a plain "
+                        "tensor here would be silently replicated")
+    mesh, pl = act_sharding(x.shape, logical, px.mesh, px.pcfg)
+    return x.redistribute(mesh, pl)
+
+
+def rows_local(px: Optional[ShardCtx], axis: str, fn, params, *rows):
+    """``fn(params, *rows)``, each of ``rows`` a tensor whose dim 0 the
+    logical activation axis ``axis`` places, returning a tuple of such
+    tensors. Off a mesh, the call. On a mesh, each rank runs ``fn`` on the
+    rows it holds, in plain tensors: the rows placed by ``axis`` (an
+    explicit redistribution), ``params`` (a tree of DTensors) gathered
+    whole, and each output placed as the rows are. A parameter's gradient
+    from a rank's rows is its share of the sum over the mesh dims that
+    split the rows (``Partial`` there). For what DTensor does not place
+    (index scatters, sorts) or places wrongly."""
+    if px is None or px.mesh is None:
+        return fn(params, *rows)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.models.params import map_tree
+    mesh, split = act_sharding((rows[0].shape[0],), (axis,), px.mesh,
+                               px.pcfg)
+    whole = (Replicate(),) * mesh.ndim
+    share = tuple(Partial() if isinstance(pl, Shard) else Replicate()
+                  for pl in split)
+    local = map_tree(lambda t: t.redistribute(mesh, whole).to_local(
+        grad_placements=share), params)
+    out = fn(local, *(t.redistribute(mesh, split).to_local() for t in rows))
+    return tuple(DTensor.from_local(o, mesh, split, run_check=False)
+                 for o in out)
+
+
+@contextlib.contextmanager
+def on_mesh(px: Optional[ShardCtx]):
+    """Off a mesh nothing; on one, DTensor's implicit replication: a plain
+    tensor that meets a DTensor is taken as replicated over the mesh, which
+    is right for what every rank builds alike from shapes (positions,
+    masks, step counts) and for nothing else. Usable as a decorator."""
+    if px is None or px.mesh is None:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+    with implicit_replication():
+        yield
 
 
 # ---------------------------------------------------------------------------

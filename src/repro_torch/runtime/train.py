@@ -1,6 +1,6 @@
 """Fault-tolerant training loop.
 
-Port of ``repro/runtime/train.py`` on one device:
+Port of ``repro/runtime/train.py``, on one device or on a device mesh:
   * checkpoint/restart — async checkpoints every N steps carrying params,
     optimizer state and the data cursor; `TrainLoop` restores from the
     latest manifest automatically (crash → rerun the same command);
@@ -8,13 +8,20 @@ Port of ``repro/runtime/train.py`` on one device:
     slower than `straggler_factor ×` EWMA are logged as straggler events and
     surface in metrics (the first step, which on the card includes the
     kernels' first launches, seeds nothing);
+  * elastic rescale — checkpoints hold whole tensors; restoring onto a
+    different mesh, or onto none, places them anew
+    (``ckpt.restore_sharded``), so the same job continues at another scale;
   * failure injection — `fail_at_step` raises mid-run to exercise all of the
     above in tests.
-The reference's elastic restore onto another mesh (``restore_sharded``)
-has no counterpart on one card: a checkpoint is restored into the loop's
-own tensors on its device. Weights come from a ``torch.Generator`` seeded
-with ``LoopConfig.seed`` on the loop's device, which is the card unless the
-caller passes ``device="cpu"``.
+Weights come from a ``torch.Generator`` seeded with ``LoopConfig.seed`` on
+the loop's device, which is the card unless the caller passes
+``device="cpu"``. With ``mesh`` (a ``DeviceMesh`` of the process group's
+ranks, ``launch/mesh.make_host_mesh``) every rank makes the same weights
+from the seed and keeps its slice of each, placed by ``param_shardings``;
+the moments follow their weights, and each batch is placed by
+``act_sharding(("act_batch", "act_seq"))``, as the reference places them.
+AdamW keeps fp32 moments whatever ``ParallelConfig.opt_moment_dtype``
+says, as the reference's loop builds it.
 """
 from __future__ import annotations
 
@@ -28,10 +35,12 @@ from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.data.pipeline import DataConfig, DataIterator, make_source
 from repro_torch.kernels.tuning import resolve_device
-from repro_torch.models.params import init_params, leaves
+from repro_torch.models.params import (init_params, leaves, map_tree,
+                                       model_specs, shard_params)
 from repro_torch.models.stepfn import make_train_step
 from repro_torch.optim.optimizers import AdamW, warmup_cosine
-from repro_torch.parallel.sharding import ParallelConfig
+from repro_torch.parallel.sharding import (ParallelConfig, ShardCtx,
+                                           act_sharding)
 
 
 class SimulatedFailure(RuntimeError):
@@ -64,13 +73,18 @@ class LoopMetrics:
 class TrainLoop:
     def __init__(self, arch: ArchConfig, data_cfg: DataConfig,
                  loop_cfg: LoopConfig, pcfg: Optional[ParallelConfig] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.arch = arch
         self.data_cfg = data_cfg
         self.loop_cfg = loop_cfg
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a loop on "
+                             f"{self.device}")
         self.pcfg = pcfg or ParallelConfig(flash_threshold=1 << 30,
                                            logits_chunk=0)
+        self.mesh = mesh
+        self.px = ShardCtx(mesh=mesh, pcfg=self.pcfg)
         # a warmup longer than the whole run would cap LR at a fraction of
         # peak (sub-bf16-resolution updates on short smoke runs: nothing
         # learns). Only the degenerate case is clamped — an explicit warmup
@@ -80,11 +94,14 @@ class TrainLoop:
         self.optimizer = AdamW(
             schedule=warmup_cosine(loop_cfg.peak_lr, warmup,
                                    max(loop_cfg.steps, 1)),
-            weight_decay=0.01, moment_dtype=self.pcfg.opt_moment_dtype)
+            weight_decay=0.01)
         self.metrics = LoopMetrics()
 
         gen = torch.Generator(device=self.device).manual_seed(loop_cfg.seed)
         self.params = init_params(arch, gen, self.device)
+        if mesh is not None:
+            self.params = shard_params(self.params, model_specs(arch), mesh,
+                                       self.pcfg)
         self.opt_state = self.optimizer.init(self.params)
         self.data = DataIterator(make_source(data_cfg))
         self.step = 0
@@ -94,7 +111,8 @@ class TrainLoop:
             if path:
                 self._restore(path)
 
-        self._step_fn = make_train_step(arch, self.pcfg, self.optimizer)
+        self._step_fn = make_train_step(arch, self.pcfg, self.optimizer,
+                                        px=self.px)
         self._ckpt = (ckpt.AsyncCheckpointer(loop_cfg.ckpt_dir)
                       if loop_cfg.ckpt_dir else None)
 
@@ -103,7 +121,14 @@ class TrainLoop:
         return {"params": self.params, "opt_state": self.opt_state}
 
     def _restore(self, path: str):
-        state, extras = ckpt.restore(path, self._state_tree())
+        """The checkpoint placed as the loop's own tensors are (on the
+        loop's mesh, or its device), then copied into them."""
+        from torch.distributed.tensor import DTensor
+        targets = map_tree(lambda t: (t.device_mesh, tuple(t.placements))
+                           if isinstance(t, DTensor) else t.device,
+                           self._state_tree())
+        state, extras = ckpt.restore_sharded(path, self._state_tree(),
+                                             targets)
         for (_, dst), (_, src) in zip(leaves(self._state_tree()),
                                       leaves(state)):
             dst.copy_(src)
@@ -120,13 +145,20 @@ class TrainLoop:
 
     def _to_device(self, batch_np):
         """A host batch on the loop's device: integer arrays (token ids,
-        labels) as int64, the index type of torch."""
+        labels) as int64, the index type of torch. On a mesh each rank
+        keeps its slice, placed by batch and sequence."""
         out = {}
         for k, v in batch_np.items():
             t = torch.from_numpy(v)
             if not t.is_floating_point():
                 t = t.long()
             out[k] = t.to(self.device)
+            if self.mesh is not None:
+                from torch.distributed.tensor import distribute_tensor
+                logical = ("act_batch", "act_seq") + (None,) * (t.ndim - 2)
+                out[k] = distribute_tensor(
+                    out[k], *act_sharding(t.shape, logical, self.mesh,
+                                          self.pcfg), src_data_rank=None)
         return out
 
     # -- main loop -------------------------------------------------------------

@@ -13,8 +13,8 @@ overlays every field the reference's does (the port's ``ParallelConfig``
 has them all), ``flash`` as ``flash_threshold``. The mesh rules
 (``embed_rule``, ``experts_rule``) are not ``ParallelConfig`` fields: the
 reference applies them nowhere here either (its dry-run takes them as
-``--rules`` overrides of ``param_rules``); they are logged, since one card
-has no mesh for them to shard over. ``apply_kernel_config`` is the
+``--rules`` overrides of ``param_rules``); they are logged, since the
+server runs off a mesh. ``apply_kernel_config`` is the
 reference's.
 """
 from __future__ import annotations
@@ -81,7 +81,7 @@ def apply_sharding_config(pcfg, cfg: Dict[str, Any], log=print):
     skipped = sorted(k for k in cfg if k not in applied)
     if skipped:
         log(f"[serve] sharding fields {skipped} do not apply on one card "
-            "(mesh rules: one card has no mesh)")
+            "(mesh rules: the server runs off a mesh)")
     return pcfg.replace(**kw)
 
 

@@ -6,6 +6,8 @@ ranks (``torch.distributed`` over gloo, two processes). Top-k values and
 residuals exactly; the plain mean within 1e-6; int8 within 0.02 of the
 largest gradient entry (the two packages' random dither streams differ;
 each is within one quantization step, max|g| / 127, of the exact mean).
+Over the ``pod`` dim of an 8-rank mesh, the reference's own bounds of
+``tests/test_sharding.py::test_grad_compression_8dev``.
 """
 import json
 import os
@@ -24,6 +26,8 @@ from repro.parallel.compression import \
 from repro_torch.parallel.compression import (Reduction, compress_tree_psum,
                                               int8_allreduce, rank_generator,
                                               topk_error_feedback)
+
+import torch_mesh_ranks as R
 
 K_FRAC = 0.25
 
@@ -136,3 +140,18 @@ def test_two_ranks_over_gloo_match_the_reference(tmp_path):
                 scale = np.abs(g).max()
                 assert np.abs(r - want[rank]).max() <= 0.02 * scale
                 assert np.abs(r - g.mean(0)).max() <= 0.02 * scale
+
+
+def test_eight_ranks_over_a_mesh_pod_dim(tmp_path):
+    """``Reduction.group`` of the ``pod`` dim of an 8-rank mesh (gloo, 8
+    processes), each rank's gradient its row of the reference test's
+    seeded (8, 64, 32) array: rank 0's reduced gradient against the exact
+    mean within the reference's bounds (``none`` 1e-6, ``int8`` 0.02,
+    ``topk`` 1.0, a sparse first step)."""
+    out = tmp_path / "out.pt"
+    R.spawn(R.compression_over_pod, 8, tmp_path, 8, K_FRAC, str(out))
+    res = torch.load(out)
+    assert res["world"] == 8
+    assert res["errs"]["none"] < 1e-6
+    assert res["errs"]["int8"] < 0.02
+    assert res["errs"]["topk"] < 1.0

@@ -5,6 +5,7 @@ restartable loop (the port's counterparts of ``tests/test_substrate.py``'s
 loop tests) and the launcher, and the refusals that keep a kernel without
 a backward off the training path.
 """
+import dataclasses
 import os
 
 import jax
@@ -175,6 +176,51 @@ def test_optimizers_match_the_reference_on_random_trees(name):
     _assert_tree_close(tp, jp)
     _assert_tree_close(ts, js)
     assert int(ts["count"]) == 4 and ts["count"].dtype == torch.int32
+
+
+@pytest.mark.parametrize("name", ["gemma-2b", "qwen3-moe-30b-a3b"])
+def test_adafactor_on_the_reference_stacked_tree(name):
+    """Three make_train_step steps with Adafactor on the smoke model, the
+    reference's on its stacked tree (a segment's layers on one leading
+    axis) and the port's with the reference's stacks
+    (``params.layer_stacks``): each step's loss within 1e-5, each leaf's
+    weight update within 1e-3 of its norm, and every state leaf, the
+    reference's tree path for path (a stacked norm's scale factored into
+    a row and a column state, the clip over the whole stack)."""
+    ref_cfg, cfg = configs(name)
+    tree = ref_tree(ref_cfg)
+    src = make_source(DataConfig(vocab_size=cfg.vocab_size, seq_len=24,
+                                 global_batch=2, seed=3))
+    jopt = JO.Adafactor(schedule=JO.warmup_cosine(3e-2, 1, 3),
+                        weight_decay=0.01)
+    jstep = jax.jit(jax_make_train_step(
+        ref_cfg, ShardCtx(None, JaxParallelConfig(**TRAIN_PCFG)), jopt))
+    jparams = jax.tree.map(jnp.asarray, tree)
+    jstate = jopt.init(jparams)
+    opt = O.make_optimizer("adafactor", O.warmup_cosine(3e-2, 1, 3),
+                           arch=cfg)
+    opt = dataclasses.replace(opt, weight_decay=0.01)
+    params = P.params_from_jax(tree, cfg)
+    before = {p: t.numpy().copy() for p, t in P.leaves(params)}
+    state = opt.init(params)
+    step = make_train_step(cfg, ParallelConfig(**TRAIN_PCFG), opt)
+    for i in range(3):
+        batch = src.batch(i)
+        jparams, jstate, jm = jstep(jparams, jstate,
+                                    jax.tree.map(jnp.asarray, batch), i)
+        params, state, m = step(params, state, to_torch(batch), i)
+        assert float(m["loss"]) == pytest.approx(float(jm["loss"]),
+                                                 rel=1e-5), i
+    assert_updates_close(before, dict(P.leaves(params)), dict(P.leaves(
+        P.params_from_jax(jax.tree.map(np.asarray, jparams), cfg))))
+    want = dict(P.leaves(jax.tree.map(np.asarray, jstate["v"])))
+    got = dict(P.leaves(state["v"]))
+    assert sorted(got) == sorted(want)
+    assert {p: tuple(t.shape) for p, t in got.items()} == \
+        {p: w.shape for p, w in want.items()}
+    assert_updates_close({p: np.zeros(w.shape) for p, w in want.items()},
+                         got, want)
+    assert int(state["count"]) == 3
 
 
 def test_schedules_and_clip_match_the_reference():
@@ -379,10 +425,15 @@ def test_straggler_detection(tmp_path):
 
 
 def test_the_loop_honours_the_moment_dtype(tmp_path):
+    """As the reference's loop: AdamW's moments are fp32 whatever
+    ``opt_moment_dtype`` says (``make_optimizer`` takes the field)."""
     loop = _loop(tmp_path / "m", 0, steps=2, opt_moment_dtype="bfloat16")
-    assert all(t.dtype == torch.bfloat16
-               for _, t in P.leaves(loop.opt_state["mu"]))
+    for part in ("mu", "nu"):
+        assert all(t.dtype == torch.float32
+                   for _, t in P.leaves(loop.opt_state[part]))
     assert len(loop.run().losses) == 2
+    opt = O.make_optimizer("adamw", O.constant_lr(1e-3), "bfloat16")
+    assert opt.moment_dtype == "bfloat16"
 
 
 def test_the_loop_runs_on_the_card_unless_told_cpu(tmp_path, monkeypatch):
