@@ -161,6 +161,15 @@ Phases, in order; any failure exits non-zero and prints no result:
      (REMAT_RTOL, bit equality stated), step times and peak memory beside
      phase 14's, no kernel launched; the group destroyed before the
      summary. More than one rank runs on the CPU only (tests over gloo).
+ 17. slice 13, every family on a mesh: xlstm-1.3b at full width and
+     depth (48 blocks, d 2,048, 7 mLSTM : 1 sLSTM; the family whose mesh
+     path runs the most per-rank code, sharding.block_local) through
+     TrainLoop at B 4 x S 256, the chunkwise mLSTM (chunk 64) and remat
+     "full", MESH_STEPS steps with no mesh and then on a one-rank NCCL
+     mesh, at microbatches 1 and then 2: each pair's losses held bit for
+     bit (else within REMAT_RTOL, the reason printed), each run's step ms,
+     first step ms, peak memory and kernel launches (none: the training
+     path reaches no kernel); the group destroyed before the summary.
 The line before the last holds the kernels' JSON summary (times are the
 phase-9 device times, the phase-6 event times where the profiler saw none;
 the GEMM's and the GP kernel's launches are phases 4 and 11 together; the
@@ -318,6 +327,13 @@ RESTART_ARCH = "internlm2-1.8b"
 # phase 16, training on a one-rank device mesh: steps, held to phase 14's
 # first ones
 MESH_STEPS = 2
+# phase 17, xlstm-1.3b's training off and on a one-rank mesh: the config's
+# own mLSTM chunk and remat "full" (at S 1,024 launch/dryrun puts remat
+# "none" at 168.7 GiB); S cut from phase 14's 1,024 to 256, as the six
+# sLSTM blocks' step loops are host-bound (at S 1,024 a step took 21.4 s
+# and the phase 313 s, PERF.md)
+XLSTM_ARCH, XLSTM_SHAPE, XLSTM_MICROBATCHES = "xlstm-1.3b", (4, 256), (1, 2)
+XLSTM_PCFG = {**TRAIN_PCFG, "mlstm_chunk": 64, "remat": "full"}
 # phase 15, the dry-run: the peak's limit against max_memory_allocated, the
 # processes the sweep traces in, BO's cell and budget (the reference's
 # prefill_32k cell, then the one-card cell at phase 8's batch)
@@ -2558,12 +2574,13 @@ def train_card_vs_cpu(dev) -> None:
              f"max|d| / max|g| {worst:.2e}")
 
 
-def _train_loop(cfg, pcfg, steps: int, dev, mesh=None):
-    """TrainLoop on ``cfg`` over the synthetic source at TRAIN_SHAPE, the
-    launcher's peak LR, no checkpoint directory, on ``mesh`` if given."""
+def _train_loop(cfg, pcfg, steps: int, dev, mesh=None, shape=None):
+    """TrainLoop on ``cfg`` over the synthetic source at ``shape`` (B, S)
+    (TRAIN_SHAPE unless given), the launcher's peak LR, no checkpoint
+    directory, on ``mesh`` if given."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.runtime.train import LoopConfig, TrainLoop
-    B, S = TRAIN_SHAPE
+    B, S = shape or TRAIN_SHAPE
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
     lc = LoopConfig(steps=steps, log_every=0, peak_lr=TRAIN_PEAK_LR)
     return TrainLoop(cfg, dc, lc, pcfg=pcfg, device=dev, mesh=mesh)
@@ -3033,6 +3050,23 @@ def dryrun_on_card(dev, card: str, sdir: str) -> None:
 # -- phase 16 ------------------------------------------------------------------
 
 
+def _launches() -> tuple:
+    """The kernel wrappers' launch counts: (gemm, gp, flash, decode)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels import matern_gp as kgp
+    return kg.launches, kgp.launches, kfa.launches, kfd.split_launches
+
+
+def _zero_launches() -> None:
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels import matern_gp as kgp
+    kg.launches = kgp.launches = kfa.launches = kfd.split_launches = 0
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -3052,10 +3086,6 @@ def train_on_mesh(dev, card: str, phase14: dict) -> None:
     import torch
     import torch.distributed as dist
     from repro_torch.configs.registry import get_arch
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import flash_decode as kfd
-    from repro_torch.kernels import gemm as kg
-    from repro_torch.kernels import matern_gp as kgp
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import params as P
     from torch.distributed.tensor import DTensor
@@ -3066,7 +3096,7 @@ def train_on_mesh(dev, card: str, phase14: dict) -> None:
                             f"{_free_port()}", world_size=1, rank=0)
     try:
         mesh = make_host_mesh(data=1, model=1)
-        kg.launches = kgp.launches = kfa.launches = kfd.split_launches = 0
+        _zero_launches()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         loop = _train_loop(cfg, pcfg, MESH_STEPS, dev, mesh=mesh)
@@ -3077,8 +3107,7 @@ def train_on_mesh(dev, card: str, phase14: dict) -> None:
         met = loop.run()
         run_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev)
-        counts = (kg.launches, kgp.launches, kfa.launches,
-                  kfd.split_launches)
+        counts = _launches()
         loop = None
     finally:
         dist.destroy_process_group()
@@ -3111,6 +3140,108 @@ def train_on_mesh(dev, card: str, phase14: dict) -> None:
                                                 for r in rels):
         fail(f"the mesh loop's losses {met.losses} against phase 14's "
              f"{want}")
+
+
+# -- phase 17 ------------------------------------------------------------------
+
+
+def _xlstm_run(cfg, pcfg, dev, mesh) -> dict:
+    """One TrainLoop of MESH_STEPS steps at XLSTM_SHAPE, freed after: its
+    losses, step times, peak memory, kernel launches, DTensor leaves and
+    seconds (the weights from the seed included)."""
+    import torch
+    from repro_torch.models import params as P
+    from torch.distributed.tensor import DTensor
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    loop = _train_loop(cfg, pcfg, MESH_STEPS, dev, mesh=mesh,
+                       shape=XLSTM_SHAPE)
+    placed = sum(isinstance(t, DTensor)
+                 for _, t in P.leaves(loop._state_tree()))
+    met = loop.run()
+    out = {"losses": met.losses, "step_ms": [1e3 * t for t in met.step_times],
+           "peak": (torch.cuda.max_memory_allocated(dev)
+                    if dev.type == "cuda" else float("nan")),
+           "launches": _launches(), "placed": placed,
+           "s": time.perf_counter() - t0}
+    loop = met = None
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_xlstm_on_mesh(dev, card: str, cfg=None) -> dict:
+    """Phase 17: ``cfg`` (xlstm-1.3b whole unless given) through TrainLoop
+    at XLSTM_SHAPE with XLSTM_PCFG, MESH_STEPS steps with no mesh and then
+    on a one-rank mesh (``make_host_mesh(data=1, model=1)``: NCCL on the
+    card, gloo on the CPU), at each of XLSTM_MICROBATCHES: the losses of
+    each pair bit for bit, else within REMAT_RTOL; no kernel launched;
+    every weight and moment a DTensor on the mesh. Returns {mb: {"off",
+    "on"}}. The process group is destroyed before returning."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as P
+    from repro_torch.parallel.sharding import ParallelConfig
+    cfg = cfg or get_arch(XLSTM_ARCH)
+    base = ParallelConfig(**XLSTM_PCFG)
+    n = 3 * len(list(P.leaves(P.model_specs(cfg))))
+    B, S = XLSTM_SHAPE
+    log(f"[17] {cfg.name}: {cfg.num_layers} blocks, d {cfg.d_model}, "
+        f"{P.count_params(cfg):,} parameters; B {B} x S {S}, mlstm_chunk "
+        f"{base.mlstm_chunk}, remat {base.remat!r}, {MESH_STEPS} steps a run; "
+        f"on {card} ({smi_line() if dev.type == 'cuda' else 'cpu'})")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    res = {}
+    try:
+        mesh = make_host_mesh(data=1, model=1, device=dev.type)
+        for mb in XLSTM_MICROBATCHES:
+            pcfg = dataclasses.replace(base, microbatches=mb)
+            res[mb] = {side: _xlstm_run(cfg, pcfg, dev, m)
+                       for side, m in (("off", None), ("on", mesh))}
+            for side, r in res[mb].items():
+                log(f"[17] microbatches {mb}, {side} the mesh: losses "
+                    f"{[round(x, 6) for x in r['losses']]}, step ms "
+                    f"{[round(t, 3) for t in r['step_ms']]} (the first "
+                    "holds the first launches" + (" and DTensor's plans"
+                                                   if side == "on" else "")
+                    + f"), peak {r['peak'] / 2**30:.2f} GiB, kernel launches "
+                    f"(gemm, gp, flash, decode) {r['launches']}, "
+                    f"{r['placed']} DTensor leaves of {n}, {r['s']:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    for mb, pair in res.items():
+        off, on = pair["off"], pair["on"]
+        rels = [abs(a - b) / abs(b) for a, b in zip(on["losses"],
+                                                    off["losses"])]
+        log(f"[17] microbatches {mb}: on/off the mesh rel "
+            f"{[f'{r:.2e}' for r in rels]} (limit {REMAT_RTOL}); bit-equal: "
+            f"{on['losses'] == off['losses']}; step ms on/off "
+            f"{on['step_ms'][-1] / off['step_ms'][-1]:.3f}")
+        if len(on["losses"]) != MESH_STEPS or not all(
+                math.isfinite(x) for x in on["losses"] + off["losses"]):
+            fail(f"phase 17 at microbatches {mb}: losses {off['losses']} "
+                 f"off the mesh, {on['losses']} on it")
+        if not all(r <= REMAT_RTOL for r in rels):
+            fail(f"phase 17 at microbatches {mb}: the mesh's losses "
+                 f"{on['losses']} against {off['losses']} off it")
+        if any(off["launches"]) or any(on["launches"]):
+            fail(f"phase 17 launched kernels: {off['launches']}, "
+                 f"{on['launches']}: the training path reaches none")
+        if off["placed"] or on["placed"] != n:
+            fail(f"phase 17: {on['placed']} of {n} leaves DTensors on the "
+                 f"mesh, {off['placed']} off it")
+    first = [res[mb]["off"]["losses"][0] for mb in XLSTM_MICROBATCHES]
+    log(f"[17] the first loss at microbatches {XLSTM_MICROBATCHES}: {first}")
+    return res
 
 
 def shutil_rmtree(path: str) -> None:
@@ -3462,6 +3593,11 @@ def main() -> int:
     t0 = time.perf_counter()
     train_on_mesh(dev, card, trained)
     log(f"[16] done in {time.perf_counter() - t0:.1f} s")
+
+    # 17. xlstm-1.3b whole, off and on a one-rank mesh, 1 and 2 microbatches
+    t0 = time.perf_counter()
+    train_xlstm_on_mesh(dev, card)
+    log(f"[17] done in {time.perf_counter() - t0:.1f} s")
 
     summary = {"kernels": []}
     for name, src, line in (

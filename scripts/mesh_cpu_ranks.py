@@ -4,16 +4,29 @@
     python3 scripts/mesh_cpu_ranks.py
 
 Runs, in spawned CPU processes (``tests/torch_mesh_ranks.py``), the jobs
-``tests/test_torch_mesh.py`` runs: gemma-2b's and internlm2-1.8b's smoke
-step sharded over (data 2, model 2) against unsharded, then gemma-2b's
-elastic restore onto (data 4, model 1) and onto no mesh (4 ranks), and
-two AdamW steps of qwen3-moe-30b-a3b's smoke config over (data 4,
-model 2) (8 ranks). It prints the torch version, each loss, the worst
-gradient leaf's max|sharded - unsharded| / max|unsharded| and the
-restore's bit equality, and exits 1 if the sharded step misses the tests'
-rules (loss 1e-5 relative, gradients 1e-4) or a restore differs. It
-needs no card and no reference package, so it checks the port's mesh
-path against the torch a host has (the card's host among them).
+the mesh tests run, each sharded step against the port's unsharded one on
+the same weights and batch:
+
+- dense: gemma-2b's and internlm2-1.8b's smoke step over (data 2,
+  model 2), then gemma-2b's elastic restore onto (data 4, model 1) and
+  onto no mesh (4 ranks);
+- families: recurrentgemma-9b, xlstm-1.3b (per-step and chunkwise
+  mLSTM) and musicgen-large over (data 2, model 2); gemma-2b at
+  ``microbatches`` 2 over (data 2, model 2) against unsharded at 2;
+  deepseek-v3-671b over (data 1, model 4), where the MoE dispatches in one
+  group on both sides (4 ranks each);
+- moe: two AdamW steps of qwen3-moe-30b-a3b's smoke config over (data 4,
+  model 2) (8 ranks; its groups differ from the unsharded step's, so only
+  the losses' fall is held);
+- blocks: ``sharding.block_local``'s (rows, channels) and (rows, heads)
+  blocks over (data 2, model 2) against the unsharded call.
+
+It prints the torch version, each loss, the worst gradient leaf's
+max|sharded - unsharded| / max|unsharded| and the restore's bit equality,
+and exits 1 if a sharded step misses the tests' rules (loss 1e-5
+relative, gradients 1e-4) or a restore differs. It needs no card and no
+reference package, so it checks the port's mesh path against the torch a
+host has (the card's host among them).
 """
 from __future__ import annotations
 
@@ -31,46 +44,98 @@ import torch  # noqa: E402
 
 import torch_mesh_ranks as R  # noqa: E402
 
+LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
+FAMILIES = ((1, 4, [("deepseek-v3-671b", {})]),
+            (2, 2, [("recurrentgemma-9b", {}), ("xlstm-1.3b", {}),
+                    ("xlstm-1.3b", {"mlstm_chunk": 8}), ("musicgen-large", {}),
+                    ("gemma-2b", {"microbatches": 2})]))
 
-def main() -> int:
+
+def held(results, mesh: str) -> bool:
+    """Print and hold each run of ``sharded_vs_unsharded``."""
+    ok = True
+    for name, got in results.items():
+        s, u = got["sharded"], got["unsharded"]
+        rel = abs(s["loss"] - u["loss"]) / abs(u["loss"])
+        path, worst = max(((p, float((s["grads"][p] - g).abs().max()
+                                     / g.abs().max().clamp(min=1e-30)))
+                           for p, g in u["grads"].items()),
+                          key=lambda pw: pw[1])
+        print(f"{name} ({mesh}): loss sharded {s['loss']:.7f}, unsharded "
+              f"{u['loss']:.7f} (rel {rel:.2e}); worst gradient leaf "
+              f"{path} {worst:.2e}", flush=True)
+        ok &= rel <= LOSS_RTOL and worst <= GRAD_RTOL
+    return ok
+
+
+def dense(tmp: pathlib.Path) -> bool:
+    R.spawn(R.dense_job, 4, tmp, ["gemma-2b", "internlm2-1.8b"],
+            str(tmp / "ckpt"), str(tmp / "out"))
+    ok = held(torch.load(tmp / "out.steps"), "data 2, model 2")
+    equal = torch.load(tmp / "out.restore")["equal"]
+    print(f"gemma-2b restored (step, restored, bit-equal): {equal}",
+          flush=True)
+    return ok and all(v == (2, True, True) for v in equal.values())
+
+
+def families(tmp: pathlib.Path) -> bool:
+    ok = True
+    for data, model, runs in FAMILIES:
+        group = tmp / f"{data}x{model}"      # a rendezvous file a group
+        group.mkdir()
+        out = group / "out.pt"
+        R.spawn(R.sharded_vs_unsharded, 4, group, runs, data, model,
+                str(out), False)
+        ok &= held(torch.load(out), f"data {data}, model {model}")
+    return ok
+
+
+def moe(tmp: pathlib.Path) -> bool:
     from repro_torch.configs.registry import smoke_config
     from repro_torch.models import params as P
+    name = "qwen3-moe-30b-a3b"
+    cfg = smoke_config(name).replace(dtype="float32")
+    torch.save(P.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
+               tmp / "params.pt")
+    np.savez(tmp / "batch.npz", **R.batch_np(cfg, 8, 32))
+    R.spawn(R.mesh_steps, 8, tmp, 4, 2, [(name, {}, str(tmp / "params.pt"),
+                                          str(tmp / "batch.npz"), 2)],
+            str(tmp / "moe.pt"))
+    losses = torch.load(tmp / "moe.pt")[name]["losses"]
+    print(f"{name} (data 4, model 2), 2 AdamW steps: losses {losses}",
+          flush=True)
+    return all(np.isfinite(losses)) and losses[1] < losses[0]
+
+
+def blocks(tmp: pathlib.Path) -> bool:
+    R.spawn(R.block_checks, 4, tmp, 2, 2, str(tmp / "blocks.pt"))
+    res = torch.load(tmp / "blocks.pt")
+    s, u = res["sharded"], res["unsharded"]
+    out = max(float((a - b).abs().max()) for a, b in zip(s["outs"],
+                                                         u["outs"]))
+    grad = max(float((s["grads"][p] - g).abs().max())
+               for p, g in u["grads"].items())
+    print(f"block_local (data 2, model 2): max|d| outputs {out:.2e}, "
+          f"gradients {grad:.2e}; output placements {s['out_placements']}",
+          flush=True)
+    return out <= 1e-5 and grad <= 1e-5
+
+
+JOBS = {"dense": dense, "families": families, "moe": moe, "blocks": blocks}
+
+
+def main() -> int:
     print(f"torch {torch.__version__}, {os.cpu_count()} CPUs", flush=True)
     ok = True
     with tempfile.TemporaryDirectory(prefix="mesh_cpu_ranks_") as d:
-        tmp = pathlib.Path(d)
-        (tmp / "dense").mkdir()
-        t0 = time.perf_counter()
-        R.spawn(R.dense_job, 4, tmp / "dense", ["gemma-2b", "internlm2-1.8b"],
-                str(tmp / "ckpt"), str(tmp / "out"))
-        for name, got in torch.load(tmp / "out.steps").items():
-            s, u = got["sharded"], got["unsharded"]
-            rel = abs(s["loss"] - u["loss"]) / abs(u["loss"])
-            worst = max(float((s["grads"][p] - g).abs().max()
-                              / g.abs().max().clamp(min=1e-30))
-                        for p, g in u["grads"].items())
-            print(f"{name} (data 2, model 2): loss sharded {s['loss']:.7f}, "
-                  f"unsharded {u['loss']:.7f} (rel {rel:.2e}); worst "
-                  f"gradient leaf {worst:.2e}", flush=True)
-            ok &= rel <= 1e-5 and worst <= 1e-4
-        equal = torch.load(tmp / "out.restore")["equal"]
-        print(f"gemma-2b restored (step, restored, bit-equal): {equal}; "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        ok &= all(v == (2, True, True) for v in equal.values())
-
-        t0 = time.perf_counter()
-        cfg = smoke_config("qwen3-moe-30b-a3b").replace(dtype="float32")
-        torch.save(P.init_params(cfg, torch.Generator().manual_seed(0),
-                                 "cpu"), tmp / "params.pt")
-        np.save(tmp / "tokens.npy", R.tokens(cfg.vocab_size, 8, 32))
-        (tmp / "moe").mkdir()
-        R.spawn(R.moe_steps, 8, tmp / "moe", cfg.name.removesuffix("-smoke"),
-                4, 2, str(tmp / "params.pt"), str(tmp / "tokens.npy"), 2,
-                str(tmp / "moe.pt"))
-        losses = torch.load(tmp / "moe.pt")["losses"]
-        print(f"qwen3-moe-30b-a3b (data 4, model 2), 2 AdamW steps: losses "
-              f"{losses}; {time.perf_counter() - t0:.1f} s", flush=True)
-        ok &= all(np.isfinite(losses)) and losses[1] < losses[0]
+        for name in JOBS:
+            tmp = pathlib.Path(d) / name
+            tmp.mkdir()
+            t0 = time.perf_counter()
+            passed = JOBS[name](tmp)
+            print(f"[{name}] {'ok' if passed else 'FAILED'} in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            ok &= passed
     print("ok" if ok else "FAILED")
     return 0 if ok else 1
 

@@ -422,10 +422,14 @@ def run_cell(arch_name: str, shape_name: str, card: str,
 
 #: one-card cells: a reference cell's sequence at the batch one card
 #: serves (phase 8 of chip_smoke.py serves gemma-2b at B 4), where the
-#: sharding knobs decide whether the step fits; the reference's cells
-#: (``configs/arch.SHAPES``) are pod-sized
+#: sharding knobs decide whether the step fits, and the train cells the
+#: card trains (chip_smoke.py: phase 14's B 4 x S 1,024, and phase 17's
+#: S 256, where xlstm-1.3b's host-bound sLSTM loop fits the script's
+#: time); the reference's cells (``configs/arch.SHAPES``) are pod-sized
 CARD_SHAPES = {"prefill_32k_b4": ShapeConfig("prefill_32k_b4", 32_768, 4,
-                                             "prefill")}
+                                             "prefill"),
+               "train_1k_b4": ShapeConfig("train_1k_b4", 1024, 4, "train"),
+               "train_256_b4": ShapeConfig("train_256_b4", 256, 4, "train")}
 #: the ParallelConfig fields only a train step reads
 _TRAIN_ONLY = ("remat", "microbatches", "logits_chunk", "opt_moment_dtype")
 #: counts of the cells traced in this process, by the knobs they read

@@ -13,11 +13,14 @@ blocks (their ``lax.scan`` s as Python loops).
 Functions take ``(params, x, *, cfg, pcfg, mode, cache, positions)`` and
 return ``(y, new_cache)``; ``pcfg`` is the port's ``ParallelConfig``. On a
 device mesh the training path also passes ``px``, a ``ShardCtx``
-(``parallel/sharding.py``): ``mlp``, ``gqa_attention`` and ``moe_block``
-place the reference's activation constraints through it, and
-``moe_block`` splits its dispatch into the reference's data x pod
-groups. ``px=None`` (every serving path, as the reference serves off a
-mesh) places nothing and dispatches in one group.
+(``parallel/sharding.py``): every block places the reference's activation
+constraints through it, ``moe_block`` splits its dispatch into the
+reference's data x pod groups, and what DTensor does not place (the
+attention cores, routing, the recurrences' convs, scans and loops) runs
+on each rank's own block in plain tensors (``_heads_local``,
+``sharding.block_local``), as GSPMD computes it there. ``px=None`` (every
+serving path, as the reference serves off a mesh) places nothing and
+dispatches in one group.
 In decode every cache entry is updated in place (the reference returns
 new arrays): a KV or latent cache has one slot a step written, a
 recurrent state is copied into its buffer, so that a captured CUDA graph
@@ -42,8 +45,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.parallel.sharding import (ParallelConfig, ShardCtx,
-                                           act_sharding, constrain,
-                                           rows_local)
+                                           act_sharding, block_local,
+                                           constrain)
 
 Cache = Optional[Dict[str, torch.Tensor]]
 
@@ -376,21 +379,25 @@ def gqa_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
     return y, new_cache
 
 
-def _heads_local(px: Optional[ShardCtx], core, q, k, v, positions):
-    """``core(q, k, v, positions)``, an attention core. Off a mesh, the
-    call. On a mesh, each rank runs it on its own batch rows and query
-    heads, as ``q``'s constraint placed them (GSPMD computes there too):
-    K and V are placed by the ``act_kv_heads`` rule, and where a rank holds
-    a slice of the query heads but every KV head, it takes the KV head of
-    each of its query heads (a gradient it gives K or V is then its share
-    of a sum over the ranks of those mesh dims). A sharded sequence is
-    refused: the core attends over the whole sequence."""
+def _heads_local(px: Optional[ShardCtx], core, q, k, v, positions=None):
+    """``core(q, k, v, positions)``, an attention core (``positions`` may
+    be None: cross-attention has none). Off a mesh, the call. On a mesh,
+    each rank runs it on its own batch rows and query heads, Q placed by
+    the ``act_heads`` rule as ``gqa_attention``'s constraint places it
+    (GSPMD computes there too), K and V by the ``act_kv_heads`` rule;
+    where a rank holds a slice of the query heads but every KV head, it
+    takes the KV head of each of its query heads (a gradient it gives K or
+    V is then its share of a sum over the ranks of those mesh dims). A
+    sharded sequence is refused: the core attends over the whole
+    sequence."""
     if px is None or px.mesh is None:
         return core(q, k, v, positions)
     from torch.distributed.tensor import (DTensor, Partial, Shard,
                                           distribute_tensor)
     mesh = px.mesh
-    qp = tuple(q.placements)
+    heads = ("act_batch", "act_seq", "act_heads", None)
+    _, qp = act_sharding(q.shape, heads, mesh, px.pcfg)
+    q = q.redistribute(mesh, qp)
     _, kp = act_sharding(k.shape, ("act_batch", "act_seq", "act_kv_heads",
                                    None), mesh, px.pcfg)
     if Shard(1) in qp + kp:
@@ -409,10 +416,12 @@ def _heads_local(px: Optional[ShardCtx], core, q, k, v, positions):
         G = q.shape[2] // k.shape[2]
         idx = (first + torch.arange(ql.shape[2], device=ql.device)) // G
         k, v = k[:, :, idx], v[:, :, idx]
-    _, pp = act_sharding(positions.shape, ("act_batch", "act_seq"), mesh,
-                         px.pcfg)
-    pos = distribute_tensor(positions, mesh, pp, src_data_rank=None)
-    out = core(ql, k, v, pos.to_local())
+    if positions is not None:
+        _, pp = act_sharding(positions.shape, ("act_batch", "act_seq"), mesh,
+                             px.pcfg)
+        positions = distribute_tensor(positions, mesh, pp,
+                                      src_data_rank=None).to_local()
+    out = core(ql, k, v, positions)
     return DTensor.from_local(out, mesh, qp, run_check=False)
 
 
@@ -433,19 +442,29 @@ def _prefill_attention(q, k, v, *, positions, window, scale,
                              window=window, scale=scale)
 
 
-def cross_attention(p, x, cond_kv, *, cfg: ArchConfig) -> torch.Tensor:
-    """Attention over precomputed (k, v) of the conditioning embeddings:
-    no mask, no position."""
-    hd = cfg.resolved_head_dim
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k, v = cond_kv
-    B, Sq, H, _ = q.shape
+def _cross_core(q, k, v):
+    """Attention of q (B,Sq,H,hd) over k, v (B,Sc,KV,hd), GQA by head
+    grouping: no mask, no position."""
+    B, Sq, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd)
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() / math.sqrt(hd)
     prob = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", prob.to(v.dtype), v)
-    return torch.einsum("bshk,hkd->bsd", out.reshape(B, Sq, H, hd), p["wo"])
+    return out.reshape(B, Sq, H, hd)
+
+
+def cross_attention(p, x, cond_kv, *, cfg: ArchConfig,
+                    px: Optional[ShardCtx] = None) -> torch.Tensor:
+    """Attention over precomputed (k, v) of the conditioning embeddings:
+    no mask, no position. On a mesh the core runs on each rank's rows and
+    heads (``_heads_local``); the reference places no constraint here, so
+    GSPMD computes the plain core on each shard too."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k, v = cond_kv
+    out = _heads_local(px, lambda q_, k_, v_, _: _cross_core(q_, k_, v_),
+                       q, k, v)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def cond_kv(p, cond, *, cfg: ArchConfig):
@@ -632,7 +651,7 @@ def moe_block(p, x: torch.Tensor, *, cfg: ArchConfig, pcfg: ParallelConfig,
     not the whole batch, decide which copies drop.
 
     :func:`_dispatch` routes and gathers each group's tokens, on a mesh on
-    the ranks that hold the group (``sharding.rows_local``); the experts are
+    the ranks that hold the group (``sharding.block_local``); the experts are
     batched products over (G, E, C, d) with E placed over ``model`` (the
     reference's expert parallelism); :func:`_combine` gathers each copy's
     row back, weighted by its gate. Every shape is static and nothing is
@@ -652,9 +671,10 @@ def moe_block(p, x: torch.Tensor, *, cfg: ArchConfig, pcfg: ParallelConfig,
     xg = constrain(x.reshape(G, T // G, d), ("act_group", None, "act_embed"),
                    px)
     route = {k: p[k] for k in ("router", "router_bias") if k in p}
-    buf, top_idx, weights, slot, keep, balance = rows_local(
-        px, "act_group", lambda rp, xl: _dispatch(rp, xl, cfg=cfg, C=C),
-        route, xg)
+    groups = ("act_group",)
+    buf, top_idx, weights, slot, keep, balance = block_local(
+        px, lambda rp, xl: _dispatch(rp, xl, cfg=cfg, C=C), (route, xg),
+        (None, groups), (groups,) * 6)
     buf = constrain(buf, ("act_group", "act_experts", None, None), px)
 
     def experts(w, b):
@@ -667,8 +687,9 @@ def moe_block(p, x: torch.Tensor, *, cfg: ArchConfig, pcfg: ParallelConfig,
     # in GSPMD); the combine then reads every expert of its groups
     out_buf = constrain(out_buf, ("act_group", None, None, "act_mlp") if a2a
                         else ("act_group", "act_experts", None, None), px)
-    (y,) = rows_local(px, "act_group", lambda _, *t: (_combine(*t, K),), {},
-                      out_buf, top_idx, slot, keep, weights)
+    (y,) = block_local(px, lambda *t: (_combine(*t, K),),
+                       (out_buf, top_idx, slot, keep, weights), (groups,) * 5,
+                       (groups,))
     if a2a:
         y = constrain(y, ("act_group", None, "act_mlp"), px)
 
@@ -687,15 +708,17 @@ def moe_block(p, x: torch.Tensor, *, cfg: ArchConfig, pcfg: ParallelConfig,
 
 
 def mla_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
-                  cache: Cache, positions) -> Tuple[torch.Tensor, Cache]:
+                  cache: Cache, positions, px: Optional[ShardCtx] = None
+                  ) -> Tuple[torch.Tensor, Cache]:
     """Prefill expands k_nope and v per head from the latent ``c_kv`` and
     runs the reference's prefill dispatch (q/k head dim dn + dr against v's
     dv: never the flash kernel); decode is the absorbed-weight form, scores
     and context in the compressed space over the ``c_kv``/``k_rope`` latent
-    cache."""
+    cache. On a mesh ``q_nope`` takes the reference's constraint and the
+    prefill core runs on each rank's rows and heads (``block_local``), the
+    one ``k_rope`` head whole on each."""
     m = cfg.mla
-    B, S, _ = x.shape
-    H = cfg.num_heads
+    S = x.shape[1]
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     scale = 1.0 / math.sqrt(dn + dr)
 
@@ -708,6 +731,7 @@ def mla_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
     cos, sin = rope_tables(positions, dr, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    q_nope = constrain(q_nope, ("act_batch", "act_seq", "act_heads", None), px)
 
     if mode == "decode":
         if cache is None or S != 1:
@@ -730,12 +754,19 @@ def mla_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
 
     k_nope = torch.einsum("bsl,lhn->bshn", c_kv, p["wk_nope"])
     v = torch.einsum("bsl,lhv->bshv", c_kv, p["wv"])
-    k_rope_h = k_rope[:, :, None, :].expand(B, S, H, dr)
-    q_full = torch.cat([q_nope, q_rope], dim=-1)
-    k_full = torch.cat([k_nope, k_rope_h], dim=-1)
-    out = _prefill_attention(q_full, k_full, v, positions=positions,
-                             window=None, scale=scale, pcfg=pcfg,
-                             device=x.device)
+
+    def core(qn, qr, kn, kr, vv, pos):
+        k_rope_h = kr[:, :, None, :].expand(*kn.shape[:3], dr)
+        return (_prefill_attention(
+            torch.cat([qn, qr], dim=-1), torch.cat([kn, k_rope_h], dim=-1),
+            vv, positions=pos, window=None, scale=scale, pcfg=pcfg,
+            device=x.device),)
+
+    heads = ("act_batch", None, "act_heads")
+    (out,) = block_local(px, core, (q_nope, q_rope, k_nope, k_rope, v,
+                                    positions),
+                         (heads, heads, heads, ("act_batch",), heads,
+                          ("act_batch",)), (heads,))
     y = torch.einsum("bshv,hvd->bsd", out, p["wo"])
     new_cache = cache
     if mode == "prefill":
@@ -806,33 +837,65 @@ def _linear_scan(a, b):
     return a, b
 
 
-def rglru_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
-                cache: Cache) -> Tuple[torch.Tensor, Cache]:
-    r = cfg.rglru
-    B = x.shape[0]
-    gate_y = _act("geglu")(x @ p["wy"])
-    xx = x @ p["wx"]
-    conv_state = cache["conv"] if cache is not None else None
-    xx, new_conv = _causal_conv(xx, p["conv_w"], p["conv_b"], conv_state)
+#: a causal conv's parameters by their block axes: a rank's slice of the
+#: channels (``act_mlp``)
+_CONV_AXES = {"conv_w": (None, "act_mlp"), "conv_b": ("act_mlp",)}
+#: the RG-LRU's per-channel parameters by their block axes: the conv's,
+#: and the gates' diagonal blocks, which line up with the rank's channels
+#: where the blocks divide over the same mesh axes (else the channels are
+#: whole on every rank)
+_RGLRU_AXES = {**_CONV_AXES,
+               "gate_r_w": ("act_mlp",), "gate_r_b": ("act_mlp",),
+               "gate_i_w": ("act_mlp",), "gate_i_b": ("act_mlp",),
+               "a_param": ("act_mlp",)}
+#: (rows, whole sequence, channels): a recurrence runs over the whole
+#: sequence on each rank
+_CHANNELS = ("act_batch", None, "act_mlp")
 
+
+def _rglru_scan(p, xx, conv_state, h0, *, c_exponent: float, decode: bool):
+    """The RG-LRU from the recurrence's input xx (B,S,L): the causal conv,
+    the gates and the linear recurrence, elementwise over channels.
+    ``h0`` None starts from zeros. Returns (hs (B,S,L) fp32, conv state,
+    last h)."""
+    xx, new_conv = _causal_conv(xx, p["conv_w"], p["conv_b"], conv_state)
     rg = torch.sigmoid(_block_diag(xx, p["gate_r_w"], p["gate_r_b"]).float())
     ig = torch.sigmoid(_block_diag(xx, p["gate_i_w"], p["gate_i_b"]).float())
-    log_a = -r.c_exponent * F.softplus(p["a_param"]) * rg       # (B,S,L) fp32
+    log_a = -c_exponent * F.softplus(p["a_param"]) * rg       # (B,S,L) fp32
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
     gated = mult * ig * xx.float()
-
-    h0 = (cache["h"].float() if cache is not None else
-          torch.zeros((B, xx.shape[-1]), device=x.device))
-    if mode == "decode":
+    if h0 is None:
+        h0 = torch.zeros((xx.shape[0], xx.shape[-1]), device=xx.device)
+    if decode:
         new_h = a[:, 0] * h0 + gated[:, 0]
-        hs = new_h[:, None, :]
+        return new_h[:, None, :], new_conv, new_h
+    A, Bc = _linear_scan(a, gated)
+    hs = A * h0[:, None, :] + Bc
+    return hs, new_conv, hs[:, -1]
+
+
+def rglru_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
+                cache: Cache, px: Optional[ShardCtx] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+    """The RG-LRU block. On a mesh (train mode) ``xx`` takes the
+    reference's constraint and the recurrence runs on each rank's rows and
+    channels (``block_local``), exact with no communication."""
+    gate_y = _act("geglu")(x @ p["wy"])
+    xx = constrain(x @ p["wx"], ("act_batch", "act_seq", "act_mlp"), px)
+    kw = dict(c_exponent=cfg.rglru.c_exponent, decode=mode == "decode")
+    if cache is None:
+        (hs,) = block_local(
+            px, lambda q, t: _rglru_scan(q, t, None, None, **kw)[:1],
+            ({k: p[k] for k in _RGLRU_AXES}, xx), (_RGLRU_AXES, _CHANNELS),
+            (_CHANNELS,))
+        state = {}
     else:
-        A, Bc = _linear_scan(a, gated)
-        hs = A * h0[:, None, :] + Bc
-        new_h = hs[:, -1]
+        hs, conv, h = _rglru_scan(p, xx, cache["conv"], cache["h"].float(),
+                                  **kw)
+        state = dict(conv=conv, h=h)
     y = (gate_y * hs.to(x.dtype)) @ p["wo"]
-    return y, _new_state(cache, mode, conv=new_conv, h=new_h)
+    return y, _new_state(cache, mode, **state)
 
 
 # ---------------------------------------------------------------------------
@@ -936,65 +999,111 @@ def _mlstm_steps(q, k, v, ig, fg, c, n, m):
     return _stack_steps(hs, S), (c, n, m)
 
 
+def _mlstm_scan(q, k, v, ig, fg, state, chunk: int, bf16_streams: bool):
+    """The mLSTM recurrence of q, k (B,S,nh,dqk) [q pre-scaled], v
+    (B,S,nh,dv) and the raw gates ig, fg (B,S,nh) from ``state`` (c, n, m)
+    or, where it is None, zeros: chunkwise where ``chunk`` divides a longer
+    sequence, else the per-step scan. Returns (h (B,S,nh,dv), state)."""
+    B, S, nh, dqk = q.shape
+    if state is None:
+        state = (torch.zeros((B, nh, dqk, v.shape[-1]), device=q.device),
+                 torch.zeros((B, nh, dqk), device=q.device),
+                 torch.zeros((B, nh), device=q.device))
+    if chunk and S % chunk == 0 and S > chunk:
+        return _mlstm_chunkwise(q, k, v, ig, fg, *state, chunk,
+                                bf16_streams=bf16_streams)
+    return _mlstm_steps(q, k, v, ig, fg, *state)
+
+
+#: a recurrence's (rows, whole sequence, heads) block
+_HEADS = ("act_batch", None, "act_heads")
+#: heads whole again, for a norm over every head
+_HEADS_WHOLE = ("act_batch", "act_seq", None, None)
+
+
+#: the mLSTM's head projections by their block axes: each rank's heads,
+#: from every channel
+_MLSTM_HEAD_AXES = {"wq": (None, "act_heads"), "wk": (None, "act_heads"),
+                    "wv": (None, "act_heads"),
+                    "w_igate": (None, "act_heads"), "b_igate": ("act_heads",),
+                    "w_fgate": (None, "act_heads"), "b_fgate": ("act_heads",)}
+
+
 def mlstm_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
-                cache: Cache) -> Tuple[torch.Tensor, Cache]:
+                cache: Cache, px: Optional[ShardCtx] = None
+                ) -> Tuple[torch.Tensor, Cache]:
     """The mLSTM block: chunkwise where ``pcfg.mlstm_chunk`` divides a
-    longer sequence outside decode, else the per-step scan."""
-    xc = cfg.xlstm
+    longer sequence outside decode, else the per-step scan. On a mesh
+    (train mode) the up-projection and the causal conv run on each rank's
+    rows and channels, ``inner_in`` takes the reference's constraint, the
+    head projections and the recurrence run on each rank's rows and heads
+    from every channel (``block_local``: GSPMD's sums pending over
+    ``model`` are each rank's whole contraction here; torch 2.11's DTensor
+    cannot add the gates' biases to the pending sums), and the heads are
+    whole again for the norm over the inner dim."""
     B, S, d = x.shape
-    up = torch.einsum("bsd,dti->bsti", x, p["w_up"])
-    gate_br, inner_in = up[:, :, 0], up[:, :, 1]
-    conv_state = cache["conv"] if cache is not None else None
-    conv_out, new_conv = _causal_conv(inner_in, p["conv_w"], p["conv_b"],
-                                      conv_state)
-    conv_out = F.silu(conv_out)
-
-    nh = xc.num_heads
-    q = torch.einsum("bsi,ihk->bshk", conv_out, p["wq"])
-    k = torch.einsum("bsi,ihk->bshk", conv_out, p["wk"])
-    v = torch.einsum("bsi,ihk->bshk", inner_in, p["wv"])
-    dqk, dv = q.shape[-1], v.shape[-1]
-    q = q / math.sqrt(dqk)
-    c32 = conv_out.float()
-    ig = torch.einsum("bsi,ih->bsh", c32, p["w_igate"]) + p["b_igate"]
-    fg = torch.einsum("bsi,ih->bsh", c32, p["w_fgate"]) + p["b_fgate"]
-
-    if cache is not None:
-        c0, n0, m0 = (cache[n].float() for n in ("c", "n", "m"))
+    # the up-projection on each rank's rows and channels (DTensor in torch
+    # 2.11 refuses the product's flattening of w_up's (2, inner) dims)
+    gate_br, inner_in = block_local(
+        px, lambda w, t: torch.einsum("bsd,dti->bsti", t, w).unbind(2),
+        (p["w_up"], x), ((None, None, "act_mlp"), ("act_batch",)),
+        (_CHANNELS, _CHANNELS))
+    inner_in = constrain(inner_in, ("act_batch", "act_seq", "act_mlp"), px)
+    conv = {k: p[k] for k in _CONV_AXES}
+    if cache is None:
+        (conv_out,) = block_local(
+            px, lambda q, t: (F.silu(_causal_conv(t, q["conv_w"],
+                                                  q["conv_b"], None)[0]),),
+            (conv, inner_in), (_CONV_AXES, _CHANNELS), (_CHANNELS,))
     else:
-        c0 = torch.zeros((B, nh, dqk, dv), device=x.device)
-        n0 = torch.zeros((B, nh, dqk), device=x.device)
-        m0 = torch.zeros((B, nh), device=x.device)
+        conv_out, new_conv = _causal_conv(inner_in, conv["conv_w"],
+                                          conv["conv_b"], cache["conv"])
+        conv_out = F.silu(conv_out)
 
-    chunk = pcfg.mlstm_chunk
-    if mode != "decode" and chunk and S % chunk == 0 and S > chunk:
-        h, (c, n, m) = _mlstm_chunkwise(q, k, v, ig, fg, c0, n0, m0, chunk,
-                                        bf16_streams=pcfg.mlstm_bf16_streams)
+    chunk = 0 if mode == "decode" else pcfg.mlstm_chunk
+
+    def heads(w, ci, ii, state):
+        q = torch.einsum("bsi,ihk->bshk", ci, w["wq"])
+        k = torch.einsum("bsi,ihk->bshk", ci, w["wk"])
+        v = torch.einsum("bsi,ihk->bshk", ii, w["wv"])
+        q = q / math.sqrt(q.shape[-1])
+        c32 = ci.float()
+        ig = torch.einsum("bsi,ih->bsh", c32, w["w_igate"]) + w["b_igate"]
+        fg = torch.einsum("bsi,ih->bsh", c32, w["w_fgate"]) + w["b_fgate"]
+        return _mlstm_scan(q, k, v, ig, fg, state, chunk,
+                           pcfg.mlstm_bf16_streams)
+
+    proj = {k: p[k] for k in _MLSTM_HEAD_AXES}
+    if cache is None:
+        (h,) = block_local(px, lambda w, ci, ii: heads(w, ci, ii, None)[:1],
+                           (proj, conv_out, inner_in),
+                           (_MLSTM_HEAD_AXES, ("act_batch",), ("act_batch",)),
+                           (_HEADS,))
+        state = {}
     else:
-        h, (c, n, m) = _mlstm_steps(q, k, v, ig, fg, c0, n0, m0)
+        h, (c, n, m) = heads(proj, conv_out, inner_in, tuple(
+            cache[n].float() for n in ("c", "n", "m")))
+        state = dict(c=c, n=n, m=m, conv=new_conv)
+    h = constrain(h, _HEADS_WHOLE, px)
     h = rms_norm(h.reshape(B, S, -1), p["out_norm"]["scale"], cfg.norm_eps)
     h = h * F.silu(gate_br)
     y = torch.einsum("bsi,id->bsd", h.to(x.dtype), p["w_down"])
-    return y, _new_state(cache, mode, c=c, n=n, m=m, conv=new_conv)
+    return y, _new_state(cache, mode, **state)
 
 
-def slstm_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
-                cache: Cache) -> Tuple[torch.Tensor, Cache]:
-    """The sLSTM block: a per-step scan with a recurrent (hidden-to-hidden)
-    product a head. Without a cache the normalizer starts at 1e-6 (the
-    reference's), in a cache at 1 (``model.init_cache``)."""
-    B, S, d = x.shape
-    nh = cfg.xlstm.num_heads
-    dh = d // nh
-    xg = torch.einsum("bsd,dghk->bsghk", x, p["wx"]).float()  # (B,S,4,nh,dh)
-    if cache is not None:
-        c, n, h, m = (cache[k].float() for k in ("c", "n", "h", "m"))
-    else:
-        z = torch.zeros((B, nh, dh), device=x.device)
-        c, n, h, m = z, z + 1e-6, z, z
+def _slstm_scan(p, xg, state):
+    """The sLSTM's per-step scan of xg (B,S,4,nh,dh) fp32 with the
+    recurrent product of ``p["r"]`` a head, from ``state`` (c, n, h, m) or,
+    where it is None, zeros with the normalizer at 1e-6 (the reference's).
+    Returns (hs (B,S,nh,dh), state)."""
+    B, S, _, nh, dh = xg.shape
+    if state is None:
+        z = torch.zeros((B, nh, dh), device=xg.device)
+        state = (z, z + 1e-6, z, z)
+    c, n, h, m = state
     r = p["r"].float()
     hs = []
-    for t in range(_scan_len(x, S, "slstm")):
+    for t in range(_scan_len(xg, S, "slstm")):
         rec = torch.einsum("bhk,ghkl->bghl", h, r)
         pre = xg[:, t] + rec + p["b"]
         i_raw, f_raw, z_raw, o_raw = pre.unbind(dim=1)
@@ -1006,6 +1115,36 @@ def slstm_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
         h = torch.sigmoid(o_raw) * (c / torch.clamp(n, min=1e-6))
         m = m_new
         hs.append(h)
-    y = _stack_steps(hs, S).reshape(B, S, d)
-    y = rms_norm(y, p["group_norm"]["scale"], cfg.norm_eps).to(x.dtype)
-    return y, _new_state(cache, mode, c=c, n=n, h=h, m=m)
+    return _stack_steps(hs, S), (c, n, h, m)
+
+
+def slstm_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
+                cache: Cache, px: Optional[ShardCtx] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+    """The sLSTM block: a per-step scan with a recurrent (hidden-to-hidden)
+    product a head. Without a cache the normalizer starts at 1e-6 (the
+    reference's), in a cache at 1 (``model.init_cache``). On a mesh
+    (train mode) the input projection and the scan run on each rank's rows
+    and heads in plain tensors (``block_local``; the reference places no
+    constraint here), and the heads are whole again for the norm over
+    ``d``."""
+    B, S, d = x.shape
+
+    def scan(q, t, state):
+        xg = torch.einsum("bsd,dghk->bsghk", t, q["wx"]).float()
+        return _slstm_scan(q, xg, state)                # xg (B,S,4,nh,dh)
+
+    rec = {k: p[k] for k in ("wx", "r", "b")}
+    if cache is None:
+        (hs,) = block_local(
+            px, lambda q, t: scan(q, t, None)[:1], (rec, x),
+            ({"wx": (None, None, "act_heads"), "r": (None, "act_heads"),
+              "b": (None, "act_heads")}, ("act_batch",)), (_HEADS,))
+        state = {}
+    else:
+        hs, (c, n, h, m) = scan(rec, x, tuple(
+            cache[k].float() for k in ("c", "n", "h", "m")))
+        state = dict(c=c, n=n, h=h, m=m)
+    hs = constrain(hs, _HEADS_WHOLE, px)
+    y = rms_norm(hs.reshape(B, S, d), p["group_norm"]["scale"], cfg.norm_eps)
+    return y.to(x.dtype), _new_state(cache, mode, **state)

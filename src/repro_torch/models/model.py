@@ -11,8 +11,8 @@ Python, and its cache is one dict a layer in the same order. Train mode
 (no cache) runs each layer under the reference's ``remat`` policy
 (``_remat_wrap`` on ``torch.utils.checkpoint``). On a device mesh
 (``px``, a ``ShardCtx``) the embedding output takes the reference's
-constraint and the layers theirs; the layer kinds whose constraint sites
-the port has not placed yet raise (:func:`mesh_refusal`). ``cache_specs`` and
+constraint and every layer kind its own, as the reference places them
+(``models/layers.py``). ``cache_specs`` and
 ``abstract_cache`` are the dry-run's views of the cache: its shapes and
 dtypes, and the cache as tensors on the ``meta`` device (no storage).
 """
@@ -31,7 +31,7 @@ from repro_torch.configs.arch import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.params import DTYPES, layer_kinds
 from repro_torch.parallel.sharding import (ParallelConfig, ShardCtx,
-                                           constrain, rows_local)
+                                           block_local, constrain)
 
 Tree = Dict[str, Any]
 
@@ -169,7 +169,7 @@ def _apply_layer(kind: str, p: Tree, x: torch.Tensor, *, cfg: ArchConfig,
         kw = dict(cfg=cfg, pcfg=pcfg, mode=mode, cache=a_cache,
                   positions=positions)
         if mla:
-            a_out, a_cache = L.mla_attention(p["attn"], h, **kw)
+            a_out, a_cache = L.mla_attention(p["attn"], h, px=px, **kw)
         else:
             a_out, a_cache = L.gqa_attention(
                 p["attn"], h, window=layer_window(cfg, kind), px=px, **kw)
@@ -185,7 +185,7 @@ def _apply_layer(kind: str, p: Tree, x: torch.Tensor, *, cfg: ArchConfig,
                 ckv = L.cond_kv(p["cross"], cond, cfg=cfg)
                 if cache is not None:
                     new_cache["cross_k"], new_cache["cross_v"] = ckv
-            x = x + L.cross_attention(p["cross"], hc, ckv, cfg=cfg)
+            x = x + L.cross_attention(p["cross"], hc, ckv, cfg=cfg, px=px)
         h2 = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
         if "moe" in p:
             m_out, aux = L.moe_block(p["moe"], h2, cfg=cfg, pcfg=pcfg, px=px)
@@ -195,20 +195,20 @@ def _apply_layer(kind: str, p: Tree, x: torch.Tensor, *, cfg: ArchConfig,
     h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     if kind == "rglru":
         r_out, new_cache = L.rglru_block(p["rec"], h, cfg=cfg, pcfg=pcfg,
-                                         mode=mode, cache=cache)
+                                         mode=mode, cache=cache, px=px)
         x = x + r_out
         h2 = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-        return x + L.mlp(p["mlp"], h2, cfg), new_cache, aux
+        return x + L.mlp(p["mlp"], h2, cfg, px), new_cache, aux
     if kind == "mlstm":
         m_out, new_cache = L.mlstm_block(p["mlstm"], h, cfg=cfg, pcfg=pcfg,
-                                         mode=mode, cache=cache)
+                                         mode=mode, cache=cache, px=px)
         return x + m_out, new_cache, aux
     if kind == "slstm":
         s_out, new_cache = L.slstm_block(p["slstm"], h, cfg=cfg, pcfg=pcfg,
-                                         mode=mode, cache=cache)
+                                         mode=mode, cache=cache, px=px)
         x = x + s_out
         h2 = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-        return x + L.mlp(p["ffn"], h2, cfg), new_cache, aux
+        return x + L.mlp(p["ffn"], h2, cfg, px), new_cache, aux
     raise ValueError(f"unknown layer kind {kind!r}")
 
 
@@ -239,22 +239,6 @@ def _remat_wrap(fn, policy: str):
     return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
-def mesh_refusal(cfg: ArchConfig) -> Optional[str]:
-    """Why ``cfg`` does not run on a device mesh yet, or None: the port
-    has placed the reference's constraints for GQA attention layers (no
-    local window, no cross-attention) with an MLP or an MoE over token
-    inputs. Each family it lacks is an item of ROADMAP Queue 1."""
-    kinds = set(layer_kinds(cfg))
-    if cfg.frontend == "embeddings" or cfg.cross_attention:
-        return "frame embeddings and cross-attention (musicgen-large)"
-    if cfg.attention == "mla":
-        return "MLA attention (deepseek-v3-671b)"
-    if kinds - {"attn", "attn_dense"} or cfg.local_window:
-        return ("recurrent and windowed layers (recurrentgemma-9b, "
-                "xlstm-1.3b)")
-    return None
-
-
 def forward(params: Tree, *, cfg: ArchConfig, pcfg: ParallelConfig,
             mode: str, positions: torch.Tensor,
             tokens: Optional[torch.Tensor] = None,
@@ -271,24 +255,24 @@ def forward(params: Tree, *, cfg: ArchConfig, pcfg: ParallelConfig,
     positions; the others take ``tokens``. ``cond`` (B,cross_seq,d) feeds
     cross-attention outside decode (decode reads its K/V from the cache).
     ``px`` with a mesh: parameters and inputs are DTensors on it, and the
-    reference's constraints are placed; a config :func:`mesh_refusal`
-    names raises ``NotImplementedError``."""
-    if px is not None and px.mesh is not None:
-        why = mesh_refusal(cfg)
-        if why is not None:
-            raise NotImplementedError(
-                f"{cfg.name} on a device mesh: the port has not placed the "
-                f"reference's constraints for {why} (ROADMAP Queue 1, "
-                "families on a mesh)")
+    reference's constraints are placed."""
     if cfg.frontend == "embeddings":
         if embeds is None:
             raise ValueError(f"{cfg.name} takes frame embeddings")
-        x = embeds + _sinusoidal(positions, cfg.d_model).to(embeds.dtype)
+        pe = _sinusoidal(positions, cfg.d_model).to(embeds.dtype)
+        if px is not None and px.mesh is not None:
+            # built alike on every rank: each keeps the block of it that
+            # sits beside its block of the embeddings
+            from torch.distributed.tensor import distribute_tensor
+            pe = distribute_tensor(pe, px.mesh, embeds.placements,
+                                   src_data_rank=None)
+        x = embeds + pe
     else:
         # on a mesh each rank looks its own rows up (DTensor places the
         # lookup's backward, a scatter, wrongly)
-        (x,) = rows_local(px, "act_batch", lambda p, t: (p["table"][t],),
-                          params["embed"], tokens)
+        (x,) = block_local(px, lambda p, t: (p["table"][t],),
+                           (params["embed"], tokens), (None, ("act_batch",)),
+                           (("act_batch",),))
         if cfg.scale_embeddings:
             x = x * _embed_scale(cfg.d_model, x.dtype)
     x = constrain(x, ("act_batch", "act_seq", "act_embed"), px)

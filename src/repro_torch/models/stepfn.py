@@ -17,7 +17,8 @@ places them): the loss takes the reference's constraint on its logits,
 each gradient is placed as its weight before the optimizer's update, and
 the step runs under DTensor's implicit replication, so that a plain tensor
 every rank builds alike (positions, masks) joins the DTensors as a
-replicated value.
+replicated value. Each batch leaf is placed by its logical axes
+(:data:`BATCH_AXES`, the reference's ``input_specs``), a microbatch too.
 """
 from __future__ import annotations
 
@@ -32,9 +33,28 @@ from repro_torch.models import model as M
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import leaves, map_tree_paths, trainable
 from repro_torch.parallel.sharding import (ParallelConfig, ShardCtx,
-                                           constrain, on_mesh)
+                                           act_sharding, constrain, on_mesh)
 
 Tree = Dict[str, Any]
+
+#: the logical activation axes of each batch leaf, as the reference's
+#: ``launch/specs.batch_specs`` places them on a mesh
+BATCH_AXES = {"tokens": ("act_batch", "act_seq"),
+              "labels": ("act_batch", "act_seq"),
+              "frame_embeddings": ("act_batch", "act_seq", "act_embed"),
+              "cond": ("act_batch", None, "act_embed")}
+
+
+def place_batch(batch: Tree, px: Optional[ShardCtx]) -> Tree:
+    """Each leaf of a batch that every rank holds whole as a DTensor
+    placed by :data:`BATCH_AXES`, each rank keeping its own block (no rank
+    sends any); off a mesh, the batch."""
+    if px is None or px.mesh is None:
+        return batch
+    from torch.distributed.tensor import distribute_tensor
+    return {k: distribute_tensor(v, *act_sharding(
+        v.shape, BATCH_AXES[k], px.mesh, px.pcfg), src_data_rank=None)
+        for k, v in batch.items()}
 
 
 def _inputs(cfg: ArchConfig, batch: Tree):
@@ -144,18 +164,22 @@ def make_train_step(cfg: ArchConfig, pcfg: ParallelConfig, optimizer,
     ``px`` with a mesh: the step of DTensor weights and batch (the module
     docstring), ``pcfg`` being ``px.pcfg``.
 
+    On a mesh microbatch i is the global rows [i B/mb, (i+1) B/mb), as the
+    reference's reshape makes them: each batch leaf is gathered whole (a
+    DTensor slice along a sharded dim is not trusted), cut, and placed
+    anew by its logical axes (:func:`place_batch`; rows that do not divide
+    over ``data`` are replicated, as ``resolve_spec`` drops the axis). The
+    fp32 accumulators are placed as their weights, and the MoE's dispatch
+    groups are reckoned from each microbatch's tokens.
+
     Raises for a ``pcfg.kernel`` that opts into the flash kernel: it has no
-    backward (the reference's Pallas kernel has none either); and for
-    microbatches on a mesh, whose row split the port has not placed."""
+    backward (the reference's Pallas kernel has none either)."""
     kc = pcfg.kernel
     if kc is not None and kc.use_flash:
         raise ValueError("make_train_step: the flash kernel has no backward "
                          "(nor has the reference's Pallas kernel); train "
                          "with KernelConfig(use_flash=False)")
     mb = pcfg.microbatches
-    if px is not None and px.mesh is not None and mb > 1:
-        raise NotImplementedError("microbatches on a device mesh (ROADMAP "
-                                  "Queue 1)")
 
     def grads_of(params, batch):
         views = trainable(params)
@@ -173,13 +197,17 @@ def make_train_step(cfg: ArchConfig, pcfg: ParallelConfig, optimizer,
     def train_step(params, opt_state, batch, step):
         if mb > 1:
             rows = next(iter(batch.values())).shape[0] // mb
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            grads = [torch.zeros_like(p, dtype=torch.float32)
                      for _, p in leaves(params)]
             loss = torch.zeros((), device=grads[0].device)
+            whole = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                     for k, v in batch.items()}
             for i in range(mb):
-                part = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+                part = place_batch({k: v[i * rows:(i + 1) * rows]
+                                    for k, v in whole.items()}, px)
                 l, _, g = grads_of(params, part)
-                grads = [a + b.float() / mb for a, b in zip(grads, g)]
+                for a, b in zip(grads, g):      # in place: one accumulator
+                    a.add_(b.float() / mb)
                 loss = loss + l / mb
             met = {}
         else:

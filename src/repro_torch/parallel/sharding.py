@@ -21,6 +21,8 @@ the reference's on top of it; ``constrain`` is the identity off a mesh
 (``px`` None, or a ``ShardCtx`` whose mesh is None) and otherwise
 redistributes a DTensor to the resolved placements, the counterpart of
 ``with_sharding_constraint``: where a value lives changes, not what it is.
+``block_local`` runs a block on each rank's own shard in plain tensors
+(GSPMD computes it there too), for what DTensor does not place.
 
 ``scan_layers`` is cut: a compile knob with no eager counterpart (the port
 loops over layers). On a mesh ``moe_combine`` picks the constraint around
@@ -149,6 +151,22 @@ def axis_sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh.axis_names, mesh.devices.shape))
 
 
+def _pick(dims: Sequence[int], cand: Axis, sizes: Mapping[str, int],
+          used: set) -> Tuple[str, ...]:
+    """The mesh axes of the rule ``cand`` that split every one of ``dims``,
+    in rule order: an axis the mesh lacks, one in ``used``, or one whose
+    product with those picked before does not divide a dim is dropped."""
+    if cand is None:
+        return ()
+    picked, prod = [], 1
+    for ax in ((cand,) if isinstance(cand, str) else tuple(cand)):
+        if ax in sizes and ax not in used and not any(
+                d % (prod * sizes[ax]) for d in dims):
+            picked.append(ax)
+            prod *= sizes[ax]
+    return tuple(picked)
+
+
 def resolve_spec(shape: Sequence[int], logical: Sequence[Optional[str]],
                  rules: Mapping[str, Axis], mesh) -> Tuple:
     """Map logical axes to a partition spec, dropping invalid assignments:
@@ -160,27 +178,11 @@ def resolve_spec(shape: Sequence[int], logical: Sequence[Optional[str]],
     used: set = set()
     out = []
     for dim, name in zip(shape, logical):
-        assign: Tuple[str, ...] = ()
-        cand = rules.get(name) if name is not None else None
-        if cand is not None:
-            cand_t = (cand,) if isinstance(cand, str) else tuple(cand)
-            picked = []
-            prod = 1
-            for ax in cand_t:
-                if ax not in sizes or ax in used:
-                    continue
-                if dim % (prod * sizes[ax]) != 0:
-                    continue
-                picked.append(ax)
-                prod *= sizes[ax]
-            assign = tuple(picked)
-            used.update(assign)
-        if len(assign) == 0:
-            out.append(None)
-        elif len(assign) == 1:
-            out.append(assign[0])
-        else:
-            out.append(assign)
+        assign = _pick([dim], rules.get(name) if name is not None else None,
+                       sizes, used)
+        used.update(assign)
+        out.append(None if not assign else
+                   assign[0] if len(assign) == 1 else assign)
     while out and out[-1] is None:
         out.pop()
     return tuple(out)
@@ -234,30 +236,88 @@ def constrain(x, logical: Sequence[Optional[str]], px: Optional[ShardCtx]):
     return x.redistribute(mesh, pl)
 
 
-def rows_local(px: Optional[ShardCtx], axis: str, fn, params, *rows):
-    """``fn(params, *rows)``, each of ``rows`` a tensor whose dim 0 the
-    logical activation axis ``axis`` places, returning a tuple of such
-    tensors. Off a mesh, the call. On a mesh, each rank runs ``fn`` on the
-    rows it holds, in plain tensors: the rows placed by ``axis`` (an
-    explicit redistribution), ``params`` (a tree of DTensors) gathered
-    whole, and each output placed as the rows are. A parameter's gradient
-    from a rank's rows is its share of the sum over the mesh dims that
-    split the rows (``Partial`` there). For what DTensor does not place
-    (index scatters, sorts) or places wrongly."""
+def block_split(dims: Mapping[str, Sequence[int]], rules: Mapping[str, Axis],
+                mesh) -> Dict[str, Tuple[str, ...]]:
+    """The mesh axes that split each logical name of a block, ``dims``
+    giving the sizes of the dims that bear it, in the order the names
+    first appear: the axes of its rule that divide every one of those
+    dims, each mesh axis going to one name at most (the first to claim
+    it); a name with no axis left is whole."""
+    sizes = axis_sizes(mesh)
+    split: Dict[str, Tuple[str, ...]] = {}
+    used: set = set()
+    for n, ds in dims.items():
+        split[n] = _pick(ds, rules.get(n), sizes, used)
+        used.update(split[n])
+    return split
+
+
+def block_local(px: Optional[ShardCtx], fn, operands: Sequence,
+                axes: Sequence, out_axes: Sequence):
+    """``fn(*operands)``, which returns a tuple of tensors. Off a mesh, the
+    call. On a mesh each rank runs ``fn`` on its own block, in plain
+    tensors: for what DTensor does not place (index scatters, sorts, pads,
+    concatenations) or places wrongly, and for loops of many small ops.
+
+    ``axes`` holds each operand's logical activation axes: a tuple (one
+    name or None a dim, trailing dims None where it is shorter), a tree of
+    such tuples matching an operand that is a tree (a block's parameters),
+    or None (every dim whole). Each name is split once for the whole
+    block (:func:`block_split` of ``act_rules``); a dim whose name is
+    split by no mesh axis, or that has none, is whole on every rank. A
+    DTensor operand is redistributed to its block (an explicit
+    redistribution), a plain tensor every rank built alike (positions)
+    cut to it. Each output of ``fn`` is placed by its
+    ``out_axes`` entry under the same split. The gradient of an operand's
+    block is that rank's share of a sum (``Partial``) over the mesh dims
+    that split a name the operand lacks (a parameter's over the rows'
+    mesh dims), as GSPMD sums the blocks' contributions."""
     if px is None or px.mesh is None:
-        return fn(params, *rows)
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from repro_torch.models.params import map_tree
-    mesh, split = act_sharding((rows[0].shape[0],), (axis,), px.mesh,
-                               px.pcfg)
-    whole = (Replicate(),) * mesh.ndim
-    share = tuple(Partial() if isinstance(pl, Shard) else Replicate()
-                  for pl in split)
-    local = map_tree(lambda t: t.redistribute(mesh, whole).to_local(
-        grad_placements=share), params)
-    out = fn(local, *(t.redistribute(mesh, split).to_local() for t in rows))
-    return tuple(DTensor.from_local(o, mesh, split, run_check=False)
-                 for o in out)
+        return fn(*operands)
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard, distribute_tensor)
+    from repro_torch.models.params import leaves, map_tree_paths
+    mesh, sizes = px.mesh, axis_sizes(px.mesh)
+
+    def full(names, ndim):
+        names = tuple(names or ())
+        return names + (None,) * (ndim - len(names))
+
+    flat = [[(path, t, full(dict(leaves(ax)).get(path) if ax is not None
+                            else None, t.ndim)) for path, t in leaves(op)]
+            for op, ax in zip(operands, axes)]
+    dims: Dict[str, list] = {}
+    for _, t, names in (leaf for op in flat for leaf in op):
+        for n, d in zip(names, t.shape):
+            if n is not None:
+                dims.setdefault(n, []).append(d)
+    split = block_split(dims, px.pcfg.act_rules, mesh)
+    cut = {ax for picked in split.values() for ax in picked
+           if sizes[ax] > 1}
+
+    def place(names):
+        return placements(tuple(split.get(n) if n else None for n in names),
+                          mesh)
+
+    def local(t, names):
+        pl = place(names)
+        if not isinstance(t, DTensor):
+            return distribute_tensor(t, mesh, pl,
+                                     src_data_rank=None).to_local()
+        share = tuple(q if isinstance(q, Shard) else
+                      Partial() if ax in cut else Replicate()
+                      for q, ax in zip(pl, mesh.mesh_dim_names))
+        return t.redistribute(mesh, pl).to_local(grad_placements=share)
+
+    out = fn(*(map_tree_paths(op, {path: local(t, names)
+                                   for path, t, names in op_leaves})
+               for op, op_leaves in zip(operands, flat)))
+    if len(out) != len(out_axes):
+        raise ValueError(f"block_local: {len(out)} outputs, "
+                         f"{len(out_axes)} out_axes")
+    return tuple(DTensor.from_local(o, mesh, place(full(names, o.ndim)),
+                                    run_check=False)
+                 for o, names in zip(out, out_axes))
 
 
 @contextlib.contextmanager

@@ -18,8 +18,8 @@ the loop's device, which is the card unless the caller passes
 ``device="cpu"``. With ``mesh`` (a ``DeviceMesh`` of the process group's
 ranks, ``launch/mesh.make_host_mesh``) every rank makes the same weights
 from the seed and keeps its slice of each, placed by ``param_shardings``;
-the moments follow their weights, and each batch is placed by
-``act_sharding(("act_batch", "act_seq"))``, as the reference places them.
+the moments follow their weights, and each batch leaf is placed by its
+logical axes (``stepfn.BATCH_AXES``), as the reference places them.
 AdamW keeps fp32 moments whatever ``ParallelConfig.opt_moment_dtype``
 says, as the reference's loop builds it.
 """
@@ -37,10 +37,9 @@ from repro_torch.data.pipeline import DataConfig, DataIterator, make_source
 from repro_torch.kernels.tuning import resolve_device
 from repro_torch.models.params import (init_params, leaves, map_tree,
                                        model_specs, shard_params)
-from repro_torch.models.stepfn import make_train_step
+from repro_torch.models.stepfn import make_train_step, place_batch
 from repro_torch.optim.optimizers import AdamW, warmup_cosine
-from repro_torch.parallel.sharding import (ParallelConfig, ShardCtx,
-                                           act_sharding)
+from repro_torch.parallel.sharding import ParallelConfig, ShardCtx
 
 
 class SimulatedFailure(RuntimeError):
@@ -146,20 +145,14 @@ class TrainLoop:
     def _to_device(self, batch_np):
         """A host batch on the loop's device: integer arrays (token ids,
         labels) as int64, the index type of torch. On a mesh each rank
-        keeps its slice, placed by batch and sequence."""
+        keeps its block of each leaf, placed by its logical axes
+        (``stepfn.place_batch``)."""
         out = {}
         for k, v in batch_np.items():
             t = torch.from_numpy(v)
-            if not t.is_floating_point():
-                t = t.long()
-            out[k] = t.to(self.device)
-            if self.mesh is not None:
-                from torch.distributed.tensor import distribute_tensor
-                logical = ("act_batch", "act_seq") + (None,) * (t.ndim - 2)
-                out[k] = distribute_tensor(
-                    out[k], *act_sharding(t.shape, logical, self.mesh,
-                                          self.pcfg), src_data_rank=None)
-        return out
+            out[k] = (t if t.is_floating_point() else t.long()).to(
+                self.device)
+        return place_batch(out, self.px)
 
     # -- main loop -------------------------------------------------------------
     def run(self) -> LoopMetrics:

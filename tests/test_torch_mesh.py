@@ -1,17 +1,13 @@
 """Training on a device mesh (``launch/mesh.py``, ``parallel/sharding.py``,
 DTensor placements) on the CPU, over gloo: the placements the reference's
-rules give, qwen3-moe's sharded steps against the reference's own sharded
-steps on 8 devices (its dispatch groups included), gemma-2b's sharded step
-against the port's unsharded one, the elastic restore onto another mesh
-and onto none, and the families the port refuses on a mesh. The ranks'
-bodies are in ``torch_mesh_ranks.py``.
+rules give, ``block_local``'s split of a block's names, qwen3-moe's
+sharded steps against the reference's own sharded steps on 8 devices (its
+dispatch groups included), gemma-2b's sharded step against the port's
+unsharded one, the elastic restore onto another mesh and onto none, and
+every family's step on a one-rank mesh. The ranks' bodies are in
+``torch_mesh_ranks.py``; the other families against the reference are in
+``test_torch_mesh_families.py`` and ``test_torch_mesh_recurrent.py``.
 """
-import json
-import os
-import subprocess
-import sys
-import textwrap
-
 import jax
 import numpy as np
 import pytest
@@ -21,7 +17,6 @@ from torch.distributed.tensor import Replicate, Shard
 
 from repro.configs.registry import ARCHS as JAX_ARCHS
 from repro.configs.registry import get_arch as jax_get_arch
-from repro.configs.registry import smoke_config as jax_smoke_config
 from repro.models import params as jax_params
 from repro.parallel import sharding as JS
 
@@ -34,14 +29,13 @@ from repro_torch.optim.optimizers import AdamW, constant_lr
 from repro_torch.parallel.sharding import (DEFAULT_ACT_RULES,
                                            DEFAULT_PARAM_RULES,
                                            ParallelConfig, ShardCtx,
-                                           param_shardings, placements,
-                                           resolve_spec)
+                                           block_split, param_shardings,
+                                           placements, resolve_spec)
 
+import torch_mesh_parity as MP
 import torch_mesh_ranks as R
 from torch_train_parity import (LOSS_RTOL, assert_grads_close,
                                 assert_updates_close)
-
-ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 
 class FakeMesh:
@@ -132,22 +126,68 @@ def test_make_host_mesh_needs_its_ranks(monkeypatch):
         make_host_mesh(data=2, model=2)
 
 
-@pytest.mark.parametrize("name", ["deepseek-v3-671b", "recurrentgemma-9b",
-                                  "xlstm-1.3b", "musicgen-large"])
-def test_families_without_mesh_constraints_refuse(name):
-    """A family whose constraint sites the port has not placed raises on a
-    mesh, naming the ROADMAP queue, before any weight is touched."""
-    cfg = smoke_config(name)
-    px = ShardCtx(FakeMesh(data=2, model=2), ParallelConfig())
-    step = make_train_step(cfg, px.pcfg, AdamW(schedule=constant_lr(1e-3)),
-                           px=px)
-    batch = ({"tokens": torch.zeros(2, 8, dtype=torch.long)}
-             if cfg.frontend != "embeddings" else
-             {"frame_embeddings": torch.zeros(2, 8, cfg.d_model),
-              "labels": torch.zeros(2, 8, dtype=torch.long),
-              "cond": torch.zeros(2, cfg.cross_seq, cfg.d_model)})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        step({}, {}, batch, 0)
+@pytest.mark.parametrize("dims,axes,want", [
+    # channels and the gates' blocks share a name: 8 blocks divide over
+    # model 2, so both split; 3 blocks do not, so the channels are whole
+    ({"act_batch": [8], "act_mlp": [64, 8]}, dict(data=2, model=2),
+     {"act_batch": ("data",), "act_mlp": ("model",)}),
+    ({"act_batch": [8], "act_mlp": [64, 3]}, dict(data=2, model=2),
+     {"act_batch": ("data",), "act_mlp": ()}),
+    # a mesh axis splits one name: heads take model, the KV heads none
+    ({"act_heads": [4], "act_kv_heads": [4]}, dict(data=2, model=2),
+     {"act_heads": ("model",), "act_kv_heads": ()}),
+    # rows over pod x data where they divide, else over pod alone
+    ({"act_batch": [8, 8]}, dict(pod=2, data=2, model=2),
+     {"act_batch": ("pod", "data")}),
+    ({"act_batch": [8, 6]}, dict(pod=2, data=2, model=2),
+     {"act_batch": ("pod",)}),
+], ids=["channels-blocks", "blocks-do-not-divide", "one-name-an-axis",
+        "rows-pod-data", "rows-pod"])
+def test_block_split_of_logical_names(dims, axes, want):
+    """``block_local``'s split of a block's logical names over a mesh."""
+    assert block_split(dims, DEFAULT_ACT_RULES, FakeMesh(**axes)) == want
+
+
+ONE_RANK = [("deepseek-v3-671b", {}), ("recurrentgemma-9b", {}),
+            ("xlstm-1.3b", {}), ("musicgen-large", {}),
+            ("qwen3-moe-30b-a3b", {"microbatches": 2})]
+
+
+@pytest.mark.parametrize("name,pkw", ONE_RANK,
+                         ids=[R.tag(*r) for r in ONE_RANK])
+def test_families_train_on_a_one_rank_mesh(tmp_path, name, pkw):
+    """The four families the port once refused on a mesh, and microbatches
+    on one, take a train step on a one-rank gloo mesh (every weight,
+    moment and batch leaf a DTensor): its loss and updates are those of
+    the step off the mesh (a 1 x 1 mesh replicates every placement)."""
+    import torch.distributed as dist
+    from repro_torch.models.stepfn import place_batch
+    cfg = smoke_config(name).replace(dtype="float32")
+    pcfg = ParallelConfig(flash_threshold=1 << 30, logits_chunk=0, **pkw)
+    batch = R.batch_torch(R.batch_np(cfg, 4, 32))
+    before = P.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    got = {}
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdzv",
+                            world_size=1, rank=0)
+    try:
+        px = ShardCtx(make_host_mesh(device="cpu"), pcfg)
+        for side, ctx in (("off", None), ("on", px)):
+            params = P.map_tree(torch.clone, before)
+            b = batch
+            if ctx is not None:
+                params = P.shard_params(params, P.model_specs(cfg),
+                                        px.mesh, pcfg)
+                b = place_batch(batch, px)
+            opt = AdamW(schedule=constant_lr(1e-3))
+            step = make_train_step(cfg, pcfg, opt, px=ctx)
+            params, _, m = step(params, opt.init(params), b, 0)
+            got[side] = (float(m["loss"]), R._whole(params))
+    finally:
+        dist.destroy_process_group()
+    (on, p_on), (off, p_off) = got["on"], got["off"]
+    assert abs(on - off) <= LOSS_RTOL * abs(off), (on, off)
+    assert_updates_close({p: t.numpy() for p, t in P.leaves(before)}, p_on,
+                         {p: t.numpy() for p, t in p_off.items()})
 
 
 def test_moe_groups_are_data_times_pod():
@@ -227,39 +267,6 @@ def test_elastic_restore_onto_another_mesh_and_none(dense_runs):
 
 # -- qwen3-moe against the reference's sharded steps ---------------------------
 
-_REFERENCE = textwrap.dedent("""
-    import os, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    sys.path.insert(0, "src")
-    import jax, numpy as np
-    from repro.configs.registry import smoke_config
-    from repro.launch.mesh import make_host_mesh
-    from repro.models.params import init_params, model_specs
-    from repro.models.stepfn import make_train_step
-    from repro.optim.optimizers import AdamW, constant_lr
-    from repro.parallel.sharding import (ParallelConfig, ShardCtx,
-                                         act_sharding, param_shardings)
-    out, = sys.argv[1:]
-    mesh = make_host_mesh(data=4, model=2)
-    pcfg = ParallelConfig(flash_threshold=1 << 30, logits_chunk=0)
-    cfg = smoke_config("qwen3-moe-30b-a3b").replace(dtype="float32")
-    params = init_params(cfg, jax.random.PRNGKey(0))
-    params = jax.tree.map(jax.device_put, params,
-                          param_shardings(model_specs(cfg), mesh, pcfg))
-    opt = AdamW(schedule=constant_lr(1e-3))
-    state = opt.init(params)
-    tokens = jax.device_put(np.load(out + ".tokens.npy"), act_sharding(
-        (8, 32), ("act_batch", "act_seq"), mesh, pcfg))
-    step = jax.jit(make_train_step(cfg, ShardCtx(mesh, pcfg), opt))
-    losses = []
-    for i in range(2):
-        params, state, m = step(params, state, {"tokens": tokens}, i)
-        losses.append(float(m["loss"]))
-    leaves = [np.asarray(x) for x in jax.tree.leaves(params)]
-    np.savez(out, losses=np.asarray(losses), n_dev=jax.device_count(),
-             **{f"p{i}": a for i, a in enumerate(leaves)})
-""")
-
 MOE = "qwen3-moe-30b-a3b"
 
 
@@ -267,63 +274,31 @@ MOE = "qwen3-moe-30b-a3b"
 def moe_runs(tmp_path_factory):
     """The reference's two sharded steps (8 forced host devices, one
     subprocess) and the port's on 8 gloo ranks, started together, from
-    the reference's weights on the same tokens."""
-    tmp = tmp_path_factory.mktemp("moe")
-    ref_cfg = jax_smoke_config(MOE).replace(dtype="float32")
-    tree = jax.tree.map(np.asarray, jax_params.init_params(
-        ref_cfg, jax.random.PRNGKey(0)))
-    cfg = smoke_config(MOE).replace(dtype="float32")
-    torch.save(P.params_from_jax(tree, cfg), tmp / "params.pt")
-    np.save(tmp / "ref.tokens.npy", R.tokens(cfg.vocab_size, 8, 32))
-    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    ref = subprocess.Popen([sys.executable, "-c", _REFERENCE,
-                            str(tmp / "ref")], cwd=ROOT, env=env,
-                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                           text=True)
-    try:
-        R.spawn(R.moe_steps, 8, tmp, MOE, 4, 2, str(tmp / "params.pt"),
-                str(tmp / "ref.tokens.npy"), 2, str(tmp / "port.pt"))
-        _, err = ref.communicate(timeout=R.TIMEOUT)
-    finally:
-        if ref.poll() is None:
-            ref.kill()
-    assert ref.returncode == 0, err[-3000:]
-    want = np.load(tmp / "ref.npz")
-    flat, treedef = jax.tree.flatten(tree)
-    ref_params = jax.tree.unflatten(treedef, [want[f"p{i}"]
-                                              for i in range(len(flat))])
-    return {"tree": tree, "cfg": cfg, "ref_losses": want["losses"].tolist(),
-            "n_dev": int(want["n_dev"]),
-            "ref_params": dict(P.leaves(P.params_from_jax(ref_params, cfg))),
-            "port": torch.load(tmp / "port.pt"),
-            "tokens": np.load(tmp / "ref.tokens.npy")}
+    the reference's weights on the same tokens
+    (``torch_mesh_parity.run_both``)."""
+    return MP.run_both(tmp_path_factory.mktemp("moe"), 4, 2,
+                       [(MOE, {})])[MOE]
 
 
 def test_moe_sharded_losses_match_the_references(moe_runs):
     """data 4 x model 2: both steps' losses within LOSS_RTOL of the
     reference's on its 8-device mesh (dispatch in 4 groups on both)."""
-    assert moe_runs["n_dev"] == 8
-    for got, want in zip(moe_runs["port"]["losses"], moe_runs["ref_losses"]):
-        assert abs(got - want) <= LOSS_RTOL * abs(want), (got, want)
+    MP.assert_losses_match(moe_runs, 8)
 
 
 def test_moe_sharded_updates_match_the_references(moe_runs):
-    before = dict(P.leaves(P.params_from_jax(moe_runs["tree"],
-                                             moe_runs["cfg"])))
-    assert_updates_close({p: t.numpy() for p, t in before.items()},
-                         moe_runs["port"]["params"],
-                         {p: t.numpy() for p, t in
-                          moe_runs["ref_params"].items()})
+    MP.assert_updates_match(moe_runs)
 
 
 def test_dispatch_groups_drop_what_one_group_keeps(moe_runs):
     """The first MoE layer's input on the run's tokens, routed in the mesh
     run's 4 groups and in 1: some (token, k) copy 4 groups drop is kept by
     one group, so the groups decide which copies drop."""
-    cfg = moe_runs["cfg"]
-    params = P.params_from_jax(moe_runs["tree"], cfg)
+    cfg = smoke_config(MOE).replace(dtype="float32")
+    params = P.map_tree_paths(P.model_specs(cfg), {
+        p: torch.from_numpy(a) for p, a in moe_runs["before"].items()})
     lp = params["layers"][0]
-    tk = torch.from_numpy(moe_runs["tokens"]).long()
+    tk = torch.from_numpy(R.batch_np(cfg, 8, 32)["tokens"]).long()
     B, S = tk.shape
     pos = torch.arange(S)[None, :].expand(B, S)
     pcfg = ParallelConfig(flash_threshold=1 << 30)

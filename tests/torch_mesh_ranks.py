@@ -2,7 +2,7 @@
 body in a CPU process group over gloo (``spawn``), imports torch and the
 port only (no JAX, so that the spawned processes start fast), and leaves
 its results in ``out`` (rank 0, ``torch.save``). Not a test module; the
-tests are ``test_torch_mesh.py`` and ``test_torch_compression.py``.
+tests are ``test_torch_mesh*.py`` and ``test_torch_compression.py``.
 """
 import os
 import time
@@ -51,6 +51,36 @@ def tokens(vocab: int, rows: int, seq: int, seed: int = 0) -> np.ndarray:
         0, vocab, (rows, seq)).astype(np.int32)
 
 
+def batch_np(cfg, rows: int, seq: int, seed: int = 0) -> dict:
+    """A seeded batch for ``cfg``'s frontend: token ids, or frame
+    embeddings, labels (the last three of row 0 masked with -1) and the
+    cross-attention condition."""
+    if cfg.frontend != "embeddings":
+        return {"tokens": tokens(cfg.vocab_size, rows, seq, seed)}
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, cfg.vocab_size, (rows, seq)).astype(np.int32)
+    labels[0, -3:] = -1
+    return {"frame_embeddings": rng.normal(
+                size=(rows, seq, cfg.d_model)).astype(np.float32),
+            "labels": labels,
+            "cond": rng.normal(
+                size=(rows, cfg.cross_seq, cfg.d_model)).astype(np.float32)}
+
+
+def batch_torch(batch: dict) -> dict:
+    """A numpy batch as the port's entry points take it (ids as int64)."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.asarray(v))
+        out[k] = t if t.is_floating_point() else t.long()
+    return out
+
+
+def tag(name: str, pkw: dict) -> str:
+    """A run's key: the config's name and its ParallelConfig overrides."""
+    return " ".join([name] + [f"{k}={v}" for k, v in sorted(pkw.items())])
+
+
 def _whole(tree):
     from torch.distributed.tensor import DTensor
     from repro_torch.models import params as P
@@ -61,39 +91,37 @@ def _whole(tree):
 # -- one train step, sharded and not ------------------------------------------
 
 
-def sharded_vs_unsharded(rank, names, data, model, out):
-    """For each smoke config (fp32, seed 0) on a (data, model) mesh: the
-    loss and gradients of one batch, and the weights after one AdamW step,
-    sharded and unsharded, on the same weights and tokens; for the first,
-    also the weights and state after one step of Adafactor with the
-    reference's layer stacks."""
+def sharded_vs_unsharded(rank, runs, data, model, out, adafactor=True):
+    """For each run ``(name, pkw)``, the smoke config in fp32 (seed 0) with
+    ``ParallelConfig`` overrides ``pkw``, on a (data, model) mesh: the loss
+    and gradients of one batch (B 4 x S 32), and the weights after one
+    AdamW step, sharded and unsharded, on the same weights and batch; with
+    ``adafactor``, for the first run also the weights and state after one
+    step of Adafactor with the reference's layer stacks. Keyed by
+    :func:`tag`."""
     from repro_torch.configs.registry import smoke_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import params as P
-    from repro_torch.models.stepfn import loss_fn, make_train_step
+    from repro_torch.models.stepfn import loss_fn, make_train_step, place_batch
     from repro_torch.optim.optimizers import AdamW, constant_lr, make_optimizer
     from repro_torch.parallel.sharding import (ParallelConfig, ShardCtx,
-                                               act_sharding, on_mesh)
-    from torch.distributed.tensor import distribute_tensor
+                                               on_mesh)
     mesh = make_host_mesh(data=data, model=model, device="cpu")
-    pcfg = ParallelConfig(flash_threshold=1 << 30, logits_chunk=0)
-    px = ShardCtx(mesh, pcfg)
     res = {}
-    for name in names:
+    for i, (name, pkw) in enumerate(runs):
+        pcfg = ParallelConfig(flash_threshold=1 << 30, logits_chunk=0, **pkw)
+        px = ShardCtx(mesh, pcfg)
         cfg = smoke_config(name).replace(dtype="float32")
-        tk = torch.from_numpy(tokens(cfg.vocab_size, 4, 32)).long()
+        whole = batch_torch(batch_np(cfg, 4, 32))
         got = {}
         for side in ("unsharded", "sharded"):
             params = P.init_params(cfg, torch.Generator().manual_seed(0),
                                    "cpu")
-            batch, ctx = {"tokens": tk}, None
+            batch, ctx = whole, None
             if side == "sharded":
                 params = P.shard_params(params, P.model_specs(cfg), mesh,
                                         pcfg)
-                batch = {"tokens": distribute_tensor(
-                    tk, *act_sharding(tk.shape, ("act_batch", "act_seq"),
-                                      mesh, pcfg), src_data_rank=None)}
-                ctx = px
+                batch, ctx = place_batch(whole, px), px
             with on_mesh(ctx):
                 views = P.trainable(params)
                 loss, _ = loss_fn(views, batch, cfg=cfg, pcfg=pcfg, px=ctx)
@@ -109,14 +137,14 @@ def sharded_vs_unsharded(rank, names, data, model, out):
                 "grads": _whole(P.map_tree_paths(
                     params, {p: g for (p, _), g in zip(flat, grads)})),
                 "params": _whole(params), "moments": _whole(state["mu"])}
-            if name == names[0]:
+            if adafactor and i == 0:
                 opt = make_optimizer("adafactor", constant_lr(1e-2), arch=cfg)
                 state = opt.init(params)
                 step = make_train_step(cfg, pcfg, opt, px=ctx)
                 params, state, _ = step(params, state, batch, 1)
                 got[side]["adafactor"] = {"params": _whole(params),
                                           "state": _whole(state["v"])}
-        res[name] = got
+        res[tag(name, pkw)] = got
     if rank == 0:
         torch.save(res, out)
 
@@ -128,7 +156,8 @@ def dense_job(rank, names, ckpt_dir, out):
     """:func:`sharded_vs_unsharded` of ``names`` on (data 2, model 2), then
     :func:`elastic_restore` of the first, in one group (DTensor plans each
     op's placements once a process: the two share the plans)."""
-    sharded_vs_unsharded(rank, names, 2, 2, out + ".steps")
+    sharded_vs_unsharded(rank, [(n, {}) for n in names], 2, 2,
+                         out + ".steps")
     elastic_restore(rank, names[0], ckpt_dir, out + ".restore")
 
 
@@ -175,41 +204,141 @@ def elastic_restore(rank, name, ckpt_dir, out):
     dist.barrier()
 
 
-# -- qwen3-moe against the reference's sharded steps ---------------------------
+# -- steps against the reference's sharded steps -------------------------------
 
 
-def moe_steps(rank, name, data, model, params_path, tokens_path, steps, out):
-    """``steps`` AdamW steps (constant LR 1e-3) of the fp32 smoke config on
-    a (data, model) mesh from the weights in ``params_path`` (the port's
-    layout) on the tokens in ``tokens_path``: the losses and the weights
-    after them, whole."""
+def mesh_steps(rank, data, model, runs, out):
+    """For each run ``(name, pkw, params_path, batch_path, steps)``:
+    ``steps`` AdamW steps (constant LR 1e-3) of the fp32 smoke config with
+    ``ParallelConfig`` overrides ``pkw`` on a (data, model) mesh, from the
+    weights in ``params_path`` (the port's layout) on the numpy batch in
+    ``batch_path`` (``.npz``): the losses and the weights after them,
+    whole, keyed by :func:`tag`."""
     from repro_torch.configs.registry import smoke_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import params as P
-    from repro_torch.models.stepfn import make_train_step
+    from repro_torch.models.stepfn import make_train_step, place_batch
     from repro_torch.optim.optimizers import AdamW, constant_lr
-    from repro_torch.parallel.sharding import (ParallelConfig, ShardCtx,
-                                               act_sharding)
-    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.parallel.sharding import ParallelConfig, ShardCtx
     mesh = make_host_mesh(data=data, model=model, device="cpu")
-    cfg = smoke_config(name).replace(dtype="float32")
-    pcfg = ParallelConfig(flash_threshold=1 << 30, logits_chunk=0)
-    params = P.shard_params(torch.load(params_path), P.model_specs(cfg),
-                            mesh, pcfg)
-    tk = torch.from_numpy(np.load(tokens_path)).long()
-    batch = {"tokens": distribute_tensor(
-        tk, *act_sharding(tk.shape, ("act_batch", "act_seq"), mesh, pcfg),
-        src_data_rank=None)}
-    opt = AdamW(schedule=constant_lr(1e-3))
-    state = opt.init(params)
-    step = make_train_step(cfg, pcfg, opt, px=ShardCtx(mesh, pcfg))
-    losses = []
-    for i in range(steps):
-        params, state, m = step(params, state, batch, i)
-        losses.append(float(m["loss"]))
-    whole = _whole(params)
+    res = {}
+    for name, pkw, params_path, batch_path, steps in runs:
+        cfg = smoke_config(name).replace(dtype="float32")
+        px = ShardCtx(mesh, ParallelConfig(flash_threshold=1 << 30,
+                                           logits_chunk=0, **pkw))
+        params = P.shard_params(torch.load(params_path), P.model_specs(cfg),
+                                mesh, px.pcfg)
+        batch = place_batch(batch_torch(dict(np.load(batch_path))), px)
+        opt = AdamW(schedule=constant_lr(1e-3))
+        state = opt.init(params)
+        step = make_train_step(cfg, px.pcfg, opt, px=px)
+        losses = []
+        for i in range(steps):
+            params, state, m = step(params, state, batch, i)
+            losses.append(float(m["loss"]))
+        res[tag(name, pkw)] = {"losses": losses, "params": _whole(params)}
     if rank == 0:
-        torch.save({"losses": losses, "params": whole}, out)
+        torch.save(res, out)
+
+
+# -- sharding.block_local ------------------------------------------------------
+
+
+def _blocks(px):
+    """Two blocks through ``block_local`` and their inputs: a (rows,
+    channels) block (a per-channel causal scan with a channel weight and a
+    weight whole on every rank) and a (rows, heads) block (a per-head
+    product with a weight by heads, one input shared by every head)."""
+    from repro_torch.parallel.sharding import block_local
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 6, 8, generator=g)        # (rows, seq, channels)
+    w = {"c": torch.randn(8, generator=g), "s": torch.randn(3, generator=g)}
+    q = torch.randn(4, 5, 2, 3, generator=g)     # (rows, seq, heads, dim)
+    r = torch.randn(2, 3, 3, generator=g)        # (heads, dim, dim)
+    u = torch.randn(4, 5, 3, generator=g)        # (rows, seq, dim)
+
+    def channels(p, t):
+        y = torch.cumsum(t * p["c"], dim=1) * p["s"].sum()
+        return (y, y.pow(2).sum(dim=1))
+
+    def heads(p, t, shared):
+        return (torch.einsum("bshk,hkl->bshl", t, p["r"]) + shared[:, :, None],)
+
+    def run(put):
+        ins = {"x": put(x, ("act_batch", None, "act_mlp")),
+               "w": {"c": put(w["c"], (None,)), "s": put(w["s"], (None,))},
+               "q": put(q, ("act_batch", None, "act_heads")),
+               "r": put(r, (None,)), "u": put(u, ("act_batch",))}
+        ch = block_local(px, channels, (ins["w"], ins["x"]),
+                         ({"c": ("act_mlp",), "s": None},
+                          ("act_batch", None, "act_mlp")),
+                         (("act_batch", None, "act_mlp"),
+                          ("act_batch", "act_mlp")))
+        hd = block_local(px, heads, ({"r": ins["r"]}, ins["q"], ins["u"]),
+                         ({"r": ("act_heads",)}, ("act_batch", None,
+                                                  "act_heads"),
+                          ("act_batch",)), (("act_batch", None, "act_heads"),))
+        return ins, ch, hd
+    return run
+
+
+def block_checks(rank, data, model, out):
+    """Both blocks of :func:`_blocks` on a (data, model) mesh, against the
+    unsharded call, the activations arriving split by rows over ``data``
+    and the weights replicated: each output whole and its placements, and
+    each input's gradient whole and its placements, of a loss that weighs
+    each output element differently."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as P
+    from repro_torch.parallel.sharding import ParallelConfig, ShardCtx
+    mesh = make_host_mesh(data=data, model=model, device="cpu")
+    px = ShardCtx(mesh, ParallelConfig())
+
+    def plain(t, _):
+        return t.clone().requires_grad_(True)
+
+    def placed(t, names):
+        pl = [Replicate()] * mesh.ndim
+        if names[0] == "act_batch":
+            pl[mesh.mesh_dim_names.index("data")] = Shard(0)
+        return distribute_tensor(t, mesh, pl,
+                                 src_data_rank=None).requires_grad_(True)
+
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+    res = {}
+    for side, put, ctx in (("unsharded", plain, None),
+                           ("sharded", placed, px)):
+        ins, ch, hd = _blocks(ctx)(put)
+        loss = 0
+        for o in ch + hd:
+            wt = torch.linspace(0.5, 1.5, o.numel()).reshape(o.shape)
+            if isinstance(o, DTensor):
+                wt = distribute_tensor(wt, mesh, o.placements,
+                                       src_data_rank=None)
+            loss = loss + (o * wt).sum()
+        flat = list(P.leaves(ins))
+        grads = torch.autograd.grad(loss, [t for _, t in flat])
+        res[side] = {
+            "outs": [whole(o) for o in ch + hd],
+            "out_placements": [str(tuple(getattr(o, "placements", ())))
+                               for o in ch + hd],
+            "grads": {p: whole(g) for (p, _), g in zip(flat, grads)},
+            "grad_placements": {p: str(tuple(getattr(g, "placements", ())))
+                                for (p, _), g in zip(flat, grads)}}
+    if rank == 0:
+        torch.save(res, out)
+
+
+def family_job(rank, data, model, runs, out, blocks_out=None):
+    """:func:`mesh_steps`, then (with ``blocks_out``) :func:`block_checks`
+    on the same mesh, in one group."""
+    mesh_steps(rank, data, model, runs, out)
+    if blocks_out is not None:
+        block_checks(rank, data, model, blocks_out)
 
 
 # -- compression over a mesh dim -------------------------------------------------
