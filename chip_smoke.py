@@ -105,12 +105,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      before the next.
  13. slice 9's main path: DecodeServer serves the last four families at
      full width with KernelConfig(use_flash, use_decode), random bf16
-     weights from seed 0, batch 4: recurrentgemma-9b whole (prompt 3,072
-     past its 2,048 window: the rolling cache, the blockwise attention, the
-     decode kernel at G 16 with the window), deepseek-v3-671b at 5 of 61
-     layers (MLA, 256 experts), musicgen-large whole (frame embeddings,
-     cross-attention, both kernels at hd 64) and xlstm-1.3b whole
-     (mlstm_chunk 64); prefill ms, ms/step, tokens/s, peak memory, the step's byte
+     weights from seed 0, batch 4: recurrentgemma-9b at 20 of 38 layers
+     (prompt 3,072 past its 2,048 window: the rolling cache, the blockwise
+     attention, the decode kernel at G 16 with the window),
+     deepseek-v3-671b at 5 of 61 layers (MLA, 256 experts), musicgen-large
+     at 24 of 48 (frame embeddings, cross-attention, both kernels at hd 64)
+     and xlstm-1.3b at 24 of 48 blocks (mlstm_chunk 64); prefill ms, ms/step, tokens/s, peak memory, the step's byte
      bound; the reference's dispatch (flash launches a prefill, decode
      launches a step, the plain core of each other attention layer), each
      kernel call against its plain version, the served logits against the
@@ -170,6 +170,21 @@ Phases, in order; any failure exits non-zero and prints no result:
      bit (else within REMAT_RTOL, the reason printed), each run's step ms,
      first step ms, peak memory and kernel launches (none: the training
      path reaches no kernel); the group destroyed before the summary.
+ 18. slice 14, the dry-run on the card's production meshes (meta DTensors
+     over a fake world of 256 or 512 ranks, each mesh cell traced in a
+     worker process; no kernel): (a) phase 14's cell on a 1 x 1 mesh
+     against its one-card record: arguments, temps, FLOPs and bytes
+     equal, no collective bytes; (b) every arch x shape cell on the
+     single (data 32, model 8) and multi (pod 2, data 32, model 8) meshes:
+     fits or not, a card's peak against its memory, the dominant term,
+     t_collective, the NVLink and InfiniBand bytes a card, the trace
+     seconds; every admitted cell ok; (c) BO (ei) through
+     DryRunObjective(mesh="single") at deepseek-v3-671b's decode_32k,
+     each config traced in a child process, journaled under
+     dryrun[...×single-<card>] in a store of its own and resolved back by
+     that id only, with embed_rule and experts_rule each moving the
+     value; (d) the cells that fit each mesh beside those that fit one
+     card (phase 15).
 The line before the last holds the kernels' JSON summary (times are the
 phase-9 device times, the phase-6 event times where the profiler saw none;
 the GEMM's and the GP kernel's launches are phases 4 and 11 together; the
@@ -305,15 +320,19 @@ CONTROL_ARCH = "internlm2-1.8b"
 # blockwise attention runs); deepseek's five layers are its three dense
 # ones and two MoE (three MoE layers would be 76 GB of bf16 weights);
 # xlstm's mlstm_chunk is what its sharding cell sets. xlstm runs last: the
-# profile of its prefill (about 170,000 device events) leaves the profiler
-# losing records of the device timings after it
-LAST_RUNS = (("recurrentgemma-9b", None, 3072, 64, {}),
+# profile of its prefill (about 170,000 device events at full depth) leaves
+# the profiler losing records of the device timings after it. The other
+# three are cut in depth, whole repeats of their layer patterns (20 of 38,
+# 24 of 48, 24 of 48), for the script's time limit: at full depth a slower
+# host ran the whole script in 1,209 s
+LAST_RUNS = (("recurrentgemma-9b", 20, 3072, 64, {}),
              ("deepseek-v3-671b", 5, 1024, 8, {}),
-             ("musicgen-large", None, 1024, 64, {}),
-             ("xlstm-1.3b", None, 1024, 64, {"mlstm_chunk": 64}))
-# the reference's dispatch: flash launches a prefill, decode launches a step
-LAST_LAUNCHES = {"recurrentgemma-9b": (0, 12), "deepseek-v3-671b": (0, 0),
-                 "xlstm-1.3b": (0, 0), "musicgen-large": (48, 48)}
+             ("musicgen-large", 24, 1024, 64, {}),
+             ("xlstm-1.3b", 24, 1024, 64, {"mlstm_chunk": 64}))
+# the reference's dispatch: flash launches a prefill, decode launches a
+# step (one a layer of attention at these depths)
+LAST_LAUNCHES = {"recurrentgemma-9b": (0, 6), "deepseek-v3-671b": (0, 0),
+                 "xlstm-1.3b": (0, 0), "musicgen-large": (24, 24)}
 # phase 14, training: gemma-2b at full width and depth with the TrainLoop's
 # parallel defaults (materialized attention, unchunked cross-entropy, remat
 # "none"), batch x sequence, steps, the launcher's peak LR; the card-vs-CPU
@@ -341,6 +360,12 @@ DRY_PEAK_RTOL, DRY_WORKERS = 0.10, 6
 DRY_BO_ARCH, DRY_BO_SHAPES, DRY_BO_BUDGET = ("gemma-2b",
                                              ("prefill_32k", "prefill_32k_b4"),
                                              24)
+# phase 18, the dry-run on the production meshes: BO's cell, where the
+# mesh knobs decide (deepseek-v3's 256 experts divide over model x data of
+# the single mesh, qwen3-moe's 128 do not; without ZeRO-3 its weights do
+# not fit a card), and budget
+MESH_BO_ARCH, MESH_BO_SHAPE, MESH_BO_BUDGET = ("deepseek-v3-671b",
+                                               "decode_32k", 3)
 # graph replays held against the eager step bit for bit; xLSTM's two mLSTM
 # scans compared at this many blocks
 GRAPH_STEPS, SCAN_BLOCKS = 4, 8
@@ -2981,6 +3006,7 @@ def dryrun_on_card(dev, card: str, sdir: str) -> None:
         f"{sum(r['fits'] for r in ok)} fit the card; traces "
         f"{sum(r['t_trace_s'] for r in ok):.1f} s in all, {wall:.1f} s of "
         f"wall in {DRY_WORKERS} processes")
+    fits = {"cells": len(ok), "fit": sum(r["fits"] for r in ok)}
 
     # (c) BO through the objective, journaled into the phase-3 store
     cache_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
@@ -3044,7 +3070,7 @@ def dryrun_on_card(dev, card: str, sdir: str) -> None:
         f"|d| {int8_d:.4g} (limit 0.02 x max|g| = {0.02 * scale:.4g})")
     if not same or not int8_d <= 0.02 * scale:
         fail("compression on the card differs from the CPU's")
-    return {"train": train, "decode": decode}
+    return {"train": train, "decode": decode, **fits}
 
 
 # -- phase 16 ------------------------------------------------------------------
@@ -3242,6 +3268,151 @@ def train_xlstm_on_mesh(dev, card: str, cfg=None) -> dict:
     first = [res[mb]["off"]["losses"][0] for mb in XLSTM_MICROBATCHES]
     log(f"[17] the first loss at microbatches {XLSTM_MICROBATCHES}: {first}")
     return res
+
+
+# -- phase 18 ------------------------------------------------------------------
+
+
+def _in_child(fn, *args):
+    """``fn(*args)`` in a spawned process: a fake world of ranks must not
+    open in this one, which held NCCL groups (phases 16-17)."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as ex:
+        return ex.submit(fn, *args).result()
+
+
+def dryrun_on_meshes(dev, card: str, phase15: dict) -> dict:
+    """Phase 18: the dry-run on the card's production meshes. (a) phase
+    14's cell on a 1 x 1 mesh against one card; (b) every arch x shape
+    cell on the single and multi meshes; (c) BO over deepseek-v3's
+    decode cell on single, journaled under the mesh's id; (d) the cells
+    that fit each mesh beside phase 15's one card."""
+    from repro_torch.configs.arch import SHAPES
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.runner import run_strategy
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.core.tuning_targets import DryRunObjective
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import links_for
+    from repro_torch.parallel.sharding import ParallelConfig
+    from repro_torch.store.resolve import best_sharding_config
+
+    # (a) phase 14's cell on a 1 x 1 mesh against its one-card record
+    t0 = time.perf_counter()
+    pcfg = ParallelConfig(**TRAIN_PCFG)
+    one = dryrun.run_cell(TRAIN_ARCH, "train_1k_b4", card, pcfg)
+    mesh = _in_child(dryrun.run_cell, TRAIN_ARCH, "train_1k_b4", card, pcfg,
+                     None, {"data": 1, "model": 1})
+    if one["status"] != "ok" or mesh["status"] != "ok":
+        fail(f"phase 14's cell: {one.get('error')} / {mesh.get('error')}")
+    m1, mm = one["memory"], mesh["memory"]
+    r1, rm = one["roofline"], mesh["roofline"]
+    log(f"[18a] {TRAIN_ARCH} train B {TRAIN_SHAPE[0]} x S {TRAIN_SHAPE[1]}: "
+        f"one card arguments {m1['argument_size_in_bytes']:,} B, temps "
+        f"{m1['temp_size_in_bytes']:,} B, FLOPs {r1['flops']:,.0f}, bytes "
+        f"{r1['hbm_bytes']:,.0f}; on a 1 x 1 mesh "
+        f"{mm['argument_size_in_bytes']:,} B, "
+        f"{mm['temp_size_in_bytes']:,} B, {rm['flops']:,.0f}, "
+        f"{rm['hbm_bytes']:,.0f}, collective bytes {rm['coll_bytes']:,.0f} "
+        f"({mesh['t_trace_s']:.1f} s traced); phase 15 measured "
+        f"{phase15['train']['peak'] / 2**30:.3f} GiB on the card against "
+        f"{phase15['train']['dry_peak'] / 2**30:.3f} dry")
+    if mm != m1 or rm["coll_bytes"] or any(
+            rm[k] != r1[k] for k in ("flops", "hbm_bytes")):
+        fail("a 1 x 1 mesh's record differs from one card's")
+    log(f"[18a] done in {time.perf_counter() - t0:.1f} s")
+
+    # (c) BO on the single mesh, each config in a child process, in a
+    # thread while (b) sweeps in its worker processes: the two overlap
+    def bo_on_single() -> None:
+        t0 = time.perf_counter()
+        cache_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+        store = os.path.join(cache_dir, "store")
+        obj = DryRunObjective(MESH_BO_ARCH, MESH_BO_SHAPE, mesh="single",
+                              card=card,
+                              cache_dir=os.path.join(cache_dir, "c"),
+                              verbose=False)
+        base = obj.space.config(0)
+
+        def at(**kw):
+            want = {**base, **kw}
+            return next(i for i in range(obj.space.size)
+                        if obj.space.config(i) == want)
+        knobs = {"base": obj(at()),
+                 "embed_rule none": obj(at(embed_rule="none")),
+                 "experts_rule model+data": obj(at(
+                     experts_rule="model+data"))}
+        log(f"[18c] {obj.name} at {base}: step time s {knobs}")
+        b = knobs["base"]
+        for k, v in knobs.items():
+            moved = math.isnan(v) != math.isnan(b) or (
+                not math.isnan(v) and v != b)
+            if k != "base" and not moved:
+                fail(f"{obj.name}: {k} does not move the value")
+        res = run_strategy(make_strategy("ei"), obj, budget=MESH_BO_BUDGET,
+                           seed=0, store=store)
+        vals = [o.value for o in res.journal]
+        valid = [v for v in vals if math.isfinite(v)]
+        best = ((obj.space.config(res.best_idx), res.best_value) if valid
+                else None)
+        log(f"[18c] BO: {obj.space.size} configs, {len(vals)} evaluations "
+            f"({obj.traced} traced in child processes), {len(valid)} valid; "
+            f"best {best} ({time.perf_counter() - t0:.1f} s)")
+        got = best_sharding_config(store, MESH_BO_ARCH, MESH_BO_SHAPE,
+                                   mesh=obj.mesh)
+        others = [best_sharding_config(store, MESH_BO_ARCH, MESH_BO_SHAPE,
+                                       mesh=m)
+                  for m in ("single", "multi", obj.mesh.split("-", 1)[1])]
+        log(f"[18c] resolved under {obj.mesh}: {got}; under the TPU pods' "
+            f"single/multi and one card's id: {others}")
+        if got != best or any(o is not None for o in others):
+            fail(f"{obj.name}: the store resolved {got} / {others}")
+        shutil_rmtree(cache_dir)
+
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1) as pool:
+        bo = pool.submit(bo_on_single)
+        # (b) every cell on both production meshes, in worker processes
+        cells = [(a, s.name) for a in ARCHS for s in SHAPES]
+        nvlink, ib = links_for(card)
+        fit = {}
+        for name in ("single", "multi"):
+            t0 = time.perf_counter()
+            recs = dryrun.run_cells(cells, card, workers=DRY_WORKERS,
+                                    mesh=name)
+            wall = time.perf_counter() - t0
+            for r in recs:
+                head = f"[18b] {r['arch']} x {r['shape']} x {name}"
+                if r["status"] == "skip":
+                    continue
+                if r["status"] != "ok":
+                    fail(f"{head}: {r.get('error')}")
+                mem, rf, ln = r["memory"], r["roofline"], r["links"]
+                log(f"{head}: {'fits' if r['fits'] else 'does not fit'}, peak "
+                    f"{mem['peak_live_bytes'] / 2**30:.2f} of "
+                    f"{mem['card_bytes'] / 2**30:.2f} GiB a card; "
+                    f"{rf['dominant']}, step {rf['step_time']:.4g} s (compute "
+                    f"{rf['t_compute']:.4g}, memory {rf['t_memory']:.4g}, "
+                    f"collective {rf['t_collective']:.4g}); NVLink "
+                    f"{ln['nvlink_bytes'] / 1e9:.3f} GB, InfiniBand "
+                    f"{ln['ib_bytes'] / 1e9:.3f} GB a card; trace "
+                    f"{r['t_trace_s']:.2f} s")
+            ok = [r for r in recs if r["status"] == "ok"]
+            fit[name] = sum(r["fits"] for r in ok)
+            log(f"[18b] {name} ({ok[0]['chips']} cards, NVLink "
+                f"{nvlink / 1e9:.0f} GB/s, InfiniBand {ib / 1e9:.0f} GB/s a "
+                f"card, one direction): {len(ok)} cells ok, "
+                f"{len(recs) - len(ok)} skipped, {fit[name]} fit; traces "
+                f"{sum(r['t_trace_s'] for r in ok):.1f} s in all, "
+                f"{wall:.1f} s of wall in {DRY_WORKERS} processes")
+        bo.result()
+
+    # (d) what fits where
+    log(f"[18d] cells that fit: one card {phase15['fit']} of "
+        f"{phase15['cells']}, single {fit['single']} of {phase15['cells']}, "
+        f"multi {fit['multi']} of {phase15['cells']}")
+    return fit
 
 
 def shutil_rmtree(path: str) -> None:
@@ -3585,7 +3756,7 @@ def main() -> int:
 
     # 15. the dry-run tooling against the card
     t0 = time.perf_counter()
-    dryrun_on_card(dev, card, sdir)
+    dried = dryrun_on_card(dev, card, sdir)
     store_tmp.cleanup()
     log(f"[15] done in {time.perf_counter() - t0:.1f} s")
 
@@ -3598,6 +3769,11 @@ def main() -> int:
     t0 = time.perf_counter()
     train_xlstm_on_mesh(dev, card)
     log(f"[17] done in {time.perf_counter() - t0:.1f} s")
+
+    # 18. the dry-run on the card's production meshes (no kernel)
+    t0 = time.perf_counter()
+    dryrun_on_meshes(dev, card, dried)
+    log(f"[18] done in {time.perf_counter() - t0:.1f} s")
 
     summary = {"kernels": []}
     for name, src, line in (

@@ -11,20 +11,26 @@ are kept so that ``sharding_hard[...]`` digests match. The wide MoE grids
 (cartesian 9·10^7 to 1.1·10^9) build as a ``GenerativeSpace``, as the
 reference's do.
 
-``DryRunObjective`` is the reference's objective for one card: a config
-runs ``launch/dryrun.run_cell`` in process (a meta-tensor trace takes
-seconds; the reference runs an XLA compile in a subprocess), and its value
-is the roofline ``step_time``, NaN where the record's status is not
-``ok`` or its ``peak_live_bytes`` exceed the card's memory. Its id is
-``dryrun[arch×shape×<card>]`` with the card's device kind
-(``cuda-NVIDIA_H100_80GB_HBM3``), so a record tuned for a pod mesh
-(``single``, ``multi``) never resolves for the card. Records are cached
-on disk under the reference's ``_cache_key`` scheme, the card in place of
-the mesh. A config becomes a ``ParallelConfig`` as the reference's does:
-``_config_args`` gives the dry-run CLI's flags, which
-``launch/dryrun._pcfg_from_args`` reads; ``embed_rule`` and
-``experts_rule`` become ``param_rules`` overrides (``--rules``), which
-change no shape on one card (the record says so).
+``DryRunObjective`` is the reference's objective, for one card or for a
+production mesh of the card (``launch/mesh.PRODUCTION_MESHES``: 256 or
+512 of them): a config runs ``launch/dryrun.run_cell``, and its value is
+the roofline ``step_time``, NaN where the record's status is not ``ok``
+or its per-card ``peak_live_bytes`` exceed the card's memory. One card
+traces in process (a meta-tensor trace takes seconds); a mesh cell runs
+the dry-run's CLI in a child process, as the reference's objective
+does, so that its fake world of ranks never meets the caller's process
+group. Its id is ``dryrun[arch×shape×<key>]`` with
+``store/resolve.mesh_key``: the card's device kind
+(``cuda-NVIDIA_H100_80GB_HBM3``), or the mesh before it
+(``single-cuda-NVIDIA_H100_80GB_HBM3``), so a record tuned for a TPU pod
+(``single``, ``multi``), for one card or for another mesh never resolves
+for this one. Records are cached on disk under the reference's
+``_cache_key`` scheme, that key in place of the mesh. A config becomes a
+``ParallelConfig`` as the reference's does: ``_config_args`` gives the
+dry-run CLI's flags, which ``launch/dryrun._pcfg_from_args`` reads;
+``embed_rule`` and ``experts_rule`` become ``param_rules`` overrides
+(``--rules``), which change no shape on one card (the record says so)
+and the placements on a mesh.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ import json
 import math
 import os
 import re
+import subprocess
+import sys
 from typing import Any, Dict, List, Optional
 
 from repro_torch.core.objectives import Objective
@@ -252,18 +260,32 @@ def pcfg_of(cfg: Dict[str, Any]):
 
 class DryRunObjective(Objective):
     """Roofline step time (s) of the traced cell under a distribution
-    config, on one card; NaN where the record is not ``ok`` or does not
+    config, on one card (``mesh`` None) or on the named production mesh of
+    the card; NaN where the record is not ``ok`` or a card's peak does not
     fit the card's memory."""
 
-    def __init__(self, arch: str, shape: str, card: Optional[str] = None,
+    def __init__(self, arch: str, shape: str, mesh: Optional[str] = None,
+                 card: Optional[str] = None,
                  cache_dir: str = "results/tune_cache",
                  check_hbm: bool = True, repo_root: Optional[str] = None,
-                 verbose: bool = True, wide: bool = False, arch_cfg=None):
+                 verbose: bool = True, wide: bool = False, arch_cfg=None,
+                 timeout_s: int = 2400):
         from repro_torch.kernels.tuning import card_kind
         from repro_torch.launch.dryrun import present_card
+        from repro_torch.launch.mesh import PRODUCTION_MESHES
+        from repro_torch.store.resolve import mesh_key
+        if mesh is not None and mesh not in PRODUCTION_MESHES:
+            raise ValueError(f"unknown mesh {mesh!r} (only "
+                             f"{sorted(PRODUCTION_MESHES)}, or None)")
+        if mesh is not None and arch_cfg is not None:
+            raise ValueError("a mesh cell is traced in a child process, "
+                             "from the registry's config: no arch_cfg")
         self.arch, self.shape = arch, shape
         self.card = card or present_card()
-        self.mesh = card_kind(self.card)
+        #: the production mesh (None: one card)
+        self.mesh_name = mesh
+        self.mesh = mesh_key(card_kind(self.card), mesh)
+        self.timeout_s = timeout_s
         self.space = sharding_space(arch, shape, wide=wide)
         self.cache_dir = cache_dir
         self.check_hbm = check_hbm
@@ -285,19 +307,45 @@ class DryRunObjective(Objective):
 
     def record_for(self, cfg: Dict[str, Any]) -> Dict:
         """The cell's dry-run record at ``cfg``, from the cache when it
-        holds one, else traced in process and cached."""
+        holds one, else traced (one card: in process; a mesh: in a child
+        process) and cached."""
         from repro_torch.launch.dryrun import run_cell
         path = os.path.join(self.root, self.cache_dir,
                             self._cache_key(cfg) + ".json")
         if os.path.exists(path):
             with open(path) as f:
                 return json.load(f)
-        rec = run_cell(self.arch, self.shape, self.card, pcfg_of(cfg),
-                       cfg=self.arch_cfg)
-        self.traced += not rec.get("memo")
+        if self.mesh_name is None:
+            rec = run_cell(self.arch, self.shape, self.card, pcfg_of(cfg),
+                           cfg=self.arch_cfg)
+            self.traced += not rec.get("memo")
+        else:
+            rec = self._run_child(cfg, path[:-len(".json")] + ".d")
+            self.traced += 1
         with open(path, "w") as f:
             json.dump(rec, f)
         return rec
+
+    def _run_child(self, cfg: Dict[str, Any], tagdir: str) -> Dict:
+        """The mesh cell's record from the dry-run's CLI in a child
+        process (the reference's objective runs its compile so)."""
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", self.arch, "--shape", self.shape,
+               "--mesh", self.mesh_name, "--card", self.card,
+               "--out", tagdir, "--tag", "tune"] + _config_args(cfg)
+        env = dict(os.environ, PYTHONPATH=os.path.join(self.root, "src"))
+        try:
+            r = subprocess.run(cmd, cwd=self.root, env=env,
+                               timeout=self.timeout_s, capture_output=True,
+                               text=True)
+        except subprocess.TimeoutExpired:
+            return {"status": "timeout"}
+        out = os.path.join(tagdir, f"tune__{self.arch}__{self.shape}__"
+                                   f"{self.mesh}.json")
+        if not os.path.exists(out):
+            return {"status": "crash", "stderr": r.stderr[-4000:]}
+        with open(out) as f:
+            return json.load(f)
 
     def __call__(self, idx: int) -> float:
         cfg = self.space.config(idx)

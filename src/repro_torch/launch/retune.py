@@ -70,12 +70,14 @@ SERVE_DTYPE = torch.bfloat16
 
 def dryrun_objective_for(key: str, device=None, card: Optional[str] = None,
                          cache_dir: str = "results/tune_cache"):
-    """A sharding cell key back to its dry-run objective on one card:
-    ``dryrun[arch×shape×<card>]`` where ``<card>`` is the device kind of
-    this daemon's card (``card`` by name, else the card of ``device``,
-    None: the card present). Raises for a pod mesh of the reference
-    (``single``, ``multi``: a record tuned for a TPU pod must not configure
-    one card), for another card's key and with no card to plan for."""
+    """A sharding cell key back to its dry-run objective for this daemon's
+    card (``card`` by name, else the card of ``device``, None: the card
+    present): ``dryrun[arch×shape×<kind>]`` plans one card of that device
+    kind, ``dryrun[arch×shape×<mesh>-<kind>]`` a production mesh of it
+    (``single``, ``multi``). Raises for a pod mesh of the reference
+    (``single``, ``multi`` alone: a record tuned for a TPU pod must not
+    configure a card), for another card's key and with no card to plan
+    for."""
     m = _CELL_RE.match(key)
     if m is None:
         raise ValueError(f"unrecognized retune cell key {key!r} — expected "
@@ -94,10 +96,15 @@ def dryrun_objective_for(key: str, device=None, card: Optional[str] = None,
             raise ValueError(f"cannot service {key!r} on the CPU: a dry-run "
                              "objective is keyed by the card it plans for")
         card = torch.cuda.get_device_name(dev)
-    if mesh != KT.card_kind(card):
+    kind = KT.card_kind(card)
+    prod = mesh.split("-", 1)[0]
+    if prod in ("single", "multi") and mesh == f"{prod}-{kind}":
+        return DryRunObjective(m.group("arch"), m.group("shape"), mesh=prod,
+                               card=card, cache_dir=cache_dir, verbose=False)
+    if mesh != kind:
         raise ValueError(f"{key!r} is keyed for {mesh!r}; this daemon plans "
-                         f"for {KT.card_kind(card)!r} and tunes only its own "
-                         "card's cells")
+                         f"for {kind!r} (one card, or its single/multi "
+                         "meshes) and tunes only its own card's cells")
     return DryRunObjective(m.group("arch"), m.group("shape"), card=card,
                            cache_dir=cache_dir, verbose=False)
 

@@ -6,12 +6,13 @@ package's TPU VMEM budget, which has no counterpart here. The peak rates
 give a kernel's bound: the least time the card could take for its work.
 
 ``Roofline`` and ``model_flops_for`` are ports of the reference's
-(``repro/launch/roofline.py``) for one card: the compute term takes the
-peak of the config's dtype (bf16 on the tensor cores, fp32 on the CUDA
-cores: the port runs with TF32 off), the memory term the card's HBM
-rate, and the collective terms are 0 (one card has no interconnect to
-cross). ``to_dict`` has the reference's keys, so the dry-run's records
-read as the reference's do.
+(``repro/launch/roofline.py``): the compute term takes the peak of the
+config's dtype (bf16 on the tensor cores, fp32 on the CUDA cores: the
+port runs with TF32 off), the memory term the card's HBM rate, and on a
+mesh of cards the collective term the interconnect's two tiers, NVLink
+inside an 8-card node in place of the reference's ICI and InfiniBand
+between nodes in place of its DCN (``links_for``). ``to_dict`` has the
+reference's keys, so the dry-run's records read as the reference's do.
 """
 from __future__ import annotations
 
@@ -49,6 +50,25 @@ TF32_TC_PEAK_FLOPS = 495e12
 #: HBM3 bandwidth, H100 SXM 80 GB (NVIDIA H100 data sheet: 3.35 TB/s).
 HBM_BW = 3.35e12
 
+#: NVLink 4 rate of one card, one direction: 450 GB/s of the 900 GB/s
+#: both directions together (NVIDIA H100 SXM data sheet; 18 links into the
+#: node's NVSwitch fabric). A collective's bytes are the operand bytes a
+#: card contributes (the reference's count); they leave the card on its
+#: egress while the peers' arrive on its ingress at the same time, so one
+#: direction's rate is what a ring or a switch-reduced collective runs at.
+NVLINK_BW = 450e9
+
+#: InfiniBand rate of one card between nodes, one direction: one
+#: ConnectX-7 NDR port of 400 Gb/s a card (NVIDIA DGX H100 system: eight
+#: such ports, one a card), 50 GB/s each way; one direction for the reason
+#: given at ``NVLINK_BW``.
+IB_BW = 400e9 / 8
+
+#: cards a node joins over NVLink (DGX H100 / HGX H100 8-GPU): ranks
+#: ``8k .. 8k+7`` share node k, so a collective whose group holds ranks of
+#: two nodes crosses InfiniBand
+NODE_CARDS = 8
+
 #: The card the peaks above are for, as ``torch.cuda.get_device_name`` and
 #: ``nvidia-smi`` name it.
 CARD = "NVIDIA H100 80GB HBM3"
@@ -77,6 +97,13 @@ def peaks_for(card_name: str) -> Tuple[float, float]:
         raise ValueError(f"no published peaks recorded for card "
                          f"{card_name!r} (only {CARD!r})")
     return FP32_PEAK_FLOPS, HBM_BW
+
+
+def links_for(card_name: str) -> Tuple[float, float]:
+    """(NVLink bytes/s, InfiniBand bytes/s) of one card of the named kind,
+    one direction each; ``ValueError`` for another card."""
+    peaks_for(card_name)
+    return NVLINK_BW, IB_BW
 
 
 def bound_ms(flops: float, nbytes: float, card_name: str,
@@ -110,11 +137,15 @@ def dtype_peak_flops(dtype: str, card_name: str = CARD) -> float:
 
 @dataclass
 class Roofline:
-    """Roofline terms of one step on ``chips`` cards (1 here):
+    """Roofline terms of one step on ``chips`` cards, each count the sum
+    over the cards (the reference's: a card's count x chips):
     compute = flops / (chips x peak_flops), memory = hbm_bytes / (chips x
-    hbm_bw), collective = 0 (``coll_bytes`` and ``dcn_bytes`` are 0 on one
-    card, and a non-zero value raises rather than be timed against an
-    interconnect the card has none of)."""
+    hbm_bw), collective = (coll_bytes - dcn_bytes) / (chips x ici_bw) +
+    dcn_bytes / (chips x dcn_bw). On a mesh of H100s the reference's ICI
+    tier is NVLink inside a node and its DCN tier InfiniBand between nodes:
+    ``dcn_bytes`` are the collective bytes whose group spans nodes. On one
+    card collective bytes raise rather than be timed against an
+    interconnect the card has none of."""
 
     flops: float
     hbm_bytes: float
@@ -124,11 +155,17 @@ class Roofline:
     model_flops: float = 0.0
     peak_flops: float = BF16_TC_PEAK_FLOPS
     hbm_bw: float = HBM_BW
+    ici_bw: float = NVLINK_BW
+    dcn_bw: float = IB_BW
 
     def __post_init__(self):
-        if self.chips != 1 or self.coll_bytes or self.dcn_bytes:
-            raise ValueError("the port's roofline is for one card: chips 1, "
-                             "no collective bytes")
+        if self.chips < 1:
+            raise ValueError(f"chips must be at least 1, got {self.chips}")
+        if self.chips == 1 and (self.coll_bytes or self.dcn_bytes):
+            raise ValueError("one card has no interconnect: no collective "
+                             "bytes at chips 1")
+        if not 0 <= self.dcn_bytes <= self.coll_bytes:
+            raise ValueError("dcn_bytes must lie in [0, coll_bytes]")
 
     @property
     def t_compute(self) -> float:
@@ -140,7 +177,8 @@ class Roofline:
 
     @property
     def t_collective(self) -> float:
-        return 0.0
+        ici = (self.coll_bytes - self.dcn_bytes) / (self.chips * self.ici_bw)
+        return ici + self.dcn_bytes / (self.chips * self.dcn_bw)
 
     @property
     def dominant(self) -> str:

@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.parallel.sharding import (ParallelConfig, ShardCtx,
                                            act_sharding, block_local,
-                                           constrain)
+                                           constrain, local_block)
 
 Cache = Optional[Dict[str, torch.Tensor]]
 
@@ -353,10 +353,17 @@ def gqa_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
         if cache is None or S != 1:
             raise ValueError("decode takes one token and a cache")
         slot = _cache_slot(positions[:, 0], cache["k"].shape[1], window)
-        _insert_slot(cache["k"], k, slot)
-        _insert_slot(cache["v"], v, slot)
-        _insert_slot(cache["pos"], positions, slot)
-        if _decode_kernel_ok(hd, v.shape[-1], kc, x.device):
+        _insert_slot(cache["k"], k, slot, px)
+        _insert_slot(cache["v"], v, slot, px)
+        _insert_slot(cache["pos"], positions, slot, px)
+        if px is not None and px.mesh is not None:
+            # the rank's rows of the positions, split as the queries' rows
+            cache_pos = cache["pos"].to_local()
+            out = _heads_local(px, lambda q_, k_, v_, pos_: _decode_attention(
+                q_, k_, v_, cache_pos=cache_pos, cur_pos=pos_[:, 0],
+                window=window, scale=scale), q, cache["k"], cache["v"],
+                positions)
+        elif _decode_kernel_ok(hd, v.shape[-1], kc, x.device):
             out = _kernel_decode_attention(
                 q, cache["k"], cache["v"], cache_pos=cache["pos"],
                 cur_pos=positions[:, 0], window=window, kc=kc)
@@ -372,8 +379,12 @@ def gqa_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
         if mode == "prefill":
             if cache is None:
                 raise ValueError("prefill fills a cache")
-            new_cache = _prefill_cache(k, v, positions, cache["k"].shape[1],
-                                       window)
+            kv = ("act_batch", None, "act_kv_heads")
+            new_cache = dict(zip(("k", "v", "pos"), block_local(
+                px, lambda *t: tuple(_prefill_cache(
+                    *t, cache["k"].shape[1], window).values()),
+                (k, v, positions), (kv, kv, ("act_batch",)),
+                (kv, kv, ("act_batch",)))))
     out = constrain(out, ("act_batch", "act_seq", "act_heads", None), px)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, new_cache
@@ -392,8 +403,7 @@ def _heads_local(px: Optional[ShardCtx], core, q, k, v, positions=None):
     sequence."""
     if px is None or px.mesh is None:
         return core(q, k, v, positions)
-    from torch.distributed.tensor import (DTensor, Partial, Shard,
-                                          distribute_tensor)
+    from torch.distributed.tensor import DTensor, Partial, Shard
     mesh = px.mesh
     heads = ("act_batch", "act_seq", "act_heads", None)
     _, qp = act_sharding(q.shape, heads, mesh, px.pcfg)
@@ -419,8 +429,7 @@ def _heads_local(px: Optional[ShardCtx], core, q, k, v, positions=None):
     if positions is not None:
         _, pp = act_sharding(positions.shape, ("act_batch", "act_seq"), mesh,
                              px.pcfg)
-        positions = distribute_tensor(positions, mesh, pp,
-                                      src_data_rank=None).to_local()
+        positions = local_block(positions, mesh, pp)
     out = core(ql, k, v, positions)
     return DTensor.from_local(out, mesh, qp, run_check=False)
 
@@ -478,9 +487,23 @@ def _cache_slot(pos, capacity, window):
     return torch.remainder(pos, capacity) if window is not None else pos
 
 
-def _insert_slot(buf, val, slot):
-    """Write val (B,1,...) at per-batch slot (B,) along axis 1, in place."""
-    buf[torch.arange(buf.shape[0], device=buf.device), slot] = val[:, 0]
+def _insert_slot(buf, val, slot, px: Optional[ShardCtx] = None):
+    """Write val (B,1,...) at per-batch slot (B,) along axis 1, in place.
+    On a mesh ``buf`` is a DTensor (``model.place_cache``) and each rank
+    writes its own block of it: ``val`` placed as ``buf`` is, ``slot`` cut
+    to the rank's rows (DTensor refuses an index write in place)."""
+    if px is None or px.mesh is None:
+        buf[torch.arange(buf.shape[0], device=buf.device), slot] = val[:, 0]
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh, pl = px.mesh, tuple(buf.placements)
+    if any(q.is_shard(1) for q in pl):
+        raise NotImplementedError("decode into a cache split along its "
+                                  "sequence (act_cache_seq)")
+    val = (val.redistribute(mesh, pl).to_local() if isinstance(val, DTensor)
+           else local_block(val, mesh, pl))
+    rows = tuple(q if q.is_shard(0) else Replicate() for q in pl)
+    _insert_slot(buf.to_local(), val, local_block(slot, mesh, rows))
 
 
 def _prefill_cache(k, v, positions, cap, window):
@@ -668,8 +691,8 @@ def moe_block(p, x: torch.Tensor, *, cfg: ArchConfig, pcfg: ParallelConfig,
     # layer leaves it: both are placed by batch about the group reshapes
     # (DTensor gets a reshape's local shapes wrong for other placements)
     x = constrain(x, ("act_batch", "act_seq", "act_embed"), px)
-    xg = constrain(x.reshape(G, T // G, d), ("act_group", None, "act_embed"),
-                   px)
+    xr = x.reshape(G, T // G, d)
+    xg = constrain(xr, ("act_group", None, "act_embed"), px)
     route = {k: p[k] for k in ("router", "router_bias") if k in p}
     groups = ("act_group",)
     buf, top_idx, weights, slot, keep, balance = block_local(
@@ -699,6 +722,12 @@ def moe_block(p, x: torch.Tensor, *, cfg: ArchConfig, pcfg: ParallelConfig,
     # load-balance aux (Switch-style): E * mean over groups of
     # sum_e f_e * p_e
     aux = torch.mean(balance) * E * mo.router_aux_weight
+    if px is not None and px.mesh is not None:
+        # back to the groups' placement by batch before the reshape back:
+        # where the groups outnumber what splits the batch (B 32 on the
+        # multi mesh's pod x data 64: a group is half a sequence), torch
+        # 2.11's DTensor gives the reshape a wrong local shape
+        y = y.redistribute(px.mesh, xr.placements)
     y = constrain(y.reshape(B, S, d), ("act_batch", "act_seq", "act_embed"), px)
     return y, aux
 
@@ -737,19 +766,29 @@ def mla_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
         if cache is None or S != 1:
             raise ValueError("decode takes one token and a cache")
         slot = positions[:, 0]
-        _insert_slot(cache["c_kv"], c_kv, slot)
-        _insert_slot(cache["k_rope"], k_rope, slot)
-        _insert_slot(cache["pos"], positions, slot)
-        ckv, krope, pos = cache["c_kv"], cache["k_rope"], cache["pos"]
-        q_c = torch.einsum("bshn,lhn->bshl", q_nope, p["wk_nope"])
-        s = (torch.einsum("bshl,btl->bhst", q_c, ckv)
-             + torch.einsum("bshr,btr->bhst", q_rope, krope)).float()
-        s = s * scale
-        valid = (pos >= 0) & (pos <= positions[:, :1])           # (B, cap)
-        s = s.masked_fill(~valid[:, None, None, :], -math.inf)
-        prob = torch.softmax(s, dim=-1)
-        ctx_c = torch.einsum("bhst,btl->bshl", prob.to(ckv.dtype), ckv)
-        out = torch.einsum("bshl,lhv->bshv", ctx_c, p["wv"])     # (B,1,H,dv)
+        _insert_slot(cache["c_kv"], c_kv, slot, px)
+        _insert_slot(cache["k_rope"], k_rope, slot, px)
+        _insert_slot(cache["pos"], positions, slot, px)
+
+        def absorbed(q_nope, q_rope, ckv, krope, pos, cur, wk_nope, wv):
+            q_c = torch.einsum("bshn,lhn->bshl", q_nope, wk_nope)
+            s = (torch.einsum("bshl,btl->bhst", q_c, ckv)
+                 + torch.einsum("bshr,btr->bhst", q_rope, krope)).float()
+            s = s * scale
+            valid = (pos >= 0) & (pos <= cur[:, :1])             # (B, cap)
+            s = s.masked_fill(~valid[:, None, None, :], -math.inf)
+            prob = torch.softmax(s, dim=-1)
+            ctx_c = torch.einsum("bhst,btl->bshl", prob.to(ckv.dtype), ckv)
+            return (torch.einsum("bshl,lhv->bshv", ctx_c, wv),)  # (B,1,H,dv)
+
+        # on a mesh each rank attends with its rows and heads over its
+        # rows of the latent cache, written in place above
+        heads, rows = ("act_batch", None, "act_heads"), ("act_batch",)
+        (out,) = block_local(
+            px, absorbed, (q_nope, q_rope, cache["c_kv"], cache["k_rope"],
+                           cache["pos"], positions, p["wk_nope"], p["wv"]),
+            (heads, heads, rows, rows, rows, rows, (None, "act_heads"),
+             (None, "act_heads")), (heads,))
         return torch.einsum("bshv,hvd->bsd", out, p["wo"]), cache
 
     k_nope = torch.einsum("bsl,lhn->bshn", c_kv, p["wk_nope"])
@@ -773,9 +812,12 @@ def mla_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
         if cache is None:
             raise ValueError("prefill fills a cache")
         pad = cache["c_kv"].shape[1] - S
-        new_cache = {"c_kv": F.pad(c_kv, (0, 0, 0, pad)),
-                     "k_rope": F.pad(k_rope, (0, 0, 0, pad)),
-                     "pos": F.pad(positions, (0, pad), value=-1)}
+        rows = ("act_batch",)
+        new_cache = dict(zip(("c_kv", "k_rope", "pos"), block_local(
+            px, lambda c, r, q: (F.pad(c, (0, 0, 0, pad)),
+                                 F.pad(r, (0, 0, 0, pad)),
+                                 F.pad(q, (0, pad), value=-1)),
+            (c_kv, k_rope, positions), (rows,) * 3, (rows,) * 3)))
     return y, new_cache
 
 
@@ -878,9 +920,10 @@ def _rglru_scan(p, xx, conv_state, h0, *, c_exponent: float, decode: bool):
 def rglru_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
                 cache: Cache, px: Optional[ShardCtx] = None
                 ) -> Tuple[torch.Tensor, Cache]:
-    """The RG-LRU block. On a mesh (train mode) ``xx`` takes the
-    reference's constraint and the recurrence runs on each rank's rows and
-    channels (``block_local``), exact with no communication."""
+    """The RG-LRU block. On a mesh ``xx`` takes the reference's
+    constraint and the recurrence runs on each rank's rows and channels
+    (``block_local``), exact with no communication, from and into its
+    block of the cache's state where there is one."""
     gate_y = _act("geglu")(x @ p["wy"])
     xx = constrain(x @ p["wx"], ("act_batch", "act_seq", "act_mlp"), px)
     kw = dict(c_exponent=cfg.rglru.c_exponent, decode=mode == "decode")
@@ -891,8 +934,11 @@ def rglru_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
             (_CHANNELS,))
         state = {}
     else:
-        hs, conv, h = _rglru_scan(p, xx, cache["conv"], cache["h"].float(),
-                                  **kw)
+        hs, conv, h = block_local(
+            px, lambda q, t, c, h0: _rglru_scan(q, t, c, h0.float(), **kw),
+            ({k: p[k] for k in _RGLRU_AXES}, xx, cache["conv"], cache["h"]),
+            (_RGLRU_AXES, _CHANNELS, _CHANNELS, _CHANNELS[::2]),
+            (_CHANNELS, _CHANNELS, _CHANNELS[::2]))
         state = dict(conv=conv, h=h)
     y = (gate_y * hs.to(x.dtype)) @ p["wo"]
     return y, _new_state(cache, mode, **state)
@@ -1056,8 +1102,10 @@ def mlstm_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
                                                   q["conv_b"], None)[0]),),
             (conv, inner_in), (_CONV_AXES, _CHANNELS), (_CHANNELS,))
     else:
-        conv_out, new_conv = _causal_conv(inner_in, conv["conv_w"],
-                                          conv["conv_b"], cache["conv"])
+        conv_out, new_conv = block_local(
+            px, lambda q, t, c: _causal_conv(t, q["conv_w"], q["conv_b"], c),
+            (conv, inner_in, cache["conv"]),
+            (_CONV_AXES, _CHANNELS, _CHANNELS), (_CHANNELS, _CHANNELS))
         conv_out = F.silu(conv_out)
 
     chunk = 0 if mode == "decode" else pcfg.mlstm_chunk
@@ -1081,11 +1129,19 @@ def mlstm_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
                            (_HEADS,))
         state = {}
     else:
-        h, (c, n, m) = heads(proj, conv_out, inner_in, tuple(
-            cache[n].float() for n in ("c", "n", "m")))
+        cm = ("act_batch", "act_heads")
+        h, c, n, m = block_local(
+            px, lambda w, ci, ii, *st: (lambda o: (o[0],) + tuple(o[1]))(
+                heads(w, ci, ii, tuple(t.float() for t in st))),
+            (proj, conv_out, inner_in, cache["c"], cache["n"], cache["m"]),
+            (_MLSTM_HEAD_AXES, ("act_batch",), ("act_batch",), cm, cm, cm),
+            (_HEADS, cm, cm, cm))
         state = dict(c=c, n=n, m=m, conv=new_conv)
     h = constrain(h, _HEADS_WHOLE, px)
     h = rms_norm(h.reshape(B, S, -1), p["out_norm"]["scale"], cfg.norm_eps)
+    # channels whole, and so its gradient: a channel split that the heads
+    # do not divide (4 heads over model 8) cannot be viewed back as heads
+    h = constrain(h, ("act_batch", "act_seq", None), px)
     h = h * F.silu(gate_br)
     y = torch.einsum("bsi,id->bsd", h.to(x.dtype), p["w_down"])
     return y, _new_state(cache, mode, **state)
@@ -1142,8 +1198,14 @@ def slstm_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
               "b": (None, "act_heads")}, ("act_batch",)), (_HEADS,))
         state = {}
     else:
-        hs, (c, n, h, m) = scan(rec, x, tuple(
-            cache[k].float() for k in ("c", "n", "h", "m")))
+        cm = ("act_batch", "act_heads")
+        hs, c, n, h, m = block_local(
+            px, lambda q, t, *st: (lambda o: (o[0],) + tuple(o[1]))(
+                scan(q, t, tuple(u.float() for u in st))),
+            (rec, x, cache["c"], cache["n"], cache["h"], cache["m"]),
+            ({"wx": (None, None, "act_heads"), "r": (None, "act_heads"),
+              "b": (None, "act_heads")}, ("act_batch",), cm, cm, cm, cm),
+            (_HEADS, cm, cm, cm, cm))
         state = dict(c=c, n=n, h=h, m=m)
     hs = constrain(hs, _HEADS_WHOLE, px)
     y = rms_norm(hs.reshape(B, S, d), p["group_norm"]["scale"], cfg.norm_eps)

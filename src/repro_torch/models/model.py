@@ -29,9 +29,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.params import DTYPES, layer_kinds
+from repro_torch.models.params import DTYPES, layer_kinds, model_specs
 from repro_torch.parallel.sharding import (ParallelConfig, ShardCtx,
-                                           block_local, constrain)
+                                           block_local, constrain,
+                                           gather_embed)
 
 Tree = Dict[str, Any]
 
@@ -118,11 +119,52 @@ def abstract_cache(cfg: ArchConfig, batch: int, cap: int,
                    shardings: Optional[Tree] = None) -> List[Tree]:
     """The cache as meta tensors (the reference's ``ShapeDtypeStruct``
     tree): :func:`init_cache`'s shapes and dtypes, no storage.
-    ``shardings`` must be None: the dry-run plans one card."""
+    ``shardings`` must be None: a mesh's cache is placed by
+    :func:`place_cache`."""
     if shardings is not None:
-        raise ValueError("abstract_cache: the dry-run plans one card; "
-                         "shardings must be None")
+        raise ValueError("abstract_cache: shardings must be None; place "
+                         "the cache on a mesh with place_cache")
     return init_cache(cfg, batch, cap, device="meta")
+
+
+#: each cache leaf's logical activation axes by (layer kind, name), the
+#: reference's ``_cache_layer_specs``
+CACHE_AXES = {
+    ("attn", "k"): ("act_batch", "act_cache_seq", "act_kv_heads", None),
+    ("attn", "v"): ("act_batch", "act_cache_seq", "act_kv_heads", None),
+    ("attn", "pos"): ("act_batch", "act_cache_seq"),
+    ("attn", "c_kv"): ("act_batch", "act_cache_seq", None),
+    ("attn", "k_rope"): ("act_batch", "act_cache_seq", None),
+    ("attn", "cross_k"): ("act_batch", None, "act_kv_heads", None),
+    ("attn", "cross_v"): ("act_batch", None, "act_kv_heads", None),
+    ("rglru", "conv"): ("act_batch", None, "act_mlp"),
+    ("rglru", "h"): ("act_batch", "act_mlp"),
+    ("mlstm", "c"): ("act_batch", "act_heads", None, None),
+    ("mlstm", "n"): ("act_batch", "act_heads", None),
+    ("mlstm", "m"): ("act_batch", "act_heads"),
+    ("mlstm", "conv"): ("act_batch", None, "act_mlp"),
+    **{("slstm", k): ("act_batch", "act_heads", None)
+       for k in ("c", "n", "h", "m")},
+}
+
+
+def cache_axes(kind: str, name: str):
+    """The logical axes of one cache leaf (``attn_dense`` as ``attn``)."""
+    return CACHE_AXES[("attn" if kind == "attn_dense" else kind, name)]
+
+
+def place_cache(cache: List[Tree], cfg: ArchConfig, px) -> List[Tree]:
+    """Off a mesh the cache; on one each leaf a DTensor placed by its
+    logical axes (:data:`CACHE_AXES`, ``act_rules``), each rank keeping its
+    own block (no rank sends any)."""
+    if px is None or px.mesh is None:
+        return cache
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.parallel.sharding import act_sharding
+    return [{k: distribute_tensor(t, *act_sharding(
+        t.shape, cache_axes(kind, k), px.mesh, px.pcfg), src_data_rank=None)
+        for k, t in layer.items()}
+        for kind, layer in zip(layer_kinds(cfg), cache)]
 
 
 def cache_specs(cfg: ArchConfig, batch: int, cap: int) -> List[Tree]:
@@ -158,9 +200,20 @@ def _apply_layer(kind: str, p: Tree, x: torch.Tensor, *, cfg: ArchConfig,
     """One layer, as the reference's ``_apply_layer``. Returns (x, new
     cache, aux): aux is an MoE layer's load-balance loss, else None (no
     zero is launched for it). In decode the new cache is ``cache`` itself,
-    updated in place."""
+    updated in place. On a mesh the residual stream takes the embedding's
+    constraint at each add (GSPMD carries it down the residual), and so
+    does each block's output, a sum pending over the mesh dims that split
+    its last product's contraction (the row split of ``wo``): else DTensor
+    keeps such sums pending, forward and backward, into the next block and
+    may plan that block's first product whole on every rank."""
     aux = None
     new_cache = cache
+
+    def out(y):
+        return constrain(y, ("act_batch", "act_seq", "act_embed"), px)
+
+    def add(x, y):
+        return out(x + out(y))
     if kind in ("attn", "attn_dense"):
         h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
         mla = cfg.attention == "mla"
@@ -173,7 +226,7 @@ def _apply_layer(kind: str, p: Tree, x: torch.Tensor, *, cfg: ArchConfig,
         else:
             a_out, a_cache = L.gqa_attention(
                 p["attn"], h, window=layer_window(cfg, kind), px=px, **kw)
-        x = x + a_out
+        x = add(x, a_out)
         if cache is not None and mode != "decode":
             new_cache = dict(cache)
             new_cache.update(a_cache)
@@ -185,30 +238,31 @@ def _apply_layer(kind: str, p: Tree, x: torch.Tensor, *, cfg: ArchConfig,
                 ckv = L.cond_kv(p["cross"], cond, cfg=cfg)
                 if cache is not None:
                     new_cache["cross_k"], new_cache["cross_v"] = ckv
-            x = x + L.cross_attention(p["cross"], hc, ckv, cfg=cfg, px=px)
+            x = add(x, L.cross_attention(p["cross"], hc, ckv, cfg=cfg,
+                                         px=px))
         h2 = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
         if "moe" in p:
             m_out, aux = L.moe_block(p["moe"], h2, cfg=cfg, pcfg=pcfg, px=px)
         else:
             m_out = L.mlp(p["mlp"], h2, cfg, px)
-        return x + m_out, new_cache, aux
+        return add(x, m_out), new_cache, aux
     h = L.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     if kind == "rglru":
         r_out, new_cache = L.rglru_block(p["rec"], h, cfg=cfg, pcfg=pcfg,
                                          mode=mode, cache=cache, px=px)
-        x = x + r_out
+        x = add(x, r_out)
         h2 = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-        return x + L.mlp(p["mlp"], h2, cfg, px), new_cache, aux
+        return add(x, L.mlp(p["mlp"], h2, cfg, px)), new_cache, aux
     if kind == "mlstm":
         m_out, new_cache = L.mlstm_block(p["mlstm"], h, cfg=cfg, pcfg=pcfg,
                                          mode=mode, cache=cache, px=px)
-        return x + m_out, new_cache, aux
+        return add(x, m_out), new_cache, aux
     if kind == "slstm":
         s_out, new_cache = L.slstm_block(p["slstm"], h, cfg=cfg, pcfg=pcfg,
                                          mode=mode, cache=cache, px=px)
-        x = x + s_out
+        x = add(x, s_out)
         h2 = L.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-        return x + L.mlp(p["ffn"], h2, cfg, px), new_cache, aux
+        return add(x, L.mlp(p["ffn"], h2, cfg, px)), new_cache, aux
     raise ValueError(f"unknown layer kind {kind!r}")
 
 
@@ -284,8 +338,12 @@ def forward(params: Tree, *, cfg: ArchConfig, pcfg: ParallelConfig,
         return (x, None, _aux_sum(auxes, x)) if return_aux else (x, None)
     new_cache = [] if cache is not None else None
     auxes = []
+    specs = (model_specs(cfg)["layers"] if px is not None
+             and px.mesh is not None else None)
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
         lc = cache[i] if cache is not None else None
+        if specs is not None:
+            p = gather_embed(p, specs[i], px)
         x, a_cache, aux = _apply_layer(kind, p, x, cfg=cfg, pcfg=pcfg,
                                        mode=mode, cache=lc,
                                        positions=positions, cond=cond, px=px)
@@ -309,8 +367,14 @@ def _train_layers(params: Tree, x, *, cfg: ArchConfig, pcfg: ParallelConfig,
     pattern; the unit here is one layer, the same function). Returns
     (hidden, the MoE layers' aux losses)."""
     auxes = []
-    for kind, p in zip(layer_kinds(cfg), params["layers"]):
-        def layer(x_, p_, kind=kind):
+    kinds = layer_kinds(cfg)
+    specs = (model_specs(cfg)["layers"] if px is not None
+             and px.mesh is not None else [None] * len(kinds))
+    for i, (kind, p, spec) in enumerate(zip(kinds, params["layers"],
+                                            specs)):
+        def layer(x_, p_, kind=kind, spec=spec, i=i):
+            # gathered inside the remat unit: recomputation gathers again
+            p_ = gather_embed(p_, spec, px)
             y, _, a = _apply_layer(kind, p_, x_, cfg=cfg, pcfg=pcfg,
                                    mode="train", cache=None,
                                    positions=positions, cond=cond, px=px)
@@ -321,10 +385,24 @@ def _train_layers(params: Tree, x, *, cfg: ArchConfig, pcfg: ParallelConfig,
     return x, auxes
 
 
-def output_head(params: Tree, cfg: ArchConfig, x: torch.Tensor
-                ) -> torch.Tensor:
+def head_params(params: Tree, cfg: ArchConfig,
+                px: Optional[ShardCtx] = None) -> Tree:
+    """The final norm and the head's weight ({"final_norm", "lm_head" or
+    "embed"}), on a mesh with their ``embed`` dims gathered
+    (``sharding.gather_embed``)."""
+    keep = {k: params[k] for k in ("final_norm", "lm_head", "embed")
+            if k in params}
+    if px is None or px.mesh is None:
+        return keep
+    specs = model_specs(cfg)
+    return gather_embed(keep, {k: specs[k] for k in keep}, px)
+
+
+def output_head(params: Tree, cfg: ArchConfig, x: torch.Tensor,
+                px: Optional[ShardCtx] = None) -> torch.Tensor:
     """Final norm + logits projection in the model dtype. x (B,S,d) ->
     (B,S,V) fp32. A tied model reads its head from ``embed.table.T``."""
+    params = head_params(params, cfg, px)
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     if "lm_head" in params:
         w = params["lm_head"]["w"]

@@ -306,10 +306,10 @@ def abstract_params(cfg: ArchConfig, shardings: Optional[Tree] = None
                     ) -> Tree:
     """The parameter tree as meta tensors: each leaf's shape and dtype,
     no storage (the reference's ``ShapeDtypeStruct`` tree). ``shardings``
-    must be None: the dry-run plans one card."""
+    must be None: a mesh's parameters are placed by :func:`shard_params`."""
     if shardings is not None:
-        raise ValueError("abstract_params: the dry-run plans one card; "
-                         "shardings must be None")
+        raise ValueError("abstract_params: shardings must be None; place "
+                         "the tree on a mesh with shard_params")
     return map_tree(lambda spec: torch.empty(
         spec.shape, dtype=DTYPES[spec.dtype or cfg.dtype], device="meta"),
         model_specs(cfg))
@@ -348,15 +348,19 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return map_tree_paths(specs, flat)
 
 
-def map_tree_paths(specs: Tree, flat: Dict[Tuple, Any]) -> Tree:
-    """Rebuild ``specs``' structure with the values of ``flat`` by path."""
-    def build(tree, path):
-        if isinstance(tree, dict):
-            return {k: build(v, path + (k,)) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [build(v, path + (i,)) for i, v in enumerate(tree)]
-        return flat[path]
-    return build(specs, ())
+def map_tree_paths(specs: Tree, flat: Dict[Tuple, Any],
+                   path: Tuple = ()) -> Tree:
+    """Rebuild ``specs``' structure with the values of ``flat`` by path.
+    (Recursive at module level: a recursive inner function is a reference
+    cycle, which would keep ``flat``'s tensors alive until the garbage
+    collector ran.)"""
+    if isinstance(specs, dict):
+        return {k: map_tree_paths(v, flat, path + (k,))
+                for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [map_tree_paths(v, flat, path + (i,))
+                for i, v in enumerate(specs)]
+    return flat[path]
 
 
 def _to_torch(a: np.ndarray, device) -> torch.Tensor:

@@ -80,14 +80,17 @@ def _chunk_loss(xc: torch.Tensor, head_w: torch.Tensor, lc: torch.Tensor,
     bf16-operand form, has no backward (its autograd formula is missing)
     and no CPU kernel. On a bf16 model this casts the head to fp32 once a
     chunk. On a mesh the logits take the reference's constraint (vocab
-    over ``model``) and the label's logit is the sum over the vocabulary
-    of the logits masked to the label's column, exact (one term is not
-    zero): DTensor's gather along a sharded dim fails."""
+    over ``model``) and, where any mesh dim splits them, the label's logit
+    is the sum over the vocabulary of the logits masked to the label's
+    column, exact (one term is not zero): DTensor's gather along a sharded
+    dim fails. Logits replicated on every rank (a mesh of one rank) take
+    the gather, as off a mesh."""
     logits = xc.float() @ head_w.float()
     logits = constrain(logits, ("act_batch", "act_seq", "act_vocab"), px)
     logz = torch.logsumexp(logits, dim=-1)
     label = torch.clamp(lc, min=0).long()[..., None]
-    if px is None or px.mesh is None:
+    if px is None or px.mesh is None or not any(
+            pl.is_shard() for pl in logits.placements):
         ll = torch.gather(logits, -1, label)[..., 0]
     else:
         vocab = torch.arange(logits.shape[-1], device=lc.device)
@@ -138,6 +141,7 @@ def loss_fn(params: Tree, batch: Tree, *, cfg: ArchConfig,
     x, _, aux = M.forward(params, cfg=cfg, pcfg=pcfg, mode="train",
                           tokens=tokens, embeds=embeds, cond=batch.get("cond"),
                           positions=positions, return_aux=True, px=px)
+    params = M.head_params(params, cfg, px)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     head = (params["lm_head"]["w"] if "lm_head" in params
             else params["embed"]["table"].T)
@@ -224,39 +228,47 @@ def make_train_step(cfg: ArchConfig, pcfg: ParallelConfig, optimizer,
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig, pcfg: ParallelConfig, cache_cap: int):
+def make_prefill_step(cfg: ArchConfig, pcfg: ParallelConfig, cache_cap: int,
+                      px: Optional[ShardCtx] = None):
     """prefill_step(params, batch) -> (last-token logits (B,V) fp32, cache).
     ``batch`` holds ``tokens``, or ``frame_embeddings`` and (for
-    cross-attention) ``cond``."""
+    cross-attention) ``cond``. ``px`` with a mesh: DTensor weights and
+    batch, the reference's constraints placed, the cache built on the
+    mesh (``model.place_cache``)."""
 
     @torch.inference_mode()
+    @on_mesh(px)
     def prefill_step(params: Tree, batch: Tree):
         tokens, embeds = _inputs(cfg, batch)
         lead = embeds if tokens is None else tokens
         B, S = lead.shape[:2]
         positions = torch.arange(S, dtype=torch.long,
                                  device=lead.device)[None, :].expand(B, S)
-        cache = M.init_cache(cfg, B, cache_cap, device=lead.device)
+        cache = M.place_cache(M.init_cache(cfg, B, cache_cap,
+                                           device=lead.device), cfg, px)
         x, new_cache = M.forward(params, cfg=cfg, pcfg=pcfg, mode="prefill",
                                  tokens=tokens, embeds=embeds,
                                  cond=batch.get("cond"), positions=positions,
-                                 cache=cache)
-        logits = M.output_head(params, cfg, x[:, -1:, :])[:, 0]
+                                 cache=cache, px=px)
+        logits = M.output_head(params, cfg, x[:, -1:, :], px)[:, 0]
         return logits, new_cache
 
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, pcfg: ParallelConfig):
+def make_decode_step(cfg: ArchConfig, pcfg: ParallelConfig,
+                     px: Optional[ShardCtx] = None):
     """decode_step(params, cache, batch, pos) -> (logits (B,V), cache).
 
     ``batch`` holds ``tokens`` (B,1) or ``frame_embeddings`` (B,1,d);
     cross-attention reads its K/V from the cache. ``pos`` is the position
     of the incoming token, an int64 tensor of one element on the inputs'
     device (a Python int is copied there); the cache holds the positions
-    before it and is updated in place."""
+    before it and is updated in place. ``px`` with a mesh: DTensor
+    weights, cache and batch, the reference's constraints placed."""
 
     @torch.inference_mode()
+    @on_mesh(px)
     def decode_step(params: Tree, cache: List[Tree], batch: Tree, pos):
         tokens, embeds = _inputs(cfg, batch)
         lead = embeds if tokens is None else tokens
@@ -265,8 +277,8 @@ def make_decode_step(cfg: ArchConfig, pcfg: ParallelConfig):
         positions = pos.reshape(1, 1).expand(B, 1)
         x, new_cache = M.forward(params, cfg=cfg, pcfg=pcfg, mode="decode",
                                  tokens=tokens, embeds=embeds,
-                                 positions=positions, cache=cache)
-        logits = M.output_head(params, cfg, x)[:, 0]
+                                 positions=positions, cache=cache, px=px)
+        logits = M.output_head(params, cfg, x, px)[:, 0]
         return logits, new_cache
 
     return decode_step

@@ -73,6 +73,10 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def _meta(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a meta tensor; a meta tensor (a meta DTensor on a mesh, its
+    placements kept) as it is."""
+    if t.device.type == "meta":
+        return t
     return torch.empty(t.shape, dtype=t.dtype, device="meta")
 
 

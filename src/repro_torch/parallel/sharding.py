@@ -236,6 +236,44 @@ def constrain(x, logical: Sequence[Optional[str]], px: Optional[ShardCtx]):
     return x.redistribute(mesh, pl)
 
 
+def gather_embed(tree: Any, specs: Any, px: Optional[ShardCtx]) -> Any:
+    """The reference's ZeRO-3 on the weights a layer is about to use:
+    each DTensor leaf's dims named ``embed`` (the FSDP axis of
+    ``param_rules``) gathered whole, its other placements kept, as GSPMD
+    gathers a weight whose contraction dim is split over the mesh axis
+    that also splits the rows (``data``); the gather's backward
+    reduce-scatters the gradient back to the weight's shards. ``specs``:
+    the ``ParamSpec`` tree of ``tree``. Off a mesh, or where no leaf is so
+    split (``embed_rule`` "none"), ``tree`` as it is. Without it DTensor
+    plans each product alone and may move the activations instead (a
+    head product then holds every row's logits on each rank)."""
+    if px is None or px.mesh is None:
+        return tree
+    from torch.distributed.tensor import Replicate
+    from repro_torch.models.params import leaves, map_tree_paths
+    names = {path: s.logical for path, s in leaves(specs)}
+
+    def whole(path, t):
+        pl = tuple(Replicate() if q.is_shard() and
+                   names[path][q.dim] == "embed" else q
+                   for q in t.placements)
+        return t if pl == tuple(t.placements) else t.redistribute(
+            t.device_mesh, pl)
+    return map_tree_paths(tree, {path: whole(path, t)
+                                 for path, t in leaves(tree)})
+
+
+def local_block(t, mesh, pl: Tuple):
+    """This rank's block, under placements ``pl``, of a plain tensor every
+    rank built alike (positions): ``t`` itself where no placement splits
+    it (a replicated block is the whole tensor, no copy), else its slice
+    (``distribute_tensor``, no rank sending any)."""
+    if not any(q.is_shard() for q in pl):
+        return t
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, mesh, pl, src_data_rank=None).to_local()
+
+
 def block_split(dims: Mapping[str, Sequence[int]], rules: Mapping[str, Axis],
                 mesh) -> Dict[str, Tuple[str, ...]]:
     """The mesh axes that split each logical name of a block, ``dims``
@@ -274,8 +312,7 @@ def block_local(px: Optional[ShardCtx], fn, operands: Sequence,
     mesh dims), as GSPMD sums the blocks' contributions."""
     if px is None or px.mesh is None:
         return fn(*operands)
-    from torch.distributed.tensor import (DTensor, Partial, Replicate,
-                                          Shard, distribute_tensor)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from repro_torch.models.params import leaves, map_tree_paths
     mesh, sizes = px.mesh, axis_sizes(px.mesh)
 
@@ -302,8 +339,7 @@ def block_local(px: Optional[ShardCtx], fn, operands: Sequence,
     def local(t, names):
         pl = place(names)
         if not isinstance(t, DTensor):
-            return distribute_tensor(t, mesh, pl,
-                                     src_data_rank=None).to_local()
+            return local_block(t, mesh, pl)
         share = tuple(q if isinstance(q, Shard) else
                       Partial() if ax in cut else Replicate()
                       for q, ax in zip(pl, mesh.mesh_dim_names))

@@ -8,7 +8,12 @@ host writing to the same store) has already explored.
 
 Port of ``repro/store/resolve.py``. The sharding cell's space and
 fingerprint are the reference's (``core/tuning_targets.sharding_space``),
-so records resolve across the two packages. ``apply_sharding_config``
+so records resolve across the two packages. A cell's mesh part names
+where it was planned (:func:`mesh_key`): the reference's TPU pods
+(``single``, ``multi``), one card (its device kind,
+``cuda-NVIDIA_H100_80GB_HBM3``), or a production mesh of cards
+(``single-cuda-NVIDIA_H100_80GB_HBM3``), so a record of one never
+resolves for another. ``apply_sharding_config``
 overlays every field the reference's does (the port's ``ParallelConfig``
 has them all), ``flash`` as ``flash_threshold``. The mesh rules
 (``embed_rule``, ``experts_rule``) are not ``ParallelConfig`` fields: the
@@ -29,6 +34,13 @@ _PCFG_FIELDS = ("remat", "attn_q_chunks", "logits_chunk", "attn_block_kv",
                 "microbatches", "capacity_factor", "opt_moment_dtype",
                 "mlstm_chunk", "attn_block_q", "moe_combine",
                 "grad_compression", "grad_compression_topk")
+
+
+def mesh_key(card_kind: str, mesh: Optional[str] = None) -> str:
+    """The mesh part of a dry-run cell's id for a card of ``card_kind``
+    (``kernels.tuning.card_kind``): the kind itself for one card, else
+    ``<mesh>-<kind>`` for that production mesh of the card."""
+    return card_kind if mesh is None else f"{mesh}-{card_kind}"
 
 
 def cell_objective(arch: str, shape: str, mesh: str = "single") -> str:
