@@ -184,7 +184,19 @@ Phases, in order; any failure exits non-zero and prints no result:
      dryrun[...×single-<card>] in a store of its own and resolved back by
      that id only, with embed_rule and experts_rule each moving the
      value; (d) the cells that fit each mesh beside those that fit one
-     card (phase 15).
+     card (phase 15); (e) slice 15's sequence rules on single, each cell
+     beside its default record from (b): gemma-2b's decode_32k under
+     act_cache_seq=model (its cache a card an eighth of the default's)
+     and its train_4k under act_seq=model, a card's peak, cache bytes and
+     collective bytes by kind and by link.
+ 19. slice 15, serving on a device mesh: gemma-2b whole served off a mesh
+     with phase 8's tuned kernels (DecodeServer, a prefill of 4 x 1,024
+     and 4 graph steps), then the same prefill and steps on a one-rank
+     NCCL mesh (DTensor weights, batch and cache, each step fed the
+     server's token): the flash kernel launched once a layer, the decode
+     kernel once a layer and step (the mesh path goes through both kernel
+     gates), the logits bit-equal to the served ones (else within phase
+     12's 2e-2 x max|logits|, the difference printed).
 The line before the last holds the kernels' JSON summary (times are the
 phase-9 device times, the phase-6 event times where the profiler saw none;
 the GEMM's and the GP kernel's launches are phases 4 and 11 together; the
@@ -366,6 +378,16 @@ DRY_BO_ARCH, DRY_BO_SHAPES, DRY_BO_BUDGET = ("gemma-2b",
 # not fit a card), and budget
 MESH_BO_ARCH, MESH_BO_SHAPE, MESH_BO_BUDGET = ("deepseek-v3-671b",
                                                "decode_32k", 3)
+# phase 19, gemma-2b served on a one-rank mesh: decode steps after the
+# prefill
+MESH_SERVE_STEPS = 4
+# phase 18(e), the reference's sequence rules on the single mesh: gemma-2b's
+# decode cell with its cache split along its slots (its one KV head leaves
+# act_kv_heads nothing to split), and its train cell, which does not fit a
+# card under the default rules, with its activations split along the
+# sequence
+SEQ_RULE_CELLS = (("gemma-2b", "decode_32k", {"act_cache_seq": "model"}),
+                  ("gemma-2b", "train_4k", {"act_seq": "model"}))
 # graph replays held against the eager step bit for bit; xLSTM's two mLSTM
 # scans compared at this many blocks
 GRAPH_STEPS, SCAN_BLOCKS = 4, 8
@@ -3376,7 +3398,7 @@ def dryrun_on_meshes(dev, card: str, phase15: dict) -> dict:
         # (b) every cell on both production meshes, in worker processes
         cells = [(a, s.name) for a in ARCHS for s in SHAPES]
         nvlink, ib = links_for(card)
-        fit = {}
+        fit, default = {}, {}
         for name in ("single", "multi"):
             t0 = time.perf_counter()
             recs = dryrun.run_cells(cells, card, workers=DRY_WORKERS,
@@ -3400,12 +3422,15 @@ def dryrun_on_meshes(dev, card: str, phase15: dict) -> dict:
                     f"{r['t_trace_s']:.2f} s")
             ok = [r for r in recs if r["status"] == "ok"]
             fit[name] = sum(r["fits"] for r in ok)
+            default.update({(r["arch"], r["shape"], name): r for r in ok})
             log(f"[18b] {name} ({ok[0]['chips']} cards, NVLink "
                 f"{nvlink / 1e9:.0f} GB/s, InfiniBand {ib / 1e9:.0f} GB/s a "
                 f"card, one direction): {len(ok)} cells ok, "
                 f"{len(recs) - len(ok)} skipped, {fit[name]} fit; traces "
                 f"{sum(r['t_trace_s'] for r in ok):.1f} s in all, "
                 f"{wall:.1f} s of wall in {DRY_WORKERS} processes")
+        # (e) the sequence rules, beside the default records of (b)
+        seq_split_records(card, default)
         bo.result()
 
     # (d) what fits where
@@ -3413,6 +3438,143 @@ def dryrun_on_meshes(dev, card: str, phase15: dict) -> dict:
         f"{phase15['cells']}, single {fit['single']} of {phase15['cells']}, "
         f"multi {fit['multi']} of {phase15['cells']}")
     return fit
+
+
+# -- phase 19 ------------------------------------------------------------------
+
+
+def serve_on_mesh(dev, card: str, kc, cfg=None) -> None:
+    """Phase 19: gemma-2b served with phase 8's tuned kernels off a mesh
+    (``DecodeServer``: a prefill of SERVE_B x SERVE_PROMPT, then
+    MESH_SERVE_STEPS greedy decode steps replayed from a captured graph),
+    then the same steps on a one-rank NCCL mesh (``make_prefill_step`` and
+    ``make_decode_step`` with a ``ShardCtx``: DTensor weights, batch and
+    cache, each step fed the token the server chose). The mesh path goes
+    through the kernel gates as the server does: it must launch the flash
+    kernel once a layer in its prefill and the decode kernel once a layer
+    in each step, and its logits must equal the served ones bit for bit
+    (else, held to phase 12's rule, 2e-2 x max|logits|, and the
+    difference printed). ``cfg`` (gemma-2b whole unless given) with
+    ``dev`` the CPU rehearses it over gloo."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as P
+    from repro_torch.models.stepfn import (make_decode_step,
+                                           make_prefill_step, place_batch)
+    from repro_torch.parallel.sharding import ParallelConfig, ShardCtx
+    from torch.distributed.tensor import DTensor
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    cfg, pcfg = cfg or get_arch("gemma-2b"), ParallelConfig(kernel=kc)
+    steps, cuda = MESH_SERVE_STEPS, torch.device(dev).type == "cuda"
+    server = serve.DecodeServer(cfg, pcfg, batch=SERVE_B,
+                                prompt_len=SERVE_PROMPT, decode_steps=steps,
+                                seed=0, device=dev, keep_logits=steps)
+    batch = server.input_batch()
+    server.prefill_batch(batch)
+    for _ in range(steps):
+        server.decode_step()
+    served, toks = server.kept, [t.clone() for t in server.out]
+    params = server.params
+    server = None
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh(data=1, model=1,
+                              device=None if cuda else "cpu")
+        px = ShardCtx(mesh, pcfg)
+        sharded = P.shard_params(params, P.model_specs(cfg), mesh, pcfg)
+        params = None
+        prefill = make_prefill_step(cfg, pcfg, SERVE_PROMPT + steps, px=px)
+        decode = make_decode_step(cfg, pcfg, px=px)
+        serve.reset_kernel_launches()
+        t0 = time.perf_counter()
+        logits, cache = prefill(sharded, place_batch(batch, px))
+        got = [logits]
+        for i in range(steps):
+            logits, cache = decode(sharded, cache, place_batch(
+                {"tokens": toks[i][:, None]}, px), SERVE_PROMPT + i)
+            got.append(logits)
+        got = [(t.full_tensor() if isinstance(t, DTensor) else t)
+               .float().cpu() for t in got]
+        run_s = time.perf_counter() - t0
+        launches = serve.kernel_launches()
+        placed = isinstance(cache[0]["k"], DTensor)
+        sharded = cache = None
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    equal = [bool(torch.equal(a, b)) for a, b in zip(got, served)]
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got, served))
+    L = cfg.num_layers
+    log(f"[19] {cfg.name} on a one-rank NCCL mesh with phase 8's kernels "
+        f"{kc}: a prefill of {SERVE_B} x {SERVE_PROMPT} and {steps} decode "
+        f"steps in {run_s:.2f} s (eager, DTensor cache: {placed}); launches "
+        f"{launches} (want flash {L}, decode {L * steps}); logits bit-equal "
+        f"to the served ones, step by step: {equal}; worst "
+        f"max|d| / max|served| {worst:.3e} ({card}, {smi_line()})")
+    if not placed:
+        fail("the mesh path's cache is not a DTensor")
+    if launches["flash_attention"] != L or \
+            launches["flash_decode_split"] != L * steps:
+        fail(f"the mesh path launched {launches}: a kernel gate fell back "
+             "to the plain path")
+    if len(got) != len(served) or not all(equal) and worst > 2e-2:
+        fail(f"the mesh path's logits miss the served ones by {worst:.3e} "
+             "of max|logits|")
+
+
+def seq_split_records(card: str, default: dict) -> None:
+    """Phase 18(e): the reference's sequence rules on the single mesh
+    (``SEQ_RULE_CELLS``), each cell traced in a process of its own, beside
+    its default record from 18(b): a card's peak, its cache bytes and its
+    collective bytes over NVLink and InfiniBand. Under ``act_cache_seq``
+    the decode cell's cache a card must be the default's / 8 (gemma-2b's
+    one KV head: no other rule splits it); every record must be ok."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.sharding import DEFAULT_ACT_RULES, ParallelConfig
+    t0 = time.perf_counter()
+    jobs = [(arch, shape, card, ParallelConfig(act_rules={
+        **DEFAULT_ACT_RULES, **rules}), None, "single")
+        for arch, shape, rules in SEQ_RULE_CELLS]
+    with ProcessPoolExecutor(len(jobs),
+                             mp_context=mp.get_context("spawn")) as ex:
+        recs = list(ex.map(dryrun._run_cell_args, jobs))
+    for (arch, shape, rules), rec in zip(SEQ_RULE_CELLS, recs):
+        base = default[(arch, shape, "single")]
+        head = f"[18e] {arch} x {shape} x single"
+        if rec["status"] != "ok":
+            fail(f"{head} under {rules}: {rec.get('error')}")
+
+        def line(r):
+            mem, ln = r["memory"], r["links"]
+            return (f"peak {mem['peak_live_bytes'] / 1e9:.3f} GB "
+                    f"({'fits' if r['fits'] else 'does not fit'} "
+                    f"{mem['card_bytes'] / 1e9:.2f}), cache "
+                    f"{mem['cache_size_in_bytes']:,} B, collectives "
+                    f"{ {k: int(v) for k, v in r['coll_by_kind'].items()} }, "
+                    f"NVLink {ln['nvlink_bytes'] / 1e9:.3f} GB, InfiniBand "
+                    f"{ln['ib_bytes'] / 1e9:.3f} GB a card; step "
+                    f"{r['roofline']['step_time']:.4g} s "
+                    f"({r['roofline']['dominant']})")
+        log(f"{head}, default rules: {line(base)}")
+        log(f"{head}, {rules}: {line(rec)}; trace {rec['t_trace_s']:.1f} s")
+        cache, want = (rec["memory"]["cache_size_in_bytes"],
+                       base["memory"]["cache_size_in_bytes"])
+        if "act_cache_seq" in rules and cache * 8 != want:
+            fail(f"{head}: the cache a card under {rules} is {cache:,} B, "
+                 f"want the default's {want:,} / 8")
+    log(f"[18e] done in {time.perf_counter() - t0:.1f} s ({smi_line()})")
 
 
 def shutil_rmtree(path: str) -> None:
@@ -3774,6 +3936,11 @@ def main() -> int:
     t0 = time.perf_counter()
     dryrun_on_meshes(dev, card, dried)
     log(f"[18] done in {time.perf_counter() - t0:.1f} s")
+
+    # 19. gemma-2b served on a one-rank mesh through the kernel gates
+    t0 = time.perf_counter()
+    serve_on_mesh(dev, card, served["kc"])
+    log(f"[19] done in {time.perf_counter() - t0:.1f} s")
 
     summary = {"kernels": []}
     for name, src, line in (

@@ -19,12 +19,22 @@ the same weights and batch:
   model 2) (8 ranks; its groups differ from the unsharded step's, so only
   the losses' fall is held);
 - blocks: ``sharding.block_local``'s (rows, channels) and (rows, heads)
-  blocks over (data 2, model 2) against the unsharded call.
+  blocks over (data 2, model 2) against the unsharded call;
+- seq: the reference's sequence rules. Every family's smoke step under
+  ``act_seq=model``, the MoE families over (data 1, model 4) (one
+  dispatch group on both sides), the others over (data 2, model 2); then
+  gemma-2b, recurrentgemma-9b and deepseek-v3-671b served (a prefill of 32
+  tokens, 3 decode steps) over (data 1, model 4) under
+  ``act_cache_seq=model`` and under both rules, and gemma-2b with the
+  decode kernel opted in, against the same steps off the mesh (logits
+  within 1e-5 of max|logits|).
 
 It prints the torch version, each loss, the worst gradient leaf's
-max|sharded - unsharded| / max|unsharded| and the restore's bit equality,
-and exits 1 if a sharded step misses the tests' rules (loss 1e-5
-relative, gradients 1e-4) or a restore differs. It needs no card and no
+max|sharded - unsharded| / max|unsharded|, the restore's bit equality and
+the served logits' difference, and exits 1 if a sharded step misses the
+tests' rules (loss 1e-5 relative, gradients 1e-4, logits 1e-5 of
+max|logits|) or a restore differs. ``python3 scripts/mesh_cpu_ranks.py
+seq`` runs one job. It needs no card and no
 reference package, so it checks the port's mesh path against the torch a
 host has (the card's host among them).
 """
@@ -44,7 +54,7 @@ import torch  # noqa: E402
 
 import torch_mesh_ranks as R  # noqa: E402
 
-LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
+LOSS_RTOL, GRAD_RTOL, LOGITS_RTOL = 1e-5, 1e-4, 1e-5
 FAMILIES = ((1, 4, [("deepseek-v3-671b", {})]),
             (2, 2, [("recurrentgemma-9b", {}), ("xlstm-1.3b", {}),
                     ("xlstm-1.3b", {"mlstm_chunk": 8}), ("musicgen-large", {}),
@@ -121,14 +131,64 @@ def blocks(tmp: pathlib.Path) -> bool:
     return out <= 1e-5 and grad <= 1e-5
 
 
-JOBS = {"dense": dense, "families": families, "moe": moe, "blocks": blocks}
+SEQ, CACHE = {"act_seq": "model"}, {"act_cache_seq": "model"}
+SEQ_FAMILIES = ((1, 4, [("deepseek-v3-671b", SEQ),
+                        ("qwen3-moe-30b-a3b", SEQ)]),
+                (2, 2, [(n, SEQ) for n in ("gemma-2b", "recurrentgemma-9b",
+                                           "xlstm-1.3b", "musicgen-large")]))
+SEQ_SERVE = [(n, rules) for n in ("gemma-2b", "recurrentgemma-9b",
+                                  "deepseek-v3-671b")
+             for rules in (CACHE, {**SEQ, **CACHE})] + [
+    ("gemma-2b", {**CACHE, "kernel": {"use_decode": True,
+                                      "decode_block_kv": 8,
+                                      "decode_num_splits": 1}})]
+
+
+def seq(tmp: pathlib.Path) -> bool:
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import params as P
+    ok = True
+    for data, model, runs in SEQ_FAMILIES:
+        group = tmp / f"train{data}x{model}"
+        group.mkdir()
+        R.spawn(R.sharded_vs_unsharded, 4, group, runs, data, model,
+                str(group / "out.pt"), False)
+        ok &= held(torch.load(group / "out.pt"), f"data {data}, model "
+                   f"{model}")
+    runs = []
+    for name, pkw in SEQ_SERVE:
+        cfg = smoke_config(name).replace(dtype="float32")
+        torch.save(P.init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu"), tmp / f"{name}.pt")
+        np.savez(tmp / f"{name}.npz", tokens=R.tokens(cfg.vocab_size, 4, 35))
+        runs.append((name, pkw, str(tmp / f"{name}.pt"),
+                     str(tmp / f"{name}.npz"), 32, 36))
+    for sub in ("mesh", "off"):
+        (tmp / sub).mkdir()
+    R.spawn(R.serve_steps, 4, tmp / "mesh", 1, 4, runs, str(tmp / "mesh.pt"))
+    R.spawn(R.serve_steps, 1, tmp / "off", 0, 0, runs, str(tmp / "off.pt"))
+    mesh, off = torch.load(tmp / "mesh.pt"), torch.load(tmp / "off.pt")
+    for tag, got in mesh.items():
+        errs = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got["logits"], off[tag]["logits"])]
+        print(f"{tag} (data 1, model 4): prefill and decode logits, "
+              f"max|d| / max|unsharded| {[f'{e:.1e}' for e in errs]}; "
+              f"decode kernel calls {got['calls']}", flush=True)
+        ok &= max(errs) <= LOGITS_RTOL
+        if "kernel" in tag:
+            ok &= got["calls"]["partials"] > 0
+    return ok
+
+
+JOBS = {"dense": dense, "families": families, "moe": moe, "blocks": blocks,
+        "seq": seq}
 
 
 def main() -> int:
     print(f"torch {torch.__version__}, {os.cpu_count()} CPUs", flush=True)
     ok = True
     with tempfile.TemporaryDirectory(prefix="mesh_cpu_ranks_") as d:
-        for name in JOBS:
+        for name in sys.argv[1:] or JOBS:
             tmp = pathlib.Path(d) / name
             tmp.mkdir()
             t0 = time.perf_counter()

@@ -8,8 +8,10 @@ and dtypes, no storage, so a pod-sized cell is traced without allocating
 a byte. The record has the reference's parts:
 
   * ``memory``: ``argument_size_in_bytes`` (params, optimizer state, cache,
-    batch), ``temp_size_in_bytes`` (the most bytes of storage the step
-    itself held at once, its outputs included) and ``peak_live_bytes``
+    batch), of which ``cache_size_in_bytes`` is a decode cell's cache (0
+    in the other cells), ``temp_size_in_bytes`` (the most bytes of
+    storage the step itself held at once, its outputs included) and
+    ``peak_live_bytes``
     (the two together: the counterpart of XLA's arguments plus temps),
     beside ``card_bytes``, the card's memory. Allocations are counted as
     each op's outputs get new storage, frees with ``weakref.finalize`` on
@@ -521,7 +523,9 @@ def measure(cfg, shape, pcfg: ParallelConfig, mesh=None) -> Dict:
     temps = [temp_at(r) for r in depths]
     out["temp"] = temps[0] if plan is None else _lin(
         temps[0], temps[1], DEPTHS[0], DEPTHS[1], plan[1])
-    out["args"] = storage_bytes(_step_and_args(cfg, shape, pcfg, mesh)[1])
+    args = _step_and_args(cfg, shape, pcfg, mesh)[1]
+    out["args"] = storage_bytes(args)
+    out["cache"] = storage_bytes(args[1]) if shape.kind == "decode" else 0
     out["cut"] = cut
     counts = ["flops", "hbm_bytes", "temp_size_in_bytes", "top_scopes",
               "top_bytes_scopes"] + (["coll_bytes", "dcn_bytes",
@@ -605,6 +609,7 @@ def run_cell(arch_name: str, shape_name: str, card: str,
                         peak_flops=dtype_peak_flops(cfg.dtype, card),
                         ici_bw=nvlink, dcn_bw=ib)
         mem = {"argument_size_in_bytes": int(m["args"]),
+               "cache_size_in_bytes": int(m["cache"]),
                "temp_size_in_bytes": int(m["temp"]),
                "peak_live_bytes": int(m["args"] + m["temp"]),
                "card_bytes": card_memory(card)}

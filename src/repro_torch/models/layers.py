@@ -45,8 +45,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.arch import ArchConfig
 from repro_torch.parallel.sharding import (ParallelConfig, ShardCtx,
-                                           act_sharding, block_local,
-                                           constrain, local_block)
+                                           act_sharding, block_index,
+                                           block_local, constrain,
+                                           gather_blocks, local_block,
+                                           shard_dims, tokens_local)
 
 Cache = Optional[Dict[str, torch.Tensor]]
 
@@ -125,9 +127,10 @@ def _act(name: str):
 
 def mlp(p, x: torch.Tensor, cfg: ArchConfig,
         px: Optional[ShardCtx] = None) -> torch.Tensor:
-    h = _act(cfg.mlp_act)(x @ p["wg"]) * (x @ p["wu"])
+    h = tokens_local(px, lambda t, wg, wu: _act(cfg.mlp_act)(t @ wg)
+                     * (t @ wu), x, p["wg"], p["wu"])
     h = constrain(h, ("act_batch", "act_seq", "act_mlp"), px)
-    return h @ p["wd"]
+    return tokens_local(px, lambda t, w: t @ w, h, p["wd"])
 
 
 # ---------------------------------------------------------------------------
@@ -335,9 +338,9 @@ def gqa_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(hd)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q, k, v = tokens_local(px, lambda t, *w: tuple(
+        torch.einsum("bsd,dhk->bshk", t, u) for u in w), x, p["wq"],
+        p["wk"], p["wv"], n_out=3)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
@@ -356,26 +359,19 @@ def gqa_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
         _insert_slot(cache["k"], k, slot, px)
         _insert_slot(cache["v"], v, slot, px)
         _insert_slot(cache["pos"], positions, slot, px)
-        if px is not None and px.mesh is not None:
-            # the rank's rows of the positions, split as the queries' rows
-            cache_pos = cache["pos"].to_local()
-            out = _heads_local(px, lambda q_, k_, v_, pos_: _decode_attention(
-                q_, k_, v_, cache_pos=cache_pos, cur_pos=pos_[:, 0],
-                window=window, scale=scale), q, cache["k"], cache["v"],
-                positions)
-        elif _decode_kernel_ok(hd, v.shape[-1], kc, x.device):
-            out = _kernel_decode_attention(
-                q, cache["k"], cache["v"], cache_pos=cache["pos"],
-                cur_pos=positions[:, 0], window=window, kc=kc)
-        else:
-            out = _decode_attention(q, cache["k"], cache["v"],
-                                    cache_pos=cache["pos"],
-                                    cur_pos=positions[:, 0], window=window,
-                                    scale=scale)
+        out = _decode_local(px, q, cache, positions[:, 0], window=window,
+                            scale=scale, kc=kc)
     else:
-        out = _heads_local(px, lambda *t: _prefill_attention(
-            *t[:3], positions=t[3], window=window, scale=scale, pcfg=pcfg,
-            device=x.device), q, k, v, positions)
+        grad = torch.is_grad_enabled() and any(t.requires_grad
+                                               for t in (q, k, v))
+        # the flash kernel takes a whole causal sequence from position 0:
+        # on a sequence split each rank gathers Q whole for it and keeps its
+        # rows, as GSPMD does around the reference's Pallas call
+        flash = _flash_kernel_ok(S, hd, v.shape[-1], window, kc, x.device,
+                                 grad=grad)
+        out = _heads_local(px, lambda q_, k_, v_, qp, kp: _prefill_attention(
+            q_, k_, v_, q_pos=qp, k_pos=kp, window=window, scale=scale,
+            pcfg=pcfg, device=x.device), q, k, v, positions, whole_q=flash)
         if mode == "prefill":
             if cache is None:
                 raise ValueError("prefill fills a cache")
@@ -385,70 +381,204 @@ def gqa_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
                     *t, cache["k"].shape[1], window).values()),
                 (k, v, positions), (kv, kv, ("act_batch",)),
                 (kv, kv, ("act_batch",)))))
+            new_cache = _cache_placed(new_cache, px)
     out = constrain(out, ("act_batch", "act_seq", "act_heads", None), px)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = tokens_local(px, _out_proj, out, p["wo"])
     return y, new_cache
 
 
-def _heads_local(px: Optional[ShardCtx], core, q, k, v, positions=None):
-    """``core(q, k, v, positions)``, an attention core (``positions`` may
-    be None: cross-attention has none). Off a mesh, the call. On a mesh,
-    each rank runs it on its own batch rows and query heads, Q placed by
-    the ``act_heads`` rule as ``gqa_attention``'s constraint places it
-    (GSPMD computes there too), K and V by the ``act_kv_heads`` rule;
-    where a rank holds a slice of the query heads but every KV head, it
-    takes the KV head of each of its query heads (a gradient it gives K or
-    V is then its share of a sum over the ranks of those mesh dims). A
-    sharded sequence is refused: the core attends over the whole
-    sequence."""
+def _out_proj(out, wo):
+    """The attention output (B,S,H,hd) times wo (H,hd,d)."""
+    return torch.einsum("bshk,hkd->bsd", out, wo)
+
+
+#: a cache leaf's logical axes by name (``model.CACHE_AXES`` for every
+#: layer kind): a KV cache, its positions and MLA's latent cache along
+#: ``act_cache_seq``
+KV_CACHE_AXES = ("act_batch", "act_cache_seq", "act_kv_heads", None)
+POS_CACHE_AXES = ("act_batch", "act_cache_seq")
+LATENT_CACHE_AXES = ("act_batch", "act_cache_seq", None)
+_CACHE_LEAF_AXES = {"k": KV_CACHE_AXES, "v": KV_CACHE_AXES,
+                    "pos": POS_CACHE_AXES, "c_kv": LATENT_CACHE_AXES,
+                    "k_rope": LATENT_CACHE_AXES}
+
+
+def _cache_placed(cache: Dict[str, torch.Tensor], px: Optional[ShardCtx]
+                  ) -> Dict[str, torch.Tensor]:
+    """A prefill's new cache, built whole along its slots on each rank,
+    placed by its cache axes, so that it lands where decode reads it
+    (``model.place_cache``): under ``act_cache_seq`` each rank keeps its
+    block of the slots. Off a mesh, the cache."""
+    return {n: constrain(t, _CACHE_LEAF_AXES[n], px)
+            for n, t in cache.items()}
+
+
+def _kv_heads(t, first: int, n: int, G: int):
+    """The K or V heads (dim 2) of query heads ``first`` .. ``first + n``
+    (query head h reads KV head h // G): a slice where the heads cover whole
+    groups or lie in one group (no copy), else one KV head a query head."""
+    lo, hi = first // G, (first + n - 1) // G + 1
+    if hi - lo == 1 or (first % G == 0 and n % G == 0):
+        return t[:, :, lo:hi]
+    return t[:, :, (first + torch.arange(n, device=t.device)) // G]
+
+
+def _heads_local(px: Optional[ShardCtx], core, q, k, v, positions=None, *,
+                 whole_q: bool = False):
+    """``core(q, k, v, q_pos, k_pos)``, an attention core (positions may
+    be None: cross-attention has none). Off a mesh, the call with both
+    positions ``positions``. On a mesh each rank runs it on its own batch
+    rows, query rows and query heads, Q placed by the ``act_seq`` and
+    ``act_heads`` rules as ``gqa_attention``'s constraint places it (GSPMD
+    computes there too), with its rows' positions; K and V are placed by
+    the ``act_kv_heads`` rule but gathered whole along the sequence (an
+    all-gather over the mesh dims that split it), with every key's
+    position. Where a rank holds a slice of the query heads and every KV
+    head, it takes the KV heads of its query heads. A gradient a rank gives
+    K or V is its share of a sum over the mesh dims that split the query
+    rows, or its heads where K and V are whole (reduce-scattered back to
+    their blocks). ``whole_q``: the rank gathers Q whole along the sequence
+    for the core and keeps its own rows of the output (the flash kernel,
+    which takes a whole sequence)."""
     if px is None or px.mesh is None:
-        return core(q, k, v, positions)
-    from torch.distributed.tensor import DTensor, Partial, Shard
+        return core(q, k, v, positions, positions)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
     mesh = px.mesh
-    heads = ("act_batch", "act_seq", "act_heads", None)
-    _, qp = act_sharding(q.shape, heads, mesh, px.pcfg)
-    q = q.redistribute(mesh, qp)
+    _, qp = act_sharding(q.shape, ("act_batch", "act_seq", "act_heads", None),
+                         mesh, px.pcfg)
     _, kp = act_sharding(k.shape, ("act_batch", "act_seq", "act_kv_heads",
                                    None), mesh, px.pcfg)
-    if Shard(1) in qp + kp:
-        raise NotImplementedError("attention over a sharded sequence")
-    heads = [i for i, pl in enumerate(qp) if pl == Shard(2)]
-    share = tuple(Partial() if i in heads and kp[i] != Shard(2) else pl
-                  for i, pl in enumerate(kp))
+    rows = shard_dims(qp, 1)
+    # K and V whole along the sequence; their heads split only where the
+    # queries' are
+    kp = tuple(p if p.is_shard(0) or (p.is_shard(2) and qp[i].is_shard(2))
+               else Replicate() for i, p in enumerate(kp))
+    heads = shard_dims(qp, 2)
+    share = tuple(Partial() if i in rows or (i in heads and not
+                                             p.is_shard(2)) else p
+                  for i, p in enumerate(kp))
     k, v = (t.redistribute(mesh, kp).to_local(grad_placements=share)
             for t in (k, v))
-    ql = q.to_local()
-    if heads and all(kp[i] != Shard(2) for i in heads):
-        first = 0                          # the rank's first query head
-        for i in heads:
-            first = first * mesh.size(i) + mesh.get_coordinate()[i]
-        first *= ql.shape[2]
+    cp = tuple(Replicate() if i in rows else p for i, p in enumerate(qp)) \
+        if whole_q else qp
+    ql = q.redistribute(mesh, cp).to_local()
+    if heads and not shard_dims(kp, 2):
         G = q.shape[2] // k.shape[2]
-        idx = (first + torch.arange(ql.shape[2], device=ql.device)) // G
-        k, v = k[:, :, idx], v[:, :, idx]
+        first = block_index(mesh, heads) * ql.shape[2]
+        k, v = (_kv_heads(t, first, ql.shape[2], G) for t in (k, v))
+    q_pos = k_pos = None
     if positions is not None:
         _, pp = act_sharding(positions.shape, ("act_batch", "act_seq"), mesh,
                              px.pcfg)
-        positions = local_block(positions, mesh, pp)
-    out = core(ql, k, v, positions)
-    return DTensor.from_local(out, mesh, qp, run_check=False)
+        whole = tuple(Replicate() if p.is_shard(1) else p for p in pp)
+        q_pos = local_block(positions, mesh, whole if whole_q else pp)
+        k_pos = local_block(positions, mesh, whole)
+    out = DTensor.from_local(core(ql, k, v, q_pos, k_pos), mesh, cp,
+                             run_check=False)
+    return out if cp == qp else out.redistribute(mesh, qp)
 
 
-def _prefill_attention(q, k, v, *, positions, window, scale,
+def _prefill_attention(q, k, v, *, q_pos, k_pos, window, scale,
                        pcfg: ParallelConfig, device):
     """The reference's prefill dispatch: the flash kernel where its gate
-    opens, else the blockwise attention from ``flash_threshold`` tokens,
-    else the materialized scores."""
+    opens, else the blockwise attention from ``flash_threshold`` keys,
+    else the materialized scores. ``q_pos`` the queries' positions, a
+    block of ``k_pos`` on a sequence split (``_heads_local``)."""
     grad = torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v))
     if _flash_kernel_ok(q.shape[1], q.shape[-1], v.shape[-1], window,
                         pcfg.kernel, device, grad=grad):
         return _kernel_flash_attention(q, k, v, pcfg.kernel)
-    if q.shape[1] >= pcfg.flash_threshold:
-        return _flash_attention(q, k, v, q_pos=positions, k_pos=positions,
+    if k.shape[1] >= pcfg.flash_threshold:
+        return _flash_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
                                 window=window, scale=scale, pcfg=pcfg)
-    return _direct_attention(q, k, v, q_pos=positions, k_pos=positions,
+    return _direct_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
                              window=window, scale=scale)
+
+
+def _decode_partials(q, k_cache, v_cache, cache_pos, cur_pos, *, window,
+                     kc):
+    """One token over a block of the cache as unnormalized partials
+    (o (B,KV,n,G,hd), m and l (B,KV,n,G), fp32): the split kernel's
+    partials mode where ``kc`` opts in (its ``num_splits`` splits), else
+    its plain version in one split. A block with no valid slot gives
+    m = -inf, l = 0 and o = 0, which the merge weighs 0."""
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels import ref
+    tile = 1 if kc is None else kc.decode_num_splits * kc.decode_block_kv
+    bias = kernel_ops.decode_bias(cache_pos, cur_pos, window, tile)
+    if kc is None:
+        return ref.decode_split(q[:, 0], k_cache, v_cache, bias, 1)
+    return kfd.decode_split(q[:, 0], k_cache, v_cache, bias,
+                            block_kv=kc.decode_block_kv,
+                            num_splits=kc.decode_num_splits)
+
+
+def _decode_local(px: Optional[ShardCtx], q, cache, cur_pos, *, window,
+                  scale, kc):
+    """One decode step's attention of q (B,1,H,hd) over a KV cache
+    (``k``, ``v``, ``pos``), through the kernel where ``_decode_kernel_ok``
+    opens (the reference's ``_pallas_decode_ok``, on a mesh too), else the
+    plain path. On a mesh each rank attends with its rows over its block of
+    the cache, in plain tensors, its query heads following the cache's KV
+    heads. Where the cache's slots are whole (the default rules) the rank
+    runs the fused launch as off the mesh. Where ``act_cache_seq`` splits
+    them, the rank holds every query head of its KV heads, gives the
+    partials of its slots (``_decode_partials``), gathers the partials
+    over the mesh dims that split the slots and merges them by the
+    log-sum-exp combine (``ref.combine_partials``), so each holds the whole
+    output of its heads."""
+    kernel = _decode_kernel_ok(q.shape[-1], cache["v"].shape[-1], kc,
+                               q.device)
+    kc = kc if kernel else None
+    if px is None or px.mesh is None:
+        return _decode_core(q, cache["k"], cache["v"], cache["pos"], cur_pos,
+                            window=window, scale=scale, kc=kc)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.kernels import ref
+    mesh, cp = px.mesh, tuple(cache["k"].placements)
+    _, own = act_sharding(q.shape, ("act_batch", None, "act_heads", None),
+                          mesh, px.pcfg)
+    # q's rows as the cache's, its heads as the cache's KV heads where they
+    # are split, whole where the slots are, else by its own rule
+    qp = tuple(c if c.is_shard(0) or c.is_shard(2) else
+               Shard(2) if not c.is_shard(1) and o.is_shard(2) else
+               Replicate() for c, o in zip(cp, own))
+    ql = q.redistribute(mesh, qp).to_local()
+    kl, vl, pl = (cache[n].to_local() for n in ("k", "v", "pos"))
+    cur = local_block(cur_pos, mesh, tuple(c if c.is_shard(0) else
+                                           Replicate() for c in cp))
+    heads = shard_dims(qp, 2)
+    if heads:
+        G = q.shape[2] // cache["k"].shape[2]
+        first = block_index(mesh, heads) * ql.shape[2]
+        kv0 = block_index(mesh, shard_dims(cp, 2)) * kl.shape[2]
+        kl, vl = (_kv_heads(t, first - kv0 * G, ql.shape[2], G)
+                  for t in (kl, vl))
+    seq = shard_dims(cp, 1)
+    if not seq:
+        out = _decode_core(ql, kl, vl, pl, cur, window=window, scale=scale,
+                           kc=kc)
+    else:
+        parts = _decode_partials(ql, kl, vl, pl, cur, window=window, kc=kc)
+        o, m, l = (gather_blocks(t, mesh, seq, 2) for t in parts)
+        B, _, Hl, hd = ql.shape
+        out = ref.combine_partials(o, m, l).reshape(B, 1, Hl, hd).to(
+            ql.dtype)
+    return DTensor.from_local(out, mesh, qp, run_check=False)
+
+
+def _decode_core(q, k_cache, v_cache, cache_pos, cur_pos, *, window, scale,
+                 kc):
+    """Decode attention over a whole cache: the kernel's fused launch where
+    ``kc`` is given (its gate opened), else the plain path."""
+    if kc is not None:
+        return _kernel_decode_attention(q, k_cache, v_cache,
+                                        cache_pos=cache_pos, cur_pos=cur_pos,
+                                        window=window, kc=kc)
+    return _decode_attention(q, k_cache, v_cache, cache_pos=cache_pos,
+                             cur_pos=cur_pos, window=window, scale=scale)
 
 
 def _cross_core(q, k, v):
@@ -469,11 +599,12 @@ def cross_attention(p, x, cond_kv, *, cfg: ArchConfig,
     no mask, no position. On a mesh the core runs on each rank's rows and
     heads (``_heads_local``); the reference places no constraint here, so
     GSPMD computes the plain core on each shard too."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = tokens_local(px, lambda t, w: torch.einsum("bsd,dhk->bshk", t, w),
+                     x, p["wq"])
     k, v = cond_kv
-    out = _heads_local(px, lambda q_, k_, v_, _: _cross_core(q_, k_, v_),
+    out = _heads_local(px, lambda q_, k_, v_, *_: _cross_core(q_, k_, v_),
                        q, k, v)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return tokens_local(px, _out_proj, out, p["wo"])
 
 
 def cond_kv(p, cond, *, cfg: ArchConfig):
@@ -490,20 +621,35 @@ def _cache_slot(pos, capacity, window):
 def _insert_slot(buf, val, slot, px: Optional[ShardCtx] = None):
     """Write val (B,1,...) at per-batch slot (B,) along axis 1, in place.
     On a mesh ``buf`` is a DTensor (``model.place_cache``) and each rank
-    writes its own block of it: ``val`` placed as ``buf`` is, ``slot`` cut
-    to the rank's rows (DTensor refuses an index write in place)."""
+    writes its own block of it: ``val`` placed as ``buf`` is (whole along
+    its one slot), ``slot`` cut to the rank's rows (DTensor refuses an
+    index write in place). Where ``act_cache_seq`` splits the slots, the
+    rank whose block holds a row's slot writes it and the others write
+    that slot's old value back (no branch on values: a captured graph
+    replays it)."""
     if px is None or px.mesh is None:
         buf[torch.arange(buf.shape[0], device=buf.device), slot] = val[:, 0]
         return
     from torch.distributed.tensor import DTensor, Replicate
     mesh, pl = px.mesh, tuple(buf.placements)
-    if any(q.is_shard(1) for q in pl):
-        raise NotImplementedError("decode into a cache split along its "
-                                  "sequence (act_cache_seq)")
-    val = (val.redistribute(mesh, pl).to_local() if isinstance(val, DTensor)
-           else local_block(val, mesh, pl))
+    whole = tuple(Replicate() if q.is_shard(1) else q for q in pl)
+    val = (val.redistribute(mesh, whole).to_local()
+           if isinstance(val, DTensor) else local_block(val, mesh, whole))
     rows = tuple(q if q.is_shard(0) else Replicate() for q in pl)
-    _insert_slot(buf.to_local(), val, local_block(slot, mesh, rows))
+    slot = local_block(slot, mesh, rows)
+    local = buf.to_local()
+    seq = shard_dims(pl, 1)
+    if not seq:
+        _insert_slot(local, val, slot)
+        return
+    n = local.shape[1]
+    at = slot - block_index(mesh, seq) * n
+    hit = (at >= 0) & (at < n)
+    at = torch.clamp(at, 0, n - 1)
+    b = torch.arange(local.shape[0], device=local.device)
+    old = local[b, at]
+    hit = hit.reshape(hit.shape + (1,) * (old.ndim - 1))
+    local[b, at] = torch.where(hit, val[:, 0], old)
 
 
 def _prefill_cache(k, v, positions, cap, window):
@@ -688,9 +834,10 @@ def moe_block(p, x: torch.Tensor, *, cfg: ArchConfig, pcfg: ParallelConfig,
     C = moe_capacity(T // G, cfg, pcfg)
     # on a mesh the residual stream arrives as a sum pending over model (the
     # attention's output product) and its gradient placed as the next
-    # layer leaves it: both are placed by batch about the group reshapes
-    # (DTensor gets a reshape's local shapes wrong for other placements)
-    x = constrain(x, ("act_batch", "act_seq", "act_embed"), px)
+    # layer leaves it: both are placed by batch about the group reshapes,
+    # the sequence whole (DTensor gets a reshape's local shapes wrong for
+    # other placements; the groups' constraint gathers it whole anyway)
+    x = constrain(x, ("act_batch", None, "act_embed"), px)
     xr = x.reshape(G, T // G, d)
     xg = constrain(xr, ("act_group", None, "act_embed"), px)
     route = {k: p[k] for k in ("router", "router_bias") if k in p}
@@ -751,11 +898,14 @@ def mla_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     scale = 1.0 / math.sqrt(dn + dr)
 
-    q_lat = rms_norm(x @ p["wq_a"], p["q_a_norm"]["scale"], cfg.norm_eps)
-    q = torch.einsum("bsl,lhk->bshk", q_lat, p["wq_b"])       # (B,S,H,dn+dr)
+    q_a, kv_a, k_rope = tokens_local(
+        px, lambda t, *w: tuple(t @ u for u in w), x, p["wq_a"], p["wkv_a"],
+        p["wk_rope"], n_out=3)                 # k_rope (B,S,dr): every head's
+    q_lat = rms_norm(q_a, p["q_a_norm"]["scale"], cfg.norm_eps)
+    q = tokens_local(px, lambda t, w: torch.einsum("bsl,lhk->bshk", t, w),
+                     q_lat, p["wq_b"])                       # (B,S,H,dn+dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    c_kv = rms_norm(x @ p["wkv_a"], p["kv_a_norm"]["scale"], cfg.norm_eps)
-    k_rope = x @ p["wk_rope"]                  # (B,S,dr), one for all heads
+    c_kv = rms_norm(kv_a, p["kv_a_norm"]["scale"], cfg.norm_eps)
 
     cos, sin = rope_tables(positions, dr, cfg.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
@@ -770,35 +920,73 @@ def mla_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
         _insert_slot(cache["k_rope"], k_rope, slot, px)
         _insert_slot(cache["pos"], positions, slot, px)
 
-        def absorbed(q_nope, q_rope, ckv, krope, pos, cur, wk_nope, wv):
+        def scores(q_nope, q_rope, ckv, krope, pos, cur, wk_nope):
             q_c = torch.einsum("bshn,lhn->bshl", q_nope, wk_nope)
             s = (torch.einsum("bshl,btl->bhst", q_c, ckv)
                  + torch.einsum("bshr,btr->bhst", q_rope, krope)).float()
             s = s * scale
             valid = (pos >= 0) & (pos <= cur[:, :1])             # (B, cap)
-            s = s.masked_fill(~valid[:, None, None, :], -math.inf)
+            return s.masked_fill(~valid[:, None, None, :], -math.inf)
+
+        def absorbed(q_nope, q_rope, ckv, krope, pos, cur, wk_nope, wv):
+            s = scores(q_nope, q_rope, ckv, krope, pos, cur, wk_nope)
             prob = torch.softmax(s, dim=-1)
             ctx_c = torch.einsum("bhst,btl->bshl", prob.to(ckv.dtype), ckv)
             return (torch.einsum("bshl,lhv->bshv", ctx_c, wv),)  # (B,1,H,dv)
 
-        # on a mesh each rank attends with its rows and heads over its
-        # rows of the latent cache, written in place above
-        heads, rows = ("act_batch", None, "act_heads"), ("act_batch",)
-        (out,) = block_local(
-            px, absorbed, (q_nope, q_rope, cache["c_kv"], cache["k_rope"],
-                           cache["pos"], positions, p["wk_nope"], p["wv"]),
-            (heads, heads, rows, rows, rows, rows, (None, "act_heads"),
-             (None, "act_heads")), (heads,))
-        return torch.einsum("bshv,hvd->bsd", out, p["wo"]), cache
+        rows = ("act_batch",)
+        seq = () if px is None or px.mesh is None else shard_dims(
+            cache["c_kv"].placements, 1)
+        if not seq:
+            # on a mesh each rank attends with its rows and heads over its
+            # rows of the latent cache, written in place above
+            heads = ("act_batch", None, "act_heads")
+            (out,) = block_local(
+                px, absorbed, (q_nope, q_rope, cache["c_kv"],
+                               cache["k_rope"], cache["pos"], positions,
+                               p["wk_nope"], p["wv"]),
+                (heads, heads, rows, rows, rows, rows, (None, "act_heads"),
+                 (None, "act_heads")), (heads,))
+            return tokens_local(px, _out_proj, out, p["wo"]), cache
 
-    k_nope = torch.einsum("bsl,lhn->bshn", c_kv, p["wk_nope"])
-    v = torch.einsum("bsl,lhv->bshv", c_kv, p["wv"])
+        def merged(ckv, krope, pos, q_nope, q_rope, cur, wk_nope, wv):
+            # the partials of the rank's slots, every head: unnormalized
+            # context in the latent space (B,1,1,H,r) and (m, l) (B,1,1,H)
+            s = scores(q_nope, q_rope, ckv, krope, pos, cur, wk_nope)
+            m = s.amax(dim=-1)                                 # (B,H,1)
+            p_ = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[
+                ..., None])                                    # exp(-inf) = 0
+            o = torch.einsum("bhst,btl->bshl", p_.to(ckv.dtype).float(),
+                             ckv.float())
+            parts = (o[:, None], m.transpose(1, 2)[:, None],
+                     p_.sum(dim=-1).transpose(1, 2)[:, None])
+            o, m, l = (gather_blocks(t, px.mesh, seq, 2) for t in parts)
+            ctx_c = ref.combine_partials(o, m, l).to(ckv.dtype)  # (B,1,H,r)
+            return (torch.einsum("bshl,lhv->bshv", ctx_c, wv),)
+
+        # act_cache_seq splits the latent cache: the cache's names first,
+        # so that its slots keep the mesh dims place_cache gave them, and
+        # each rank holds every head
+        from repro_torch.kernels import ref
+        seq_rows = LATENT_CACHE_AXES[:2]
+        heads = ("act_batch", None, "act_heads")
+        (out,) = block_local(
+            px, merged, (cache["c_kv"], cache["k_rope"], cache["pos"],
+                         q_nope, q_rope, positions, p["wk_nope"], p["wv"]),
+            (seq_rows, seq_rows, seq_rows, heads, heads, rows,
+             (None, "act_heads"), (None, "act_heads")), (heads,))
+        return tokens_local(px, _out_proj, out, p["wo"]), cache
+
+    k_nope, v = tokens_local(px, lambda t, wk, wv: (
+        torch.einsum("bsl,lhn->bshn", t, wk),
+        torch.einsum("bsl,lhv->bshv", t, wv)), c_kv, p["wk_nope"], p["wv"],
+        n_out=2)
 
     def core(qn, qr, kn, kr, vv, pos):
         k_rope_h = kr[:, :, None, :].expand(*kn.shape[:3], dr)
         return (_prefill_attention(
             torch.cat([qn, qr], dim=-1), torch.cat([kn, k_rope_h], dim=-1),
-            vv, positions=pos, window=None, scale=scale, pcfg=pcfg,
+            vv, q_pos=pos, k_pos=pos, window=None, scale=scale, pcfg=pcfg,
             device=x.device),)
 
     heads = ("act_batch", None, "act_heads")
@@ -806,7 +994,7 @@ def mla_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
                                     positions),
                          (heads, heads, heads, ("act_batch",), heads,
                           ("act_batch",)), (heads,))
-    y = torch.einsum("bshv,hvd->bsd", out, p["wo"])
+    y = tokens_local(px, _out_proj, out, p["wo"])
     new_cache = cache
     if mode == "prefill":
         if cache is None:
@@ -818,6 +1006,7 @@ def mla_attention(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
                                  F.pad(r, (0, 0, 0, pad)),
                                  F.pad(q, (0, pad), value=-1)),
             (c_kv, k_rope, positions), (rows,) * 3, (rows,) * 3)))
+        new_cache = _cache_placed(new_cache, px)
     return y, new_cache
 
 
@@ -924,8 +1113,9 @@ def rglru_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
     constraint and the recurrence runs on each rank's rows and channels
     (``block_local``), exact with no communication, from and into its
     block of the cache's state where there is one."""
-    gate_y = _act("geglu")(x @ p["wy"])
-    xx = constrain(x @ p["wx"], ("act_batch", "act_seq", "act_mlp"), px)
+    gate_y, xx = tokens_local(px, lambda t, wy, wx: (
+        _act("geglu")(t @ wy), t @ wx), x, p["wy"], p["wx"], n_out=2)
+    xx = constrain(xx, ("act_batch", "act_seq", "act_mlp"), px)
     kw = dict(c_exponent=cfg.rglru.c_exponent, decode=mode == "decode")
     if cache is None:
         (hs,) = block_local(
@@ -940,7 +1130,8 @@ def rglru_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
             (_RGLRU_AXES, _CHANNELS, _CHANNELS, _CHANNELS[::2]),
             (_CHANNELS, _CHANNELS, _CHANNELS[::2]))
         state = dict(conv=conv, h=h)
-    y = (gate_y * hs.to(x.dtype)) @ p["wo"]
+    y = tokens_local(px, lambda t, w: t @ w, gate_y * hs.to(x.dtype),
+                     p["wo"])
     return y, _new_state(cache, mode, **state)
 
 
@@ -1143,7 +1334,8 @@ def mlstm_block(p, x, *, cfg: ArchConfig, pcfg: ParallelConfig, mode: str,
     # do not divide (4 heads over model 8) cannot be viewed back as heads
     h = constrain(h, ("act_batch", "act_seq", None), px)
     h = h * F.silu(gate_br)
-    y = torch.einsum("bsi,id->bsd", h.to(x.dtype), p["w_down"])
+    y = tokens_local(px, lambda t, w: torch.einsum("bsi,id->bsd", t, w),
+                     h.to(x.dtype), p["w_down"])
     return y, _new_state(cache, mode, **state)
 
 

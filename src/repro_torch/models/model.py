@@ -130,11 +130,11 @@ def abstract_cache(cfg: ArchConfig, batch: int, cap: int,
 #: each cache leaf's logical activation axes by (layer kind, name), the
 #: reference's ``_cache_layer_specs``
 CACHE_AXES = {
-    ("attn", "k"): ("act_batch", "act_cache_seq", "act_kv_heads", None),
-    ("attn", "v"): ("act_batch", "act_cache_seq", "act_kv_heads", None),
-    ("attn", "pos"): ("act_batch", "act_cache_seq"),
-    ("attn", "c_kv"): ("act_batch", "act_cache_seq", None),
-    ("attn", "k_rope"): ("act_batch", "act_cache_seq", None),
+    ("attn", "k"): L.KV_CACHE_AXES,
+    ("attn", "v"): L.KV_CACHE_AXES,
+    ("attn", "pos"): L.POS_CACHE_AXES,
+    ("attn", "c_kv"): L.LATENT_CACHE_AXES,
+    ("attn", "k_rope"): L.LATENT_CACHE_AXES,
     ("attn", "cross_k"): ("act_batch", None, "act_kv_heads", None),
     ("attn", "cross_v"): ("act_batch", None, "act_kv_heads", None),
     ("rglru", "conv"): ("act_batch", None, "act_mlp"),

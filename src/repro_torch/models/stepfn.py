@@ -18,7 +18,9 @@ each gradient is placed as its weight before the optimizer's update, and
 the step runs under DTensor's implicit replication, so that a plain tensor
 every rank builds alike (positions, masks) joins the DTensors as a
 replicated value. Each batch leaf is placed by its logical axes
-(:data:`BATCH_AXES`, the reference's ``input_specs``), a microbatch too.
+(:data:`BATCH_AXES`, the reference's ``input_specs``), a microbatch too;
+under ``act_seq`` along its sequence, which the loss and the prefill's
+last position gather where they slice it.
 """
 from __future__ import annotations
 
@@ -33,7 +35,9 @@ from repro_torch.models import model as M
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import leaves, map_tree_paths, trainable
 from repro_torch.parallel.sharding import (ParallelConfig, ShardCtx,
-                                           act_sharding, constrain, on_mesh)
+                                           act_sharding, constrain,
+                                           gather_blocks, on_mesh,
+                                           shard_dims, tokens_local)
 
 Tree = Dict[str, Any]
 
@@ -85,7 +89,8 @@ def _chunk_loss(xc: torch.Tensor, head_w: torch.Tensor, lc: torch.Tensor,
     column, exact (one term is not zero): DTensor's gather along a sharded
     dim fails. Logits replicated on every rank (a mesh of one rank) take
     the gather, as off a mesh."""
-    logits = xc.float() @ head_w.float()
+    logits = tokens_local(px, lambda t, w: t.float() @ w.float(), xc,
+                          head_w)
     logits = constrain(logits, ("act_batch", "act_seq", "act_vocab"), px)
     logz = torch.logsumexp(logits, dim=-1)
     label = torch.clamp(lc, min=0).long()[..., None]
@@ -112,6 +117,10 @@ def chunked_xent(x: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
     B, S, d = x.shape
     chunk = pcfg.logits_chunk
     if chunk and S > chunk and S % chunk == 0:
+        # a chunk is a slice along the sequence, which DTensor is not
+        # trusted to cut where ``act_seq`` splits it: whole first
+        x = constrain(x, ("act_batch", None, "act_embed"), px)
+        labels = constrain(labels, ("act_batch", None), px)
         tot = torch.zeros((), device=x.device)
         cnt = torch.zeros((), device=x.device)
         for i in range(0, S, chunk):
@@ -133,8 +142,11 @@ def loss_fn(params: Tree, batch: Tree, *, cfg: ArchConfig,
     if tokens is None:
         labels = batch["labels"]
     else:
-        labels = torch.cat([tokens[:, 1:],
-                            torch.full_like(tokens[:, :1], -1)], dim=1)
+        # the next tokens, shifted along a sequence gathered whole where
+        # ``act_seq`` splits it (DTensor is not trusted to slice it)
+        whole = constrain(tokens, ("act_batch", None), px)
+        labels = torch.cat([whole[:, 1:],
+                            torch.full_like(whole[:, :1], -1)], dim=1)
     B, S = labels.shape
     positions = torch.arange(S, dtype=torch.long,
                              device=labels.device)[None, :].expand(B, S)
@@ -250,10 +262,26 @@ def make_prefill_step(cfg: ArchConfig, pcfg: ParallelConfig, cache_cap: int,
                                  tokens=tokens, embeds=embeds,
                                  cond=batch.get("cond"), positions=positions,
                                  cache=cache, px=px)
-        logits = M.output_head(params, cfg, x[:, -1:, :], px)[:, 0]
+        logits = M.output_head(params, cfg, _last_position(x, px), px)[:, 0]
         return logits, new_cache
 
     return prefill_step
+
+
+def _last_position(x, px: Optional[ShardCtx] = None):
+    """x[:, -1:] of hidden states (B,S,d). Where ``act_seq`` splits the
+    sequence, each rank's last row is gathered over the mesh dims that
+    split it and the last block's kept (one row a rank moves, not the
+    sequence), placed whole along the sequence."""
+    seq = () if px is None or px.mesh is None else shard_dims(
+        x.placements, 1)
+    if not seq:
+        return x[:, -1:, :]
+    from torch.distributed.tensor import Replicate
+    pl = tuple(x.placements)
+    last = gather_blocks(x.to_local()[:, -1:], px.mesh, seq, 1)[:, -1:]
+    return DTensor.from_local(last, px.mesh, tuple(
+        Replicate() if q.is_shard(1) else q for q in pl), run_check=False)
 
 
 def make_decode_step(cfg: ArchConfig, pcfg: ParallelConfig,

@@ -23,6 +23,10 @@ redistributes a DTensor to the resolved placements, the counterpart of
 ``with_sharding_constraint``: where a value lives changes, not what it is.
 ``block_local`` runs a block on each rank's own shard in plain tensors
 (GSPMD computes it there too), for what DTensor does not place.
+``shard_dims``, ``block_index``, ``gather_blocks`` and ``tokens_local``
+serve the sequence rules (``act_seq``, ``act_cache_seq``): which mesh
+dims split a sequence, a rank's block of it, the blocks gathered, and
+products on a rank's rows.
 
 ``scan_layers`` is cut: a compile knob with no eager counterpart (the port
 loops over layers). On a mesh ``moe_combine`` picks the constraint around
@@ -263,6 +267,37 @@ def gather_embed(tree: Any, specs: Any, px: Optional[ShardCtx]) -> Any:
                                  for path, t in leaves(tree)})
 
 
+def shard_dims(pl: Sequence, dim: int) -> Tuple[int, ...]:
+    """The mesh dims whose placement in ``pl`` splits tensor dim ``dim``,
+    in mesh order: of a resolved spec's placements (:func:`act_sharding`)
+    and the sequence dim, the mesh dims its ``act_seq`` or
+    ``act_cache_seq`` rule splits it over, none where no mesh axis of the
+    rule divides it (a decode step's one token)."""
+    return tuple(i for i, q in enumerate(pl) if q.is_shard(dim))
+
+
+def block_index(mesh, dims: Sequence[int]) -> int:
+    """This rank's block of a tensor dim split over the mesh dims ``dims``,
+    as :func:`placements` splits it (the outer mesh dim first)."""
+    coord, idx = mesh.get_coordinate(), 0
+    for i in dims:
+        idx = idx * mesh.size(i) + coord[i]
+    return idx
+
+
+def gather_blocks(t, mesh, dims: Sequence[int], dim: int):
+    """Each rank's plain block ``t``, concatenated along ``dim`` over the
+    mesh dims ``dims`` (an all-gather in each of them, in the order of
+    :func:`block_index`); the other mesh dims keep what each rank holds.
+    No gradient: for the serving paths."""
+    if not dims:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    pl = [Shard(dim) if i in dims else Replicate() for i in range(mesh.ndim)]
+    return DTensor.from_local(t, mesh, pl, run_check=False).redistribute(
+        mesh, [Replicate()] * mesh.ndim).to_local()
+
+
 def local_block(t, mesh, pl: Tuple):
     """This rank's block, under placements ``pl``, of a plain tensor every
     rank built alike (positions): ``t`` itself where no placement splits
@@ -354,6 +389,26 @@ def block_local(px: Optional[ShardCtx], fn, operands: Sequence,
     return tuple(DTensor.from_local(o, mesh, place(full(names, o.ndim)),
                                     run_check=False)
                  for o, names in zip(out, out_axes))
+
+
+def tokens_local(px: Optional[ShardCtx], fn, x, *weights, n_out: int = 1):
+    """``fn(x, *weights)``: products of an activation x (B, S, ...) with
+    weights. Where ``act_seq`` splits x's sequence on a mesh, each rank
+    runs ``fn`` on its block of rows with every weight gathered whole
+    (:func:`block_local`: a weight's gradient is that rank's share of a sum
+    over the rows' mesh dims), and its ``n_out`` outputs are placed by
+    rows, as x is: no product there flattens B and S, which torch 2.11's
+    DTensor refuses where S is split (2.13 places it). Elsewhere, the
+    call."""
+    from torch.distributed.tensor import DTensor
+    if px is None or px.mesh is None or not isinstance(x, DTensor) or \
+            not shard_dims(x.placements, 1):
+        return fn(x, *weights)
+    rows = ("act_batch", "act_seq")
+    out = block_local(
+        px, lambda t, *w: (lambda o: o if n_out > 1 else (o,))(fn(t, *w)),
+        (x,) + weights, (rows,) + (None,) * len(weights), (rows,) * n_out)
+    return out if n_out > 1 else out[0]
 
 
 @contextlib.contextmanager

@@ -131,57 +131,118 @@ _REFERENCE = textwrap.dedent("""
     from repro.launch import hlo_cost
     from repro.launch.mesh import make_host_mesh
     from repro.launch.specs import input_specs
-    from repro.models.stepfn import make_train_step
+    from repro.models.stepfn import make_decode_step, make_train_step
     from repro.optim.optimizers import AdamW, constant_lr
-    from repro.parallel.sharding import ParallelConfig, ShardCtx
-    out = {}
-    for arch in sys.argv[1].split(","):
-        cfg = smoke_config(arch)
+    from repro.parallel.sharding import (DEFAULT_ACT_RULES, ParallelConfig,
+                                         ShardCtx)
+    out = []
+    for cell in json.loads(sys.argv[1]):
+        cfg = smoke_config(cell["arch"])
         mesh = make_host_mesh(data=2, model=4)
-        pcfg = ParallelConfig(logits_chunk=0)
+        pcfg = ParallelConfig(logits_chunk=0, act_rules={
+            **DEFAULT_ACT_RULES, **cell["rules"]})
+        px = ShardCtx(mesh, pcfg)
         opt = AdamW(schedule=constant_lr(1e-4))
-        specs = input_specs(cfg, ShapeConfig("s", 16, 8, "train"), mesh,
+        specs = input_specs(cfg, ShapeConfig("s", 16, 8, cell["kind"]), mesh,
                             pcfg, optimizer=opt)
-        step = jax.jit(make_train_step(cfg, ShardCtx(mesh, pcfg), opt),
-                       donate_argnums=(0, 1))
-        comp = step.lower(specs["params"], specs["opt_state"],
-                          specs["batch"], specs["step"]).compile()
-        out[arch] = {
+        if cell["kind"] == "train":
+            step = jax.jit(make_train_step(cfg, px, opt),
+                           donate_argnums=(0, 1))
+            args = (specs["params"], specs["opt_state"], specs["batch"],
+                    specs["step"])
+        else:
+            step = jax.jit(make_decode_step(cfg, px), donate_argnums=(1,))
+            args = (specs["params"], specs["cache"], specs["batch"],
+                    specs["pos"])
+        comp = step.lower(*args).compile()
+        out.append({
             "args": int(comp.memory_analysis().argument_size_in_bytes),
-            "coll_by_kind": hlo_cost.analyze(comp.as_text())["coll_by_kind"]}
+            "coll_by_kind": hlo_cost.analyze(comp.as_text())["coll_by_kind"]})
     print(json.dumps(out))
 """)
 
-ARG_ARCHS = ("gemma-2b", "qwen3-moe-30b-a3b")
+#: (arch, step kind, act_rules overrides): a dense and a MoE train cell
+#: under the default rules, then the sequence rules: the train cell's
+#: batch split along its sequence (act_seq), and decode cells whose KV or
+#: latent cache is split along its slots (act_cache_seq)
+ARG_CELLS = [pytest.param("gemma-2b", "train", {}, id="gemma-2b"),
+             pytest.param("qwen3-moe-30b-a3b", "train", {},
+                          id="qwen3-moe-30b-a3b"),
+             pytest.param("gemma-2b", "train", {"act_seq": "model"},
+                          id="gemma-2b-act_seq"),
+             pytest.param("gemma-2b", "decode", {"act_cache_seq": "model"},
+                          id="gemma-2b-decode-act_cache_seq"),
+             pytest.param("deepseek-v3-671b", "decode",
+                          {"act_cache_seq": "model"},
+                          id="deepseek-v3-671b-decode-act_cache_seq")]
 
 
 @pytest.fixture(scope="module")
 def arguments_on_2x4():
+    cells = [{"arch": c.values[0], "kind": c.values[1], "rules": c.values[2]}
+             for c in ARG_CELLS]
     ref = subprocess.Popen(
-        [sys.executable, "-c", _REFERENCE, ",".join(ARG_ARCHS)], cwd=ROOT,
+        [sys.executable, "-c", _REFERENCE, json.dumps(cells)], cwd=ROOT,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=dict(os.environ, JAX_PLATFORMS="cpu"))
-    mine = _jobs(*({"job": "trace", "arch": a, "dims": [2, 4]}
-                   for a in ARG_ARCHS))
+    mine = _jobs(*({"job": "trace", "arch": c["arch"], "kind": c["kind"],
+                    "rules": c["rules"], "dims": [2, 4]} for c in cells))
     out, err = ref.communicate(timeout=600)
     assert ref.returncode == 0, err[-4000:]
     theirs = json.loads(out.strip().splitlines()[-1])
-    return {a: (m, theirs[a]) for a, m in zip(ARG_ARCHS, mine)}
+    return {c.id: (m, t) for c, m, t in zip(ARG_CELLS, mine, theirs)}
 
 
-@pytest.mark.parametrize("arch", ARG_ARCHS)
-def test_argument_bytes_per_device_match_the_reference(arch,
-                                                       arguments_on_2x4):
-    """A dense and a MoE train cell on (data 2, model 4): parameters,
-    AdamW state and batch, each device's shards. The token ids are int64
-    here (4 more bytes each of a device's 4 x 16), and the reference's
-    int32 ``step`` is a Python int here (4 bytes fewer)."""
-    mine, theirs = arguments_on_2x4[arch]
-    tokens = (8 // 2) * 16
-    assert mine["args"] == theirs["args"] + 4 * tokens - 4
-    print(f"{arch} collectives a device, port: {mine['coll_by_kind']}; "
-          f"reference: {theirs['coll_by_kind']}")
+@pytest.mark.parametrize("arch,kind,rules", ARG_CELLS)
+def test_argument_bytes_per_device_match_the_reference(
+        request, arch, kind, rules, arguments_on_2x4):
+    """Train and decode cells on (data 2, model 4): parameters, AdamW
+    state or cache, and batch, each device's shards, under the default
+    rules and the sequence rules. The token ids are int64 here (4 more
+    bytes each of a device's B 8 / 2 x S 16, a quarter of them under
+    ``act_seq``, one each in decode), and so are the cache's positions
+    (4 more bytes each of a device's block); the reference's int32
+    ``step`` is a Python int here (4 bytes fewer), and its int32 decode
+    position is int64 (4 more)."""
+    mine, theirs = arguments_on_2x4[request.node.callspec.id]
+    cfg = smoke_config(arch)
+    rows = 8 // 2
+    if kind == "train":
+        tokens = rows * 16 // (4 if rules.get("act_seq") else 1)
+        extra = 4 * tokens - 4
+    else:
+        # a layer's positions: rows x 16 slots, split over model's 4
+        slots = 16 // (4 if rules.get("act_cache_seq") else 1)
+        extra = 4 * rows + 4 * rows * slots * cfg.num_layers + 4
+    assert mine["args"] == theirs["args"] + extra
+    print(f"{request.node.callspec.id} collectives a device, port: "
+          f"{mine['coll_by_kind']}; reference: {theirs['coll_by_kind']}")
     assert mine["coll"] > 0 and mine["dcn"] == 0
+
+
+def test_the_sequence_rules_on_the_single_mesh():
+    """gemma-2b at full width on ``single`` (data 32, model 8), its one KV
+    head split by no head rule: ``decode_32k`` under
+    ``act_cache_seq=model`` holds an eighth of the default record's cache
+    a card (each rank its block of the 32,768 slots) and gathers the
+    partials; under ``act_seq=model`` its one-token step keeps the
+    default's cache a card (the cache follows ``act_cache_seq`` only);
+    ``prefill_32k`` traces under ``act_seq=model``."""
+    (base, cache, seq), (pre,) = _jobs(
+        {"job": "rules", "arch": "gemma-2b", "shape": "decode_32k",
+         "mesh": "single", "rules": [{}, {"act_cache_seq": "model"},
+                                     {"act_seq": "model"}]},
+        {"job": "rules", "arch": "gemma-2b", "shape": "prefill_32k",
+         "mesh": "single", "rules": [{"act_seq": "model"}]})
+    for rec in (base, cache, seq, pre):
+        assert rec["status"] == "ok", rec["error"]
+    want = base["memory"]["cache_size_in_bytes"]
+    assert want > 2 * 10 ** 9
+    assert cache["memory"]["cache_size_in_bytes"] * 8 == want
+    assert seq["memory"]["cache_size_in_bytes"] == want
+    assert (cache["coll_by_kind"]["all-gather"]
+            > base["coll_by_kind"]["all-gather"])
+    assert pre["memory"]["cache_size_in_bytes"] == 0
 
 
 # -- data parallel ----------------------------------------------------------

@@ -20,8 +20,8 @@ from repro_torch.configs.arch import ShapeConfig  # noqa: E402
 from repro_torch.configs.registry import smoke_config  # noqa: E402
 from repro_torch.launch import dryrun as D  # noqa: E402
 from repro_torch.launch.mesh import fake_mesh  # noqa: E402
-from repro_torch.parallel.sharding import (DEFAULT_PARAM_RULES,  # noqa: E402
-                                           ParallelConfig)
+from repro_torch.parallel.sharding import (  # noqa: E402
+    DEFAULT_ACT_RULES, DEFAULT_PARAM_RULES, ParallelConfig)
 
 CARD = "NVIDIA H100 80GB HBM3"
 COUNTS = ("flops", "bytes", "args", "temp", "coll", "dcn", "coll_by_kind")
@@ -38,6 +38,8 @@ def _pcfg(spec):
     kw = dict(logits_chunk=0)
     if spec.get("embed_rule") == "none":
         kw["param_rules"] = {**DEFAULT_PARAM_RULES, "embed": None}
+    if spec.get("rules"):
+        kw["act_rules"] = {**DEFAULT_ACT_RULES, **spec["rules"]}
     if "remat" in spec:
         kw["remat"] = spec["remat"]
     return ParallelConfig(**kw)
@@ -86,6 +88,20 @@ def record(spec):
                                cfg=_cfg(spec), mesh=mesh),
             "card": D.run_cell(spec["arch"], spec["shape"], CARD, pcfg,
                                cfg=_cfg(spec))}
+
+
+def rules(spec):
+    """``run_cell`` of a cell at full width on a production mesh under
+    each ``act_rules`` override of ``spec["rules"]`` ({}: the defaults):
+    each record's status, error, memory and collectives by kind."""
+    out = []
+    for r in spec["rules"]:
+        pcfg = ParallelConfig(act_rules={**DEFAULT_ACT_RULES, **r})
+        rec = D.run_cell(spec["arch"], spec["shape"], CARD, pcfg,
+                         mesh=spec["mesh"])
+        out.append({k: rec.get(k) for k in ("status", "error", "memory",
+                                             "coll_by_kind")})
+    return out
 
 
 def meshes(spec):

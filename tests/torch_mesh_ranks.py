@@ -5,6 +5,7 @@ its results in ``out`` (rank 0, ``torch.save``). Not a test module; the
 tests are ``test_torch_mesh*.py`` and ``test_torch_compression.py``.
 """
 import os
+import sys
 import time
 
 import numpy as np
@@ -109,7 +110,8 @@ def sharded_vs_unsharded(rank, runs, data, model, out, adafactor=True):
     mesh = make_host_mesh(data=data, model=model, device="cpu")
     res = {}
     for i, (name, pkw) in enumerate(runs):
-        pcfg = ParallelConfig(flash_threshold=1 << 30, logits_chunk=0, **pkw)
+        pcfg = ParallelConfig(flash_threshold=1 << 30, logits_chunk=0,
+                              **pcfg_kw(pkw))
         px = ShardCtx(mesh, pcfg)
         cfg = smoke_config(name).replace(dtype="float32")
         whole = batch_torch(batch_np(cfg, 4, 32))
@@ -225,7 +227,7 @@ def mesh_steps(rank, data, model, runs, out):
     for name, pkw, params_path, batch_path, steps in runs:
         cfg = smoke_config(name).replace(dtype="float32")
         px = ShardCtx(mesh, ParallelConfig(flash_threshold=1 << 30,
-                                           logits_chunk=0, **pkw))
+                                           logits_chunk=0, **pcfg_kw(pkw)))
         params = P.shard_params(torch.load(params_path), P.model_specs(cfg),
                                 mesh, px.pcfg)
         batch = place_batch(batch_torch(dict(np.load(batch_path))), px)
@@ -239,6 +241,98 @@ def mesh_steps(rank, data, model, runs, out):
         res[tag(name, pkw)] = {"losses": losses, "params": _whole(params)}
     if rank == 0:
         torch.save(res, out)
+
+
+# -- prefill and decode on a mesh -------------------------------------------------
+
+
+def pcfg_kw(pkw: dict) -> dict:
+    """A run's ``ParallelConfig`` overrides, its ``act_*`` keys folded
+    into ``act_rules`` over the defaults (the reference's table takes
+    them as the dry-run's ``--rules`` does)."""
+    from repro_torch.parallel.sharding import DEFAULT_ACT_RULES
+    act = {k: v for k, v in pkw.items() if k.startswith("act_")}
+    kw = {k: v for k, v in pkw.items() if not k.startswith("act_")}
+    return {**kw, "act_rules": {**DEFAULT_ACT_RULES, **act}} if act else kw
+
+
+#: the decode kernel's calls in this process (:func:`serve_steps`)
+_CALLS = {"fused": 0, "partials": 0, "flash": 0}
+
+
+def serve_steps(rank, data, model, runs, out):
+    """For each run ``(name, pkw, params_path, batch_path, prompt, cap)``:
+    the fp32 smoke config's prefill of the first ``prompt`` tokens of the
+    batch in ``batch_path`` into a cache of ``cap`` positions, then a
+    decode step of each token after them, on a (data, model) mesh, or off
+    any mesh where ``data`` is 0, with ``ParallelConfig`` overrides
+    ``pkw`` (:func:`pcfg_kw`; a ``kernel`` entry a dict of
+    ``KernelConfig`` fields): the logits of each step, whole, and the
+    kernels' calls (``kernels.ops.decode_attention``, the fused decode
+    call, ``kernels.flash_decode.decode_split``, the partials, and
+    ``kernels.ops.flash_attention``), keyed by :func:`tag`."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.kernels import flash_decode as kfd
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import params as P
+    from repro_torch.models.stepfn import (make_decode_step,
+                                           make_prefill_step, place_batch)
+    from repro_torch.parallel.sharding import (KernelConfig, ParallelConfig,
+                                               ShardCtx)
+    from torch.distributed.tensor import DTensor
+    calls = _CALLS
+
+    def counted(fn, key):
+        def call(*a, **kw):
+            # the fused call's own split pass (on the CPU) is not counted
+            calls[key] += sys._getframe(1).f_code.co_name != "flash_decode"
+            return fn(*a, **kw)
+        call.counted = True
+        return call
+    if not hasattr(kfd.decode_split, "counted"):
+        kernel_ops.decode_attention = counted(kernel_ops.decode_attention,
+                                              "fused")
+        kfd.decode_split = counted(kfd.decode_split, "partials")
+        kernel_ops.flash_attention = counted(kernel_ops.flash_attention,
+                                             "flash")
+    mesh = make_host_mesh(data=data, model=model, device="cpu") if data \
+        else None
+    res = {}
+    for name, pkw, params_path, batch_path, prompt, cap in runs:
+        kw = pcfg_kw(pkw)
+        if "kernel" in kw:
+            kw["kernel"] = KernelConfig(**kw["kernel"])
+        pcfg = ParallelConfig(flash_threshold=1 << 30, **kw)
+        px = ShardCtx(mesh, pcfg) if mesh is not None else None
+        cfg = smoke_config(name).replace(dtype="float32")
+        params = torch.load(params_path)
+        if mesh is not None:
+            params = P.shard_params(params, P.model_specs(cfg), mesh, pcfg)
+        toks = batch_torch(dict(np.load(batch_path)))["tokens"]
+        calls.update(fused=0, partials=0, flash=0)
+        prefill = make_prefill_step(cfg, pcfg, cap, px=px)
+        decode = make_decode_step(cfg, pcfg, px=px)
+        logits, cache = prefill(params, place_batch(
+            {"tokens": toks[:, :prompt]}, px))
+        steps = [logits]
+        for pos in range(prompt, toks.shape[1]):
+            logits, cache = decode(params, cache, place_batch(
+                {"tokens": toks[:, pos:pos + 1]}, px), pos)
+            steps.append(logits)
+        res[tag(name, pkw)] = {
+            "logits": [(t.full_tensor() if isinstance(t, DTensor) else t)
+                       .clone() for t in steps],
+            "calls": dict(calls)}
+    if rank == 0:
+        torch.save(res, out)
+
+
+def kernel_gate_job(rank, runs, out):
+    """:func:`serve_steps` of ``runs`` on a one-rank mesh, into ``out +
+    ".mesh"``, then off any mesh, into ``out + ".off"``."""
+    serve_steps(rank, 1, 1, runs, out + ".mesh")
+    serve_steps(rank, 0, 0, runs, out + ".off")
 
 
 # -- sharding.block_local ------------------------------------------------------
@@ -333,12 +427,16 @@ def block_checks(rank, data, model, out):
         torch.save(res, out)
 
 
-def family_job(rank, data, model, runs, out, blocks_out=None):
+def family_job(rank, data, model, runs, out, blocks_out=None, serve=(),
+               serve_out=None):
     """:func:`mesh_steps`, then (with ``blocks_out``) :func:`block_checks`
-    on the same mesh, in one group."""
+    and (with ``serve``) :func:`serve_steps` on the same mesh, in one
+    group."""
     mesh_steps(rank, data, model, runs, out)
     if blocks_out is not None:
         block_checks(rank, data, model, blocks_out)
+    if serve:
+        serve_steps(rank, data, model, serve, serve_out)
 
 
 # -- compression over a mesh dim -------------------------------------------------
