@@ -197,11 +197,24 @@ Phases, in order; any failure exits non-zero and prints no result:
      kernel once a layer and step (the mesh path goes through both kernel
      gates), the logits bit-equal to the served ones (else within phase
      12's 2e-2 x max|logits|, the difference printed).
+ 20. slice 16, the rest of the paper's evaluation through
+     launch/compare.py at the reference's budgets, caps and sizes, one
+     seed each: Fig. 4 (EI at 220 evaluations on the GTX Titan X GEMM
+     space, the four baselines to 1,020), Figs. 6-7 (ExpDist and Adding on
+     the A100 spaces, the seven strategies), Table I's ten BO variants on
+     pnpoly (matern52 and rbf among them), and the cross-size warm start
+     (3 source runs at sequence 512 into a temporary store, a cold and a
+     warm run at 4,096), on ExpDist, the reference's, and on GEMM, whose
+     256 priors beside 220 evaluations take the GP kernel to T 512; every
+     BO run launches the GP kernel at least once an iteration, every
+     baseline's trace is the CPU's, no config is evaluated twice; suggest
+     ms a proposal by T stage, and the GP kernel at GEMM's warm run's last
+     state (T 512) against its plain version.
 The line before the last holds the kernels' JSON summary (times are the
 phase-9 device times, the phase-6 event times where the profiler saw none;
-the GEMM's and the GP kernel's launches are phases 4 and 11 together; the
-entries named ``kernel@arch`` are phases 12's and 13's instances, with
-that model's launches and times),
+the GEMM's and the GP kernel's launches are phases 4, 11 and 20 together;
+the entries named ``kernel@arch`` are phases 12's and 13's instances, with
+that model's launches and times, ``matern_gp@T512`` phase 20's warm run),
 the one before it the card's name and power limit; the last line is the
 device JSON.
 """
@@ -388,6 +401,12 @@ MESH_SERVE_STEPS = 4
 # sequence
 SEQ_RULE_CELLS = (("gemma-2b", "decode_32k", {"act_cache_seq": "model"}),
                   ("gemma-2b", "train_4k", {"act_seq": "model"}))
+# phase 20, the rest of the paper's evaluation: seeds a run (the reference
+# runs 5 to 7; budgets, caps and spaces are the reference's), Table I's
+# kernel, and the kernel whose warm start takes the GP to T 512 (ExpDist's
+# runs observe few valid configurations: its warm GP ends near 80
+# observations; GEMM's holds 256 priors and 220 evaluations)
+EVAL_SEEDS, EVAL_TABLE1_KERNEL, EVAL_T512_KERNEL = 1, "pnpoly", "gemm"
 # graph replays held against the eager step bit for bit; xLSTM's two mLSTM
 # scans compared at this many blocks
 GRAPH_STEPS, SCAN_BLOCKS = 4, 8
@@ -3577,6 +3596,208 @@ def seq_split_records(card: str, default: dict) -> None:
     log(f"[18e] done in {time.perf_counter() - t0:.1f} s ({smi_line()})")
 
 
+# -- phase 20 ------------------------------------------------------------------
+
+
+def gp_stage(t: int) -> int:
+    """The T that ``ops.gp_inputs_from_incremental`` pads t observations to."""
+    return max(128, 1 << (t - 1).bit_length())
+
+
+def paper_evaluation(dev, card: str) -> dict:
+    """Phase 20: Fig. 4, Figs. 6-7, Table I on one kernel and the warm
+    start, through launch/compare.py's functions at the reference's
+    budgets, caps and sizes, ``EVAL_SEEDS`` seeds each. Each run is checked
+    as it ends: a BO run launches the GP kernel at least once an iteration,
+    a baseline's trace is the same run's on the CPU, no config twice.
+    Returns the phase's GP-kernel launches and the T 512 kernel entry of
+    the kernels' JSON."""
+    from collections import Counter
+    import torch
+    from repro_torch.core.runner import run_strategy
+    from repro_torch.core.strategies import make_strategy
+    from repro_torch.core.strategies.bo import BOStrategy
+    from repro_torch.kernels import matern_gp as kgp, ops, ref
+    from repro_torch.launch import compare
+
+    class StageTimer(compare.TimedStrategy):
+        """Also each BO iteration's suggest seconds, by the T its GP state
+        pads to (read before the call: one observation is added between
+        calls, none inside one)."""
+
+        def __init__(self, inner):
+            super().__init__(inner)
+            self.iterations = 0
+            self.stages = {}
+
+        def suggest(self, n):
+            gp = getattr(getattr(self.inner, "gp", None), "gp", None)
+            t = getattr(gp, "t", 0)
+            s0 = time.perf_counter()
+            out = super().suggest(n)
+            if out and out[0].af != "init":
+                self.iterations += 1
+                self.stages.setdefault(gp_stage(t) if t else 0, []).append(
+                    time.perf_counter() - s0)
+            return out
+
+    seen = {"n": kgp.launches, "by": Counter(kgp.launches_by), "runs": {}}
+
+    def stage_ms(s) -> str:
+        return ", ".join(f"T {T} {1e3 * sum(v) / len(v):.3f} ms ({len(v)})"
+                         for T, v in sorted(s.stages.items()))
+
+    def check(run) -> None:
+        res, s = run.result, run.strategy
+        n = kgp.launches - seen["n"]
+        by = Counter(kgp.launches_by)
+        by.subtract(seen["by"])
+        by = +by
+        seen["n"], seen["by"] = kgp.launches, Counter(kgp.launches_by)
+        seen["runs"][run.label] = (run, by)
+        keys = [o.key for o in res.journal]
+        n_inv = sum(not math.isfinite(o.value) for o in res.journal)
+        bo = isinstance(s.inner, BOStrategy)
+        log(f"[20] {run.label}: best {res.best_value:.4f} (optimum "
+            f"{run.objective.optimum:.4f}), {res.unique_evals} unique evals "
+            f"of {s.proposals} proposals, {n_inv} invalid, "
+            f"{run.wall_s:.2f} s, tuner "
+            f"{1e3 * s.seconds / max(s.proposals, 1):.3f} ms a proposal"
+            + (f"; {s.iterations} BO iterations, GP launches "
+               f"{dict(sorted(by.items()))}; suggest by stage: "
+               f"{stage_ms(s)}" if bo else ""))
+        if len(set(keys)) != len(keys):
+            fail(f"{run.label}: a config was evaluated twice")
+        if res.unique_evals != run.budget and s.proposals < 50 * run.budget:
+            fail(f"{run.label}: {res.unique_evals} of {run.budget} evals "
+                 "before the total-call cap")
+        if bo and n < s.iterations:
+            fail(f"{run.label}: {n} GP-kernel launches for {s.iterations} "
+                 "BO iterations, want at least one an iteration")
+        if not bo:
+            name = run.label.split("/")[-2]
+            cpu = run_strategy(make_strategy(
+                name, **compare.strategy_kwargs(name, "cpu")),
+                run.objective, budget=run.budget, seed=run.seed)
+            if [o.key for o in cpu.journal] != keys:
+                fail(f"{run.label}: trace differs from the same run on the "
+                     "CPU")
+
+    kw = {"device": dev, "on_run": check, "timer": StageTimer}
+    n0 = kgp.launches
+    # (a) Fig. 4
+    t0 = time.perf_counter()
+    f4 = compare.fig4(EVAL_SEEDS, **kw)
+    log(f"[20a] fig4/ei_target,0.0,best_at_{f4['budget']}="
+        f"{f4['target']:.4f}")
+    for strat, v in f4["others"].items():
+        log(f"[20a] fig4/{strat},0.0,evals_to_match={v['mean_evals']:.0f} "
+            f"matched={v['frac_matched']:.0%}")
+    log(f"[20a] Fig. 4: {time.perf_counter() - t0:.1f} s")
+    # (b) Figs. 6-7
+    t0 = time.perf_counter()
+    gpu, strategies, _ = compare.FIGURES[6]
+    matrix = compare.run_matrix(compare.FIGURE_KERNELS[6], gpu, strategies,
+                                EVAL_SEEDS, **kw)
+    for kernel, d in matrix.items():
+        for strat, v in d.items():
+            log(f"[20b] fig6_7/{kernel}/{strat},"
+                f"{v['mean_wall_s'] * 1e6:.1f},mae={v['mean_mae']:.4f} "
+                f"tuner_ms_per_eval={v['tuner_ms_per_eval']:.3f}")
+    for strat, v in compare.mdf_from_matrix(matrix).items():
+        log(f"[20b] fig6_7/mdf/{strat},0.0,mdf={v['mdf']:.4f}")
+    log(f"[20b] Figs. 6-7: {time.perf_counter() - t0:.1f} s")
+    # (c) Table I's ten variants on one kernel: every covariance the
+    # variants name reaches the kernel
+    t0 = time.perf_counter()
+    before = Counter(kgp.launches_by)
+    t1 = compare.table1(EVAL_SEEDS, kernels=(EVAL_TABLE1_KERNEL,), **kw)
+    covs = Counter()
+    for (nu, T), n in kgp.launches_by.items():
+        covs[nu] += n - before[nu, T]
+    for name in t1["ranked"]:
+        log(f"[20c] table1/{name},0.0,mdf={t1['mdf'][name]['mdf']:.4f} "
+            f"mae={t1['per_kernel'][EVAL_TABLE1_KERNEL][name]:.4f}")
+    log(f"[20c] Table I on {EVAL_TABLE1_KERNEL}: GP launches by covariance "
+        f"{dict(covs)}; {time.perf_counter() - t0:.1f} s")
+    want = {c.kernel for c in compare.VARIANTS.values()}
+    if any(covs[nu] <= 0 for nu in want):
+        fail(f"Table I: GP-kernel launches by covariance {dict(covs)}, want "
+             f"each of {sorted(want)}")
+    # (d) the cross-size warm start at the reference's budget and sources:
+    # the reference's ExpDist, then GEMM, whose warm run reaches T 512
+    for kernel in (compare.WARM_KERNEL, EVAL_T512_KERNEL):
+        t0 = time.perf_counter()
+        ws = compare.warm_start(EVAL_SEEDS, kernel=kernel,
+                                log=lambda m: log(f"[20d] {kernel} {m}"),
+                                **kw)
+        cold, _ = seen["runs"]["warm_start/cold/seed0"]
+        warm, wby = seen["runs"]["warm_start/warm/seed0"]
+        g = warm.strategy.inner.gp.gp
+        log(f"[20d] {kernel}: {ws['scenario']['store_records']} source "
+            f"records; warm run: GP rebuilt for {g.max_obs} observations, "
+            f"{g.t} at its end, launches {dict(sorted(wby.items()))}; "
+            f"suggest a proposal by stage: cold {stage_ms(cold.strategy)}; "
+            f"warm {stage_ms(warm.strategy)}; reduction "
+            f"{ws['reduction']:.1%} (bar {compare.WARM_TARGET_REDUCTION:.0%})"
+            f"; {time.perf_counter() - t0:.1f} s")
+    n512 = sum(n for (_, T), n in wby.items() if T == 512)
+    if n512 <= 0:
+        fail(f"the {EVAL_T512_KERNEL} warm run launched the GP kernel at "
+             f"{dict(wby)}, never at T 512")
+    # (e) the GP kernel at the warm run's last state (T 512), against its
+    # plain version (phase 2's rule, and both against float64)
+    x_obs, vinv, w, mask, _, _ = ops.gp_inputs_from_incremental(g)
+    Xc = g._Xc_dev
+    args = [Xc] + [torch.from_numpy(a).to(dev) for a in (x_obs, vinv, w,
+                                                         mask)]
+    N, T, d = Xc.shape[0], x_obs.shape[0], Xc.shape[1]
+    run_k = lambda: kgp.gp_posterior(*args, ell=g.ell, nu=g.kernel,
+                                     block_n=g.block_n)
+    run_p = lambda: ref.gp_posterior(*args[:4], g.ell, g.kernel,
+                                     mask=args[4])
+    n_k = kgp.launches
+    mean_k, var_k = run_k()
+    kgp.launches = n_k                     # the check is not the path's
+    mean_r, var_r = run_p()
+    mean_x, _ = ref.gp_posterior(*(a.double() for a in args[:4]), g.ell,
+                                 g.kernel, mask=args[4].double())
+    torch.cuda.synchronize()
+    m_rng = float(mean_r.max() - mean_r.min()) + 1e-9
+    m_err = float((mean_k - mean_r).abs().max())
+    v_err = float((var_k - var_r).abs().max())
+    var_bad = int(((var_k - var_r).abs() > 1e-4 + 3e-3 * var_r.abs()).sum())
+    x_rng = float(mean_x.max() - mean_x.min()) + 1e-9
+    k_x = float((mean_k.double() - mean_x).abs().max()) / x_rng
+    p_x = float((mean_r.double() - mean_x).abs().max()) / x_rng
+    k_ms = event_ms(run_k)
+    # the path's block_n is BOConfig's default (N / 512 blocks: 32 of the
+    # card's 132 SMs); phase 3 tunes 128 at T 256, timed beside it
+    k128_ms = event_ms(lambda: kgp.gp_posterior(*args, ell=g.ell,
+                                                nu=g.kernel, block_n=128))
+    kgp.launches = n_k
+    p_ms = event_ms(run_p)
+    bound, by = gp_bounds(N, T, d, card)[1]
+    log(f"[20e] gp N={N} T={T} d={d} t={g.t} {g.kernel} block_n "
+        f"{g.block_n}: max|dvar| {v_err:.3e}, max|dmean| {m_err:.3e} "
+        f"({m_err / m_rng:.2e} of range); mean against float64: kernel "
+        f"{k_x:.2e}, plain {p_x:.2e} of range; kernel {k_ms:.4f} ms "
+        f"(block_n 128: {k128_ms:.4f} ms), plain {p_ms:.4f} ms (events), "
+        f"bound {bound:.6f} ms ({by}); {n512} launches at T 512 in the "
+        f"{EVAL_T512_KERNEL} warm run")
+    if var_bad or m_err >= 0.03 * m_rng or k_x >= 0.03:
+        fail(f"the GP kernel at T {T} disagrees with its plain version")
+    if T != 512:
+        fail(f"the warm run's last state packs to T {T}, want 512")
+    entry = {"name": "matern_gp@T512", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/matern_gp.cu",
+             "replaces": "src/repro/kernels/matern_gp.py:44",
+             "launches": n512, "max_abs_err": max(m_err, v_err), "ms": k_ms,
+             "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+             "library_ms": None}
+    return {"launches": kgp.launches - n0, "t512": entry}
+
+
 def shutil_rmtree(path: str) -> None:
     import shutil
     shutil.rmtree(path, ignore_errors=True)
@@ -3942,6 +4163,13 @@ def main() -> int:
     serve_on_mesh(dev, card, served["kc"])
     log(f"[19] done in {time.perf_counter() - t0:.1f} s")
 
+    # 20. the rest of the paper's evaluation through launch/compare.py
+    t0 = time.perf_counter()
+    evaluated = paper_evaluation(dev, card)
+    launches["matern_gp"] += evaluated["launches"]
+    log(f"[20] GP launches {evaluated['launches']}; done in "
+        f"{time.perf_counter() - t0:.1f} s")
+
     summary = {"kernels": []}
     for name, src, line in (
             ("gemm", "gemm.cu", "gemm.py:21"),
@@ -3977,6 +4205,7 @@ def main() -> int:
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": f"src/repro/kernels/{line}",
                 "launches": res["launches"][name], **res["kernels"][name]})
+    summary["kernels"].append(evaluated["t512"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(summary))
     log(smi)

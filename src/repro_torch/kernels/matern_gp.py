@@ -13,12 +13,16 @@ tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from repro_torch.kernels import _build, ref
 
-#: Kernel launches by :func:`gp_posterior` (never by the plain version).
+#: Kernel launches by :func:`gp_posterior` (never by the plain version),
+#: and the same launches by (covariance, padded observations T).
 launches = 0
+launches_by: Counter = Counter()
 
 #: When True, each launch is timed with CUDA events (one synchronize per
 #: call) and added to ``launch_ms``; off by default.
@@ -99,6 +103,7 @@ def gp_posterior(x_cand: torch.Tensor, x_obs: torch.Tensor,
         _build.check(code, f"gp_posterior N={N} T={T} d={d} "
                            f"block_n={block_n}")
         launches += 1
+        launches_by[nu, T] += 1
         if time_launches:
             t1.record()
             t1.synchronize()

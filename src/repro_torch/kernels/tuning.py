@@ -551,8 +551,10 @@ def decode_kernel_config_from_store(store, *, cache_cap: int, H: int, KV: int,
     cfg = _stored(store, "decode", shape_sig, device, usable)
     if cfg is None:
         return None
+    from repro_torch.store.resolve import decode_combine
     bkv, ns = int(cfg["block_kv"]), int(cfg["num_splits"])
     base = base if base is not None else KernelConfig()
+    # a record the reference wrote names its tensor-op combine "jax"
     return base.replace(use_decode=True, decode_block_kv=bkv,
                         decode_num_splits=ns,
-                        decode_combine=str(cfg["combine"]))
+                        decode_combine=decode_combine(cfg["combine"]))

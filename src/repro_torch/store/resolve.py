@@ -20,7 +20,9 @@ has them all), ``flash`` as ``flash_threshold``. The mesh rules
 reference applies them nowhere here either (its dry-run takes them as
 ``--rules`` overrides of ``param_rules``); they are logged, since the
 server runs off a mesh. ``apply_kernel_config`` is the
-reference's.
+reference's, but for the decode combine's name: the reference calls its
+tensor-op combine ``"jax"``, the port ``"torch"``, and a record of either
+package reads as the port's name (:func:`decode_combine`).
 """
 from __future__ import annotations
 
@@ -34,6 +36,18 @@ _PCFG_FIELDS = ("remat", "attn_q_chunks", "logits_chunk", "attn_block_kv",
                 "microbatches", "capacity_factor", "opt_moment_dtype",
                 "mlstm_chunk", "attn_block_q", "moe_combine",
                 "grad_compression", "grad_compression_topk")
+
+
+#: The reference's names of the decode cell's ``combine`` values that the
+#: port names otherwise.
+_COMBINE_NAMES = {"jax": "torch"}
+
+
+def decode_combine(name) -> str:
+    """The port's name of a stored decode ``combine``: the reference's
+    ``"jax"`` is the port's ``"torch"``; any other name is kept (the
+    kernel refuses an unknown one)."""
+    return _COMBINE_NAMES.get(str(name), str(name))
 
 
 def mesh_key(card_kind: str, mesh: Optional[str] = None) -> str:
@@ -114,7 +128,8 @@ def apply_kernel_config(pcfg, cfg: Dict[str, Any]):
             decode_block_kv=int(cfg.get("block_kv", base.decode_block_kv)),
             decode_num_splits=int(cfg.get("num_splits",
                                           base.decode_num_splits)),
-            decode_combine=str(cfg.get("combine", base.decode_combine))))
+            decode_combine=decode_combine(cfg.get("combine",
+                                                  base.decode_combine))))
     if "block_q" not in cfg and "block_kv" not in cfg:
         return pcfg
     return pcfg.replace(kernel=base.replace(

@@ -153,6 +153,22 @@ def test_gp_kernel_takes_t_512(card):
     _gp_agrees(_padded(_gp_inputs(37, 1024, 15, "matern32", card), 512))
 
 
+def test_gp_kernel_counts_launches_by_covariance_and_t(card):
+    """``launches_by`` counts each launch under (covariance, T), as
+    ``launches`` counts it; the plain version counts nothing."""
+    n0, by0 = kgp.launches, dict(kgp.launches_by)
+    args = _padded(_gp_inputs(37, 1024, 15, "rbf", card), 512)
+    kgp.gp_posterior(*args, nu="rbf", block_n=128)
+    kgp.gp_posterior(*_gp_inputs(37, 1024, 15, "matern52", card),
+                     nu="matern52", block_n=128)
+    ref.gp_posterior(*args[:4], 2.0, "rbf", mask=args[4])
+    torch.cuda.synchronize()
+    assert kgp.launches == n0 + 2
+    assert kgp.launches_by["rbf", 512] == by0.get(("rbf", 512), 0) + 1
+    assert kgp.launches_by["matern52", 128] == \
+        by0.get(("matern52", 128), 0) + 1
+
+
 def test_gp_kernel_takes_t_1024(card):
     """600 observations (a budget over 512, or warm-start priors) pad T to
     1024: the kernel runs it (about 209 KB of shared memory, sixteen
