@@ -48,6 +48,15 @@ latency drifts off the sharding cell's stored prediction, and the
 fields those the port's ``ParallelConfig`` owns apply on one card
 (``store/resolve.py``). ``--arch`` takes every config of the reference
 (``configs/registry.py``).
+
+``--trace`` turns on the server's span recorder (``launch/spans.py``),
+serves a second batch of the same prompt, and prints what its spans say
+there: the median host time to issue a decode step, and on the card the
+median device interval of a replay and of the prefill's cache copy, the
+device's idle share over the batch, and the device operations a decode
+step starts (one decode step after a third prefill, under
+``torch.profiler``); then the median self time of each span, the
+capture's split between its warm-up and the graph, and the counts.
 """
 from __future__ import annotations
 
@@ -59,10 +68,13 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.configs.registry import get_arch, smoke_config
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import flash_decode as kfd
 from repro_torch.kernels import ops, tuning
 from repro_torch.kernels.cache import CompiledKernelCache
+from repro_torch.launch.spans import (SpanRecorder, readings, self_ms,
+                                      step_kernels)
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.params import DTYPES, init_params, layer_kinds
@@ -181,11 +193,19 @@ class DecodeServer:
     ``kernel_cache`` (keyed by ``_stepfn_key``), so swapping back to a
     config is a cache hit and, on the card, replays the graph captured for
     it. All of a server's graphs share one memory pool.
+
+    ``trace`` turns on ``self.recorder`` (:class:`SpanRecorder`): spans at
+    the prefill's, the decode step's and the capture's boundaries, and
+    device intervals on the card. Off (``recorder`` None), each boundary
+    costs one test of the attribute: no clock read, CUDA event or profiler
+    range more. On, it adds no synchronise either, and the recorder holds
+    every span for the server's life (a few hundred bytes a step).
     """
 
     def __init__(self, cfg, pcfg: ParallelConfig, *, batch: int,
                  prompt_len: int, decode_steps: int, seed: int = 0,
-                 device=None, params=None, keep_logits: int = 0):
+                 device=None, params=None, keep_logits: int = 0,
+                 trace: bool = False):
         self.cfg = cfg
         self.device = tuning.resolve_device(device)
         self.prompt_len = prompt_len
@@ -210,9 +230,10 @@ class DecodeServer:
         self.swaps = 0
         self.kernel_swaps = 0
         #: decode graphs captured, and the seconds each capture took (its
-        #: warm-up step included)
+        #: warm-up step included; the ``serve.capture`` spans' durations)
         self.captures = 0
         self.capture_s: List[float] = []
+        self.recorder = SpanRecorder(self.device) if trace else None
         self.kernel_cache = CompiledKernelCache()
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
@@ -361,15 +382,29 @@ class DecodeServer:
         """Prefill the prompt into the server's cache; returns measured
         seconds."""
         self._sync()
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        rec = self.recorder
+        if rec is not None:
+            rec.batch += 1
+            top = rec.open("serve.prefill", t0)
+            rec.open("serve.prefill.step", t0, device=True)
         with torch.inference_mode():
             logits, cache = self.prefill(self.params, batch)
+            if rec is not None:
+                rec.then("serve.prefill.cache_copy", device=True)
             for mine, new in zip(self.cache, cache):
                 for name, buf in mine.items():
                     buf.copy_(new[name])
+            if rec is not None:
+                rec.then("serve.prefill.sample", device=True)
             self.toks = torch.argmax(logits, -1)
+            if rec is not None:
+                rec.then("serve.prefill.sync")
         self._sync()
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
+        if rec is not None:
+            rec.close(top, t1)
+        dt = (t1 - t0) / 1e9
         self.logits_shape = tuple(logits.shape)
         self.kept = []                # a prefill starts the sequence anew
         self._keep(logits)
@@ -387,7 +422,11 @@ class DecodeServer:
         twice for one token would be wrong. The capture launches nothing:
         the counts it took are moved to the graph, which adds them at each
         replay."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        rec = self.recorder
+        if rec is not None:
+            top = rec.open("serve.capture", t0)
+            rec.open("serve.capture.warmup", t0)
         fns, s = self._fns, self._stream
         s.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(s):
@@ -399,6 +438,8 @@ class DecodeServer:
                 for k, t in layer.items():
                     t.copy_(old[k])
             del saved
+        if rec is not None:
+            rec.then("serve.capture.graph")
         before = kernel_launches()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool, stream=s):
@@ -408,13 +449,21 @@ class DecodeServer:
         held = {k: v - before[k] for k, v in kernel_launches().items()}
         _set_kernel_launches(before)
         self.captures += 1
-        self.capture_s.append(time.perf_counter() - t0)
+        t1 = time.perf_counter_ns()
+        if rec is not None:
+            rec.close(top, t1)
+        self.capture_s.append((t1 - t0) / 1e9)
         return _DecodeGraph(graph, logits, toks, held,
                             list(kfd._counters.values()))
 
     def decode_step(self) -> float:
         """One greedy decode step over the held state; returns seconds."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        rec = self.recorder
+        if rec is not None:
+            top = rec.open("serve.decode_step", t0,
+                           step=self.pos - self.prompt_len)
+            rec.open("serve.decode.issue", t0)
         with torch.inference_mode():
             self._tokens.copy_(self.toks[:, None])
             self._pos.fill_(self.pos)
@@ -422,14 +471,24 @@ class DecodeServer:
                 if self._fns.graph is None:
                     self._fns.graph = self._capture()
                 graph = self._fns.graph
+                if rec is not None:
+                    rec.device_start(top)
                 graph.replay()
+                if rec is not None:
+                    rec.device_stop(top)
+                    rec.then("serve.decode.sync")
                 logits, self.toks = graph.logits, graph.toks.clone()
             else:
                 logits, _ = self.decode(self.params, self.cache,
                                         self._step_batch(), self._pos)
+                if rec is not None:
+                    rec.then("serve.decode.sync")
                 self.toks = torch.argmax(logits, -1)
         self._sync()
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
+        if rec is not None:
+            rec.close(top, t1)
+        dt = (t1 - t0) / 1e9
         self._keep(logits)
         self.out.append(self.toks)
         self.pos += 1
@@ -628,6 +687,9 @@ def main(argv=None) -> Dict[str, object]:
                     help="decode steps between store polls in --online mode")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--trace", action="store_true",
+                    help="record the server's spans and print what they "
+                         "say after the launch counts")
     args = ap.parse_args(argv)
     if args.online and not args.store:
         ap.error("--online requires --store")
@@ -669,7 +731,7 @@ def main(argv=None) -> Dict[str, object]:
     server = DecodeServer(cfg, pcfg, batch=args.batch,
                           prompt_len=args.prompt_len,
                           decode_steps=args.decode_steps, seed=args.seed,
-                          device=device)
+                          device=device, trace=args.trace)
     batch = server.input_batch()
     reset_kernel_launches()
     dt_prefill = server.prefill_batch(batch)
@@ -720,7 +782,58 @@ def main(argv=None) -> Dict[str, object]:
           f"decode graphs captured {server.captures}")
     print("[serve] sample tokens:", [int(t[0]) for t in server.out][:12])
     out.update(step_s=steps, launches=launches)
+    if args.trace:
+        out["trace"] = print_trace(server, batch)
     return out
+
+
+#: what ``--trace`` prints, in order
+TRACE_READINGS = (
+    ("decode_issue_ms", "decode issue {:.3f} ms (median)"),
+    ("decode_device_ms", "decode device {:.3f} ms (median replay)"),
+    ("prefill_copy_ms", "prefill cache copy {:.3f} ms (device)"),
+    ("device_idle_pct", "device idle {:.2f}% of the batch"),
+    ("decode_kernels", "decode kernels {} a step"))
+
+
+def print_trace(server: DecodeServer, batch) -> Dict[str, float]:
+    """Print and return the readings of a traced server
+    (:func:`repro_torch.launch.spans.readings`; off the card only the host's
+    ``decode_issue_ms``) over one more batch of ``batch``, whose decode
+    steps replay the graph the first batch captured. On the card a third
+    prefill follows, then one decode step under ``torch.profiler`` for
+    ``decode_kernels``, the device operations a decode step starts. Then
+    the median self time of each span of that batch and of the capture's
+    spans, and the counts: prefills, decode steps and replays by the
+    spans, the step functions' cache and the library's build seconds."""
+    rec = server.recorder
+    server.prefill_batch(batch)
+    for _ in range(server.cache_cap - server.prompt_len):
+        server.decode_step()
+    read = rec.batch
+    got = readings(rec.spans, batches={read})
+    if server.device.type == "cuda" and server.cache_cap > server.prompt_len:
+        from torch.profiler import ProfilerActivity, profile
+        server.prefill_batch(batch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            server.decode_step()
+        got["decode_kernels"] = step_kernels(
+            prof.profiler.kineto_results.events())
+    shown = [fmt.format(got[key]) for key, fmt in TRACE_READINGS
+             if got.get(key) is not None]
+    print("[serve] trace: " + ("; ".join(shown) or "no decode step"))
+    own = self_ms(rec.spans, batches={read})
+    own.update((k, v) for k, v in self_ms(rec.spans).items()
+               if k.startswith("serve.capture"))
+    print("[serve] self ms (median): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in own.items()))
+    steps = [s for s in rec.spans if s.name == "serve.decode_step"]
+    print(f"[serve] counts: prefills {rec.batch}, decode steps {len(steps)}"
+          f", replays {sum(s.device_ms is not None for s in steps)}; "
+          f"step functions {server.kernel_cache.stats()}; kernels' library "
+          f"build {_build.build_seconds:.1f} s (0 where loaded or unused)")
+    return got
 
 
 if __name__ == "__main__":

@@ -625,6 +625,54 @@ def test_graph_survives_a_second_prefill(card):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
+def test_traced_server_times_each_replay_inside_its_step(card, monkeypatch):
+    """``trace=True``: a device interval on each part of a prefill and on
+    each replay, a replay's no longer than its step's wall time, the
+    capture's spans inside the first step with ``capture_s`` as their
+    durations, and as many synchronises as an untraced server makes."""
+    import statistics
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.spans import readings
+    from repro_torch.parallel.sharding import KernelConfig, ParallelConfig
+    syncs = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: syncs.append(1) or real(*a))
+    cfg = smoke_config("gemma-2b").replace(head_dim=64)
+    counts = {}
+    for trace in (False, True):
+        srv = serve.DecodeServer(cfg, ParallelConfig(kernel=KernelConfig(
+            **_KC_A)), batch=2, prompt_len=128, decode_steps=8,
+            device=card, trace=trace)
+        syncs.clear()
+        walls = []
+        for _ in range(2):
+            srv.prefill_batch(srv.input_batch())
+            walls += [srv.decode_step() for _ in range(4)]
+        counts[trace] = len(syncs)
+    assert counts[True] == counts[False] > 0
+    spans = srv.recorder.spans
+    steps = [s for s in spans if s.name == "serve.decode_step"]
+    assert [s.ns / 1e9 for s in steps] == walls
+    assert all(0 < s.device_ms * 1e6 <= s.ns for s in steps)
+    parts = [s for s in spans if s.name in (
+        "serve.prefill.step", "serve.prefill.cache_copy",
+        "serve.prefill.sample")]
+    assert len(parts) == 6 and all(s.device_ms > 0 for s in parts)
+    caps = [i for i, s in enumerate(spans) if s.name == "serve.capture"]
+    assert [spans[i].ns / 1e9 for i in caps] == srv.capture_s
+    assert srv.captures == 1
+    assert spans[spans[caps[0]].parent].name == "serve.decode.issue"
+    assert [s.name for s in spans if s.parent == caps[0]] == [
+        "serve.capture.warmup", "serve.capture.graph"]
+    assert srv.recorder.batch == 2 and len(steps) == 8
+    got = readings(spans, batches={2})
+    assert 0 <= got["device_idle_pct"] <= 100
+    assert got["decode_device_ms"] <= 1e3 * statistics.median(walls[4:])
+
+
 # -- the shapes of the dense and MoE families: hd 80, G up to 16 ---------------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
