@@ -358,6 +358,16 @@ LAST_RUNS = (("recurrentgemma-9b", 20, 3072, 64, {}),
 # step (one a layer of attention at these depths)
 LAST_LAUNCHES = {"recurrentgemma-9b": (0, 6), "deepseek-v3-671b": (0, 0),
                  "xlstm-1.3b": (0, 0), "musicgen-large": (24, 24)}
+
+
+def ring_launches(cfg, n_dec: int) -> int:
+    """Of ``n_dec`` decode launches of ``cfg``, those whose K/V ring holds
+    two or more stages (``kernels/flash_decode.py decode_stages``): all, or
+    none where the instance fits one stage (fp32 at hd 256)."""
+    from repro_torch.kernels import flash_decode as kfd
+    b = 4 if cfg.dtype == "float32" else 2
+    return n_dec * (kfd.decode_stages(cfg.num_heads // cfg.num_kv_heads,
+                                      cfg.resolved_head_dim, b) > 1)
 # phase 14, training: gemma-2b at full width and depth with the TrainLoop's
 # parallel defaults (materialized attention, unchunked cross-entropy, remat
 # "none"), batch x sequence, steps, the launcher's peak LR; the card-vs-CPU
@@ -954,7 +964,8 @@ def serve_gemma(sdir: str, dev) -> dict:
     n_dec = cfg.num_layers * (SERVE_STEPS + server.captures)
     want = {"flash_attention": 2 * cfg.num_layers,
             "flash_decode_split": n_dec,
-            "flash_decode_combine": n_dec * fused}
+            "flash_decode_combine": n_dec * fused,
+            "flash_decode_ring": ring_launches(cfg, n_dec)}
     log(f"[8] decode graphs: {server.captures} captured in "
         f"{[round(t, 4) for t in server.capture_s]} s (warm-up step "
         f"included); cache {server.kernel_cache.stats()}; {SERVE_STEPS} "
@@ -1992,7 +2003,8 @@ def serve_family(name: str, layers, steps: int, sdir: str, dev,
     n_dec = cfg.num_layers * (steps + server.captures)
     want = {"flash_attention": 2 * cfg.num_layers,
             "flash_decode_split": n_dec,
-            "flash_decode_combine": n_dec * fused}
+            "flash_decode_combine": n_dec * fused,
+            "flash_decode_ring": ring_launches(cfg, n_dec)}
     if server.captures != 1 or launches != want or probe.plain_calls:
         fail(f"{name}: {server.captures} captures, launches {launches} "
              f"(want {want}), {probe.plain_calls} plain attention calls")
@@ -2363,9 +2375,10 @@ def serve_last_family(name: str, layers, prompt: int, steps: int, pkw,
     per_prefill, per_step = LAST_LAUNCHES[name]
     n_dec = per_step * (steps + server.captures)
     want = ({"flash_attention": per_prefill, "flash_decode_split": 0,
-             "flash_decode_combine": 0},
+             "flash_decode_combine": 0, "flash_decode_ring": 0},
             {"flash_attention": 0, "flash_decode_split": n_dec,
-             "flash_decode_combine": n_dec * fused})
+             "flash_decode_combine": n_dec * fused,
+             "flash_decode_ring": ring_launches(cfg, n_dec)})
     n_attn = sum(k.startswith("attn") for k in P.layer_kinds(cfg))
     core = ("_flash_attention" if prompt >= pcfg.flash_threshold
             else "_direct_attention")
@@ -3877,6 +3890,21 @@ def main() -> int:
                      f"thread, the resource model {model} "
                      "(kernels/ops.py GEMM_REGS_PER_THREAD): the tuner's "
                      "static invalid configs would not be the card's")
+    from repro_torch.kernels import flash_decode as kfd
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in kfd.HEAD_DIMS:
+            for G in (8, 16):
+                got = kfd.ring_on_card(dtype, hd, G)
+                db = torch.tensor([], dtype=dtype).element_size()
+                model = (kfd.decode_stages(G, hd, db),
+                         kfd.decode_blocks_per_sm(G, hd, db))
+                log(f"[1] decode ring hd{hd} G<={G} {dtype}: {got[0]} "
+                    f"stages, {got[1]} blocks an SM (resource model "
+                    f"{model[0]}, {model[1]})")
+                if got != model:
+                    fail(f"decode ring hd{hd} G<={G} {dtype}: the card "
+                         f"holds {got}, kernels/flash_decode.py models "
+                         f"{model}")
 
     # 2. kernel vs plain, on the card
     t0 = time.perf_counter()

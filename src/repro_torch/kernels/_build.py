@@ -139,6 +139,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.decode_attrs.argtypes = [i, i, i, i, ctypes.POINTER(i),
                                  ctypes.POINTER(i)]
     lib.decode_attrs.restype = i
+    lib.decode_ring.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.decode_ring.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
 

@@ -48,43 +48,75 @@
 //     counter. Splits of padding only write m = -inf, l = 0, o = 0 from one
 //     block in partials mode and nothing in fused mode; chunks past S exit
 //     at once.
-//   * K and V tiles of 64 slots are staged by cp.async in 16-byte vectors,
-//     16-byte chunks XOR-swizzled by slot % 8, through a ring of two stages
-//     (one where two do not fit: fp32 at hd 256); a masked slot is neither
-//     loaded nor read, and a thread reads the bias of all its slots before
-//     it issues any copy.
-//   * 256 threads. Scores: a thread owns one slot of the tile and RPT of
-//     the query rows, over the whole head dim: its dot products need no
-//     shuffle, K is read once from shared memory, q (fp32 in shared
-//     memory) is a broadcast. A block holds all G rows of its KV head: the
+//   * A block is a producer warp and 8 consumer warps over a ring of D
+//     stages of 64-slot K and V tiles. The producer reads the bias of its
+//     slots D tiles ahead (cp.async into a small ring of its own). For
+//     each tile, once the consumers have released its stage (an `empty`
+//     mbarrier, an arrival from each consumer warp), it copies the tile's
+//     bias into the stage and the K and V rows of the tile's valid slots,
+//     16 bytes a cp.async, lanes along a row; each lane's arrival on the
+//     stage's `full` mbarrier comes when its copies have landed
+//     (cp.async.mbarrier.arrive.noinc). A masked slot is neither loaded
+//     nor read: the consumers skip it by the stage's bias, and its p.v
+//     term is 0 x 0 whatever stale bytes the stage holds. The consumers'
+//     phases of a tile (scores, softmax, p.v) meet at a named barrier of
+//     the 256 consumer threads; no block-wide barrier stands between two
+//     tiles, so D - 1 tiles stay requested while one is computed. (A
+//     cp.async.bulk a row is slower for 160-byte rows: 0.437 ms against
+//     0.332 at stablelm-3b's decode below, two blocks an SM.)
+//   * D and the blocks an SM holds come from the shared memory an instance
+//     (hd, dtype, 8 or 16 rows) leaves (split_smem_bytes,
+//     kernels/flash_decode.py decode_stages): three blocks of the 8-row
+//     instance where each keeps two stages (bf16 at hd 64 and 80; its
+//     registers then capped at 72 a thread, the 16-row instance needs
+//     more), else one block with as many stages as fit, at most 8 (fp32 at
+//     hd 256: one, no tile requested ahead). At stablelm-3b's decode (hd
+//     80, bf16, G 1) that is 3 blocks of 2 stages: 3 x 1 x 20 KB = 60 KB of
+//     K and V requested ahead an SM, where covering ~1 us of latency at
+//     the card's rate takes ~25 KB; B 24 x KV 32 = 768 blocks run in 1.9
+//     waves of 396. There the consumers' compute, not the loads, sets a
+//     tile's time: on an H100 SXM (B 24, 2,112 valid slots of 2,176, 0.155
+//     ms of bytes) a launch took 0.299 ms with no copy at all and 0.023 ms
+//     with no compute (two blocks an SM, before the row loops below), so
+//     the blocks an SM holds, which overlap their consumers, count for
+//     more than the stages: one block of 8 stages took 0.564 ms, three of
+//     2 take 0.209.
+//   * 256 consumer threads. Scores: a thread owns one slot of the tile
+//     and RPT of the query rows, over the whole head dim: its dot products
+//     need no shuffle, K is read once from shared memory, q (fp32 in shared
+//     memory) is a broadcast. The rows a thread scores past G, and p.v's
+//     fours of rows past G, are left out by a branch outside the loops,
+//     not a test inside them (0.138 ms against 0.165 at batch_decode). A block holds all G rows of its KV head: the
 //     kernel is instanced for G <= 8 (2 rows a thread, a 64 x 8 score tile)
 //     and for 8 < G <= 16 (4 rows a thread, a 64 x 16 tile), so a head
 //     group's K and V are read once whatever G is; splitting G over two
 //     blocks instead would read them twice, and the decode is bound by
 //     those bytes. The 8-row instance stays for G <= 8: there the 16-row
-//     one (245 registers a thread against about 156) takes 1.2-1.4x its
-//     time on an H100 SXM (scripts/decode_rows_instance.py). The online
-//     softmax reduces each query row once per tile
+//     one (245 registers a thread against about 156) took 1.2-1.4x its
+//     time on an H100 SXM with an earlier two-stage ring
+//     (scripts/decode_rows_instance.py). The online softmax reduces each
+//     query row once per tile
 //     (a warp per row). p.v: a thread owns 2 dims of all G rows, reading V
 //     from the staged tile and p as 16-byte loads; SG = 256 / (hd/2) slot
 //     groups (hd 80: 6, the 16 threads left over idle in p.v) are summed
-//     at the end.
+//     at the end. The score tile has two buffers, by tile parity, so a
+//     thread may score tile t + 1 while another still reads tile t's p.
 //   * At mistral-large's decode (B 4, capacity 1,088 at 1,054 valid slots,
 //     KV 8, G 12, hd 128, bf16) the bytes are K and V of the valid slots,
 //     2 x 4 x 1,054 x 8 x 128 x 2 = 17.3 MB, with q, bias and the output:
 //     5.2 us at 3.35 TB/s. The kernel reads each slot's K and V once per
 //     head group (the G 12 rows share the block), so it moves the bound's
 //     bytes; its scratch adds (o, m, l) of each chunk in fp32.
-//   * Staged rows are padded to whole 128-byte groups of 8 chunks, so the
-//     XOR swizzle by slot % 8 stays inside a row: hd 80 in bf16 is 10
-//     chunks (160 bytes) staged in 256, in fp32 20 chunks staged in 384.
+//   * Staged rows lie an odd number of 16-byte chunks apart (hd 80 in bf16:
+//     10 chunks, 160 bytes, staged 176 apart), so the score pass's 16-byte
+//     reads of 8 consecutive rows fall in 8 distinct bank groups.
 //   * The fold reads each (chunk, row)'s m and l once into shared memory,
 //     computes the weights there, and each thread sums its 2 dims of its
 //     rows over the chunks with the loads unrolled.
-//   * Shared memory: the ring, q, the 64 x GM score tile (GM = 8 or 16),
-//     the slot groups' end reduction and the per-row (m, l, corr): at most
-//     181 KB (hd 256, G 16; 158 KB at G <= 8); kernels/flash_decode.py
-//     decode_smem_bytes mirrors it.
+//   * Shared memory: the ring (per stage K, V, the tile's bias, two slots
+//     of the producer's bias ring, two mbarriers), q, two 64 x GM score
+//     tiles (GM = 8 or 16), the slot groups' end reduction and the per-row
+//     (m, l, corr); kernels/flash_decode.py decode_smem_bytes mirrors it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,41 +124,76 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;         // consumer threads
 constexpr int WARPS = THREADS / 32;
+constexpr int BLOCK = THREADS + 32;  // and the producer warp
 constexpr int MAXG = 16;             // query rows per KV head the kernel takes
 constexpr int TILE = 64;             // slots per staged tile
 constexpr int RG = THREADS / TILE;   // row groups of the score pass
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_SM = 233472;      // an H100 SM's shared memory (228 KB),
+constexpr int SMEM_BLOCK = 232448;   // a block's at most (227 KB),
+constexpr int SMEM_RESERVED = 1024;  // and what the runtime keeps a block
 
 // rows of the instance that holds G query rows: 8 or 16
-__host__ __device__ inline int group_rows(int G) { return G <= 8 ? 8 : 16; }
+__host__ __device__ constexpr int group_rows(int G) { return G <= 8 ? 8 : 16; }
 
-// bytes of a staged K or V row: whole 128-byte groups of 16-byte chunks
+// bytes between staged K or V rows: an odd number of 16-byte chunks
 __host__ __device__ constexpr int row_bytes(int hd, int esize) {
-  return (hd * esize / 16 + 7) / 8 * 8 * 16;
+  return ((hd * esize / 16) | 1) * 16;
 }
 
-__host__ __device__ inline int split_stages(int hd, int esize) {
-  return 4 * TILE * row_bytes(hd, esize) <= 131072 ? 2 : 1;
+// one stage of the ring: K and V tiles, the tile's bias, two slots of the
+// producer's bias ring, the full and empty mbarriers
+__host__ __device__ constexpr int stage_bytes(int hd, int esize) {
+  return 2 * TILE * row_bytes(hd, esize) + 3 * TILE * 4 + 16;
 }
 
 // floats of the slot groups' end reduction, which the fold reuses for the
 // chunks' l (TILE x GM)
-__host__ __device__ inline size_t red_floats(int hd, int G) {
-  const size_t sums = (size_t)(THREADS / (hd / 2)) * G * hd;
-  const size_t lc = (size_t)TILE * group_rows(G);
-  return sums > lc ? sums : lc;
+__host__ __device__ constexpr size_t red_floats(int hd, int G) {
+  return (size_t)(THREADS / (hd / 2)) * G * hd > (size_t)TILE * group_rows(G)
+             ? (size_t)(THREADS / (hd / 2)) * G * hd
+             : (size_t)TILE * group_rows(G);
 }
 
-__host__ __device__ inline size_t split_smem_bytes(int hd, int esize, int G) {
-  const int gm = group_rows(G);
-  const size_t ring =
-      (size_t)split_stages(hd, esize) * 2 * TILE * row_bytes(hd, esize);
-  const size_t floats =
-      (size_t)G * hd + gm * TILE + 3 * gm + red_floats(hd, G);
-  return ring + 4 * floats + 4 * (TILE + 4);
+// everything but the ring: q, the two score tiles, (m, l, corr), the end
+// reduction, the fold's flag
+__host__ __device__ constexpr size_t state_bytes(int hd, int G) {
+  return 4 * ((size_t)G * hd + 2 * group_rows(G) * TILE + 3 * group_rows(G) +
+              red_floats(hd, G)) + 16;
+}
+
+// stages that fit beside the instance's largest state (G = gm) when
+// `blocks` share an SM: 1 to MAX_STAGES
+__host__ __device__ constexpr int stages_at(int hd, int esize, int gm,
+                                            int blocks) {
+  long budget = SMEM_SM / blocks - SMEM_RESERVED;
+  if (budget > SMEM_BLOCK) budget = SMEM_BLOCK;
+  const long d = (budget - (long)state_bytes(hd, gm)) / stage_bytes(hd, esize);
+  return d < 1 ? 1 : d > MAX_STAGES ? MAX_STAGES : (int)d;
+}
+
+// blocks an SM holds: three of the 8-row instance where each keeps two
+// stages (its registers then capped at 72 a thread; the 16-row instance
+// needs more), else one
+__host__ __device__ constexpr int ring_blocks(int hd, int esize, int gm) {
+  return gm == 8 && stages_at(hd, esize, gm, 3) >= 2 ? 3 : 1;
+}
+
+__host__ __device__ constexpr int ring_stages(int hd, int esize, int gm) {
+  return stages_at(hd, esize, gm, ring_blocks(hd, esize, gm));
+}
+
+__host__ __device__ constexpr size_t split_smem_bytes(int hd, int esize,
+                                                      int G) {
+  return (size_t)ring_stages(hd, esize, group_rows(G)) *
+             stage_bytes(hd, esize) +
+         state_bytes(hd, G);
 }
 
 // live chunks of split s: its slots below S, [s*L, min(s*L + L, S)), cut
@@ -202,9 +269,20 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, global to shared, through L2 only
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// 4 bytes, global to shared
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)),
                "l"(src)
                : "memory");
 }
@@ -213,40 +291,83 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  if (pending > 0)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// this thread's cp.async groups but the newest N have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+// an arrival on `bar` when this thread's cp.async copies so far have
+// landed (counted in the barrier's init: .noinc)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the 256 consumer threads (named barrier 1; 0 is __syncthreads)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
 }
 
 template <typename T, int HD, int GM, bool FUSED>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(BLOCK, ring_blocks(HD, sizeof(T), GM))
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ bias,
                     float* __restrict__ o_part, float* __restrict__ m_part,
                     float* __restrict__ l_part, T* __restrict__ out,
                     float* o_scr, float* m_scr, float* l_scr, int* counters,
-                    int S, int Sp, int KVH, int G, int chunk, int stages,
-                    float scale) {
+                    int S, int Sp, int KVH, int G, int chunk, float scale) {
   extern __shared__ __align__(16) unsigned char smraw[];
   constexpr int ES = sizeof(T);
   constexpr int EPC = 16 / ES;          // elements per 16-byte chunk
   constexpr int CH = HD / EPC;          // 16-byte chunks per row
-  constexpr int ROW = row_bytes(HD, ES);  // bytes per staged row (padded)
+  constexpr int ROW = row_bytes(HD, ES);  // bytes between staged rows
+  constexpr int RB = HD * ES;           // bytes of one slot's row: a copy
   constexpr int TILE_BYTES = TILE * ROW;
+  constexpr int D = ring_stages(HD, ES, GM);
   constexpr int NDT = HD / 2;           // p.v: threads over one slot's dims
   constexpr int SG = THREADS / NDT;     //      slot groups (2 to 8)
   constexpr int RPT = GM / RG;          // query rows a thread scores
-  unsigned char* ring = smraw;                            // [stages][K, V]
-  float* qs = reinterpret_cast<float*>(ring + stages * 2 * TILE_BYTES);
-  float* Ss = qs + G * HD;              // [TILE][GM]: scores, then p
-  float* m_s = Ss + GM * TILE;          // [GM] running max
+  unsigned char* ring = smraw;                            // [D][K, V]
+  float* tb = reinterpret_cast<float*>(ring + D * 2 * TILE_BYTES);  // [D][TILE]
+  float* pf = tb + D * TILE;            // [2D][TILE] the producer's bias ring
+  uint64_t* full = reinterpret_cast<uint64_t*>(pf + 2 * D * TILE);  // [D]
+  uint64_t* empty = full + D;           // [D]
+  float* qs = reinterpret_cast<float*>(empty + D);
+  float* Ss = qs + G * HD;              // [2][TILE][GM]: scores, then p
+  float* m_s = Ss + 2 * GM * TILE;      // [GM] running max
   float* l_s = m_s + GM;                // [GM] running sum
   float* c_s = l_s + GM;                // [GM] this tile's correction
   float* red = c_s + GM;                // [SG][G][HD] slot groups' sums
-  int* vld = reinterpret_cast<int*>(red + red_floats(HD, G));   // [TILE]
-  int* last = vld + TILE;
+  int* last = reinterpret_cast<int*>(red + red_floats(HD, G));
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -266,7 +387,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t part = (size_t)bk * nsplit + split;
 
   if (n_live == 0) {                    // padding only: the empty result
-    if (!FUSED && c == 0) {
+    if (!FUSED && c == 0 && tid < THREADS) {
       for (int e = tid; e < G * HD; e += THREADS) o_part[part * G * HD + e] = 0.f;
       if (tid < G) {
         m_part[part * G + tid] = -INFINITY;
@@ -285,42 +406,75 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + (size_t)b * S * step + (size_t)kvh * HD;
   const float* brow = bias + (size_t)b * Sp;
 
-  // the bias of a thread's slots is read first, all at once: a read
-  // between two copies would wait for its own round trip each time
-  // 16-byte chunks a thread copies (the last round partly, at hd 80)
-  constexpr int PER = (TILE * CH + THREADS - 1) / THREADS;
-  auto load = [&](int t, int st) {
-    unsigned char* ks = ring + st * 2 * TILE_BYTES;
-    unsigned char* vs = ks + TILE_BYTES;
-    const int t0 = lo + t * TILE;
-    uint32_t live = 0;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = tid + i * THREADS;
-      const int slot = t0 + e / CH;
-      live |= (uint32_t)(e < TILE * CH && slot < hi &&
-                         __ldg(brow + slot) != -INFINITY) << i;
+  if (tid == 0) {
+    for (int st = 0; st < D; ++st) {
+      mbar_init(full + st, 32);         // the producer's lanes' copies
+      mbar_init(empty + st, WARPS);     // a lane of each consumer warp
     }
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = tid + i * THREADS;
-      const int j = e / CH, cc = e % CH;
-      if (live >> i & 1u) {              // a masked slot is never read
-        const int off = j * ROW + ((cc ^ (j & 7)) << 4);
-        cp_async16(ks + off, kb + (size_t)(t0 + j) * step + cc * EPC);
-        cp_async16(vs + off, vb + (size_t)(t0 + j) * step + cc * EPC);
-      }
-    }
-  };
-
-  load(0, 0);
-  cp_async_commit();
-  for (int e = tid; e < G * HD; e += THREADS)
-    qs[e] = to_f(q[((size_t)b * H + (size_t)kvh * G) * HD + e]);
-  if (tid < GM) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if (tid < THREADS) {
+    for (int e = tid; e < G * HD; e += THREADS)
+      qs[e] = to_f(q[((size_t)b * H + (size_t)kvh * G) * HD + e]);
+    if (tid < GM) {
+      m_s[tid] = -INFINITY;
+      l_s[tid] = 0.f;
+      c_s[tid] = 0.f;
+    }
+  }
+  __syncthreads();                      // the last block-wide barrier
+
+  if (warp == WARPS) {
+    // The producer. Lane l reads the bias of slots l and l + 32 of tile t
+    // D tiles ahead, into pf slot t % 2D (read D iterations before it is
+    // written again): one cp.async group a tile, empty past the last. For
+    // tile t, once its stage is released, it copies the tile's bias for
+    // the consumers, then the K and V rows of the valid slots, 16 bytes a
+    // copy, lanes along a row; each lane's arrival on the stage's full
+    // mbarrier comes when its copies have landed.
+    const int j0 = lane, j1 = lane + 32;
+    auto prefetch = [&](int t) {
+      if (t < ntiles) {
+        const int t0 = lo + t * TILE;
+        float* dst = pf + (t % (2 * D)) * TILE;
+        if (t0 + j0 < hi) cp_async4(dst + j0, brow + t0 + j0);
+        if (t0 + j1 < hi) cp_async4(dst + j1, brow + t0 + j1);
+      }
+      cp_async_commit();
+    };
+    for (int t = 0; t < D; ++t) prefetch(t);
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % D;
+      const int t0 = lo + t * TILE;
+      cp_async_wait<D - 1>();           // tile t's bias has landed
+      const float* got = pf + (t % (2 * D)) * TILE;
+      const uint32_t live0 =
+          __ballot_sync(~0u, t0 + j0 < hi && got[j0] != -INFINITY);
+      const uint32_t live1 =
+          __ballot_sync(~0u, t0 + j1 < hi && got[j1] != -INFINITY);
+      if (t >= D) mbar_wait(empty + st, (t / D - 1) & 1);   // stage released
+      float* bt = tb + st * TILE;
+      if (t0 + j0 < hi) cp_async4(bt + j0, brow + t0 + j0);
+      if (t0 + j1 < hi) cp_async4(bt + j1, brow + t0 + j1);
+      unsigned char* ks = ring + st * 2 * TILE_BYTES;
+      unsigned char* vs = ks + TILE_BYTES;
+#pragma unroll 4
+      for (int i = 0; i < 2 * CH; ++i) {  // the tile's 64 x CH chunks
+        const int e = lane + 32 * i;
+        const int j = e / CH, cc = e % CH;
+        const uint32_t live = j < 32 ? live0 >> j : live1 >> (j - 32);
+        if (live & 1u) {                // a masked slot is never read
+          const size_t src = (size_t)(t0 + j) * step + cc * EPC;
+          cp_async16(ks + j * ROW + cc * 16, kb + src);
+          cp_async16(vs + j * ROW + cc * 16, vb + src);
+        }
+      }
+      cp_async_arrive(full + st);
+      prefetch(t + D);
+    }
+    return;
+  }
+
   const int ja = tid % TILE;            // scores: this thread's slot
   const int ga = (tid / TILE) * RPT;    //         and its first query row
   const int dp = (tid % NDT) * 2;       // p.v: dims dp, dp+1
@@ -331,28 +485,31 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int g = 0; g < GM; ++g) acc[g][0] = acc[g][1] = 0.f;
 
   for (int t = 0; t < ntiles; ++t) {
-    if (stages > 1 && t + 1 < ntiles) load(t + 1, (t + 1) & 1);
-    cp_async_commit();
-    cp_async_wait(stages > 1 ? 1 : 0);  // tile t has landed (this thread's part)
-    __syncthreads();                    // ... everyone's; q and init visible
-    const unsigned char* ks = ring + (stages > 1 ? (t & 1) : 0) * 2 * TILE_BYTES;
+    const int st = t % D;
+    mbar_wait(full + st, (t / D) & 1);  // tile t's bias, K and V have landed
+    const unsigned char* ks = ring + st * 2 * TILE_BYTES;
     const unsigned char* vs = ks + TILE_BYTES;
+    const float* bt = tb + st * TILE;   // the tile's bias below hi
+    const int n_in = hi - (lo + t * TILE);   // slots of the tile below hi
+    float* St = Ss + (t & 1) * GM * TILE;
 
     {
-      const int slot = lo + t * TILE + ja;
-      const bool ok = slot < hi && brow[slot] != -INFINITY;
+      const float bj = ja < n_in ? bt[ja] : -INFINITY;
+      const bool ok = bj != -INFINITY;
       float sc[RPT];
 #pragma unroll
       for (int r = 0; r < RPT; ++r) sc[r] = 0.f;
       if (ok) {
         const unsigned char* krow = ks + ja * ROW;
+        // NR rows of G from ga: a constant inside the loop over the chunks
+        auto dot = [&](auto rows) {
+          constexpr int NR = decltype(rows)::value;
 #pragma unroll 4
-        for (int cc = 0; cc < CH; ++cc) {
-          float kf[EPC];
-          unpack16(krow + ((cc ^ (ja & 7)) << 4), kf, k);
+          for (int cc = 0; cc < CH; ++cc) {
+            float kf[EPC];
+            unpack16(krow + (cc << 4), kf, k);
 #pragma unroll
-          for (int r = 0; r < RPT; ++r) {
-            if (ga + r < G) {
+            for (int r = 0; r < NR; ++r) {
               const float* qq = qs + (ga + r) * HD + cc * EPC;
 #pragma unroll
               for (int e = 0; e < EPC; e += 4) {
@@ -364,23 +521,30 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
               }
             }
           }
+        };
+        const int nr = G - ga;          // at most 0: no row of G here
+        if (nr >= RPT) {
+          dot(std::integral_constant<int, RPT>{});
+        } else if (nr == 1) {
+          dot(std::integral_constant<int, 1>{});
+        } else if constexpr (RPT == 4) {
+          if (nr == 2) dot(std::integral_constant<int, 2>{});
+          if (nr == 3) dot(std::integral_constant<int, 3>{});
         }
       }
-      const float bj = ok ? brow[slot] : 0.f;
 #pragma unroll
       for (int r = 0; r < RPT; ++r) sc[r] = ok ? sc[r] * scale + bj : -INFINITY;
       if constexpr (RPT == 2)
-        *reinterpret_cast<float2*>(Ss + ja * GM + ga) = make_float2(sc[0], sc[1]);
+        *reinterpret_cast<float2*>(St + ja * GM + ga) = make_float2(sc[0], sc[1]);
       else
-        *reinterpret_cast<float4*>(Ss + ja * GM + ga) =
+        *reinterpret_cast<float4*>(St + ja * GM + ga) =
             make_float4(sc[0], sc[1], sc[2], sc[3]);
-      if (ga == 0) vld[ja] = ok;
     }
-    __syncthreads();
+    consumer_sync();
 
     for (int g = warp; g < G; g += WARPS) {
-      float* ra = Ss + lane * GM + g;
-      float* rz = Ss + (lane + 32) * GM + g;
+      float* ra = St + lane * GM + g;
+      float* rz = St + (lane + 32) * GM + g;
       const float a = *ra, z = *rz;
       const float mx = warp_max(fmaxf(a, z));
       const float m_prev = m_s[g];
@@ -397,34 +561,47 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         c_s[g] = corr;
       }
     }
-    __syncthreads();
+    consumer_sync();
 
+    // rows in fours (a float4 of c and of p), the fours past G skipped; a
+    // row past G in the last four sums what no output reads
 #pragma unroll
-    for (int g = 0; g < GM; ++g)
-      if (g < G) {
-        acc[g][0] *= c_s[g];
-        acc[g][1] *= c_s[g];
-      }
-    const int boff = dp * ES;           // byte of dim dp in a row
-    for (int j = sg; pv && j < TILE; j += SG) {
-      if (!vld[j]) continue;            // p == 0, V not loaded
-      const float2 vv = load2(vs + j * ROW + ((((boff >> 4) ^ (j & 7))) << 4) +
-                                  (boff & 15), v);
-      float p[GM];
+    for (int u = 0; u < GM / 4; ++u)
+      if (4 * u < G) {
+        const float4 c4 = *reinterpret_cast<const float4*>(c_s + 4 * u);
+        const float cr[4] = {c4.x, c4.y, c4.z, c4.w};
 #pragma unroll
-      for (int u = 0; u < GM / 4; ++u) {
-        const float4 p4 = *reinterpret_cast<const float4*>(Ss + j * GM + 4 * u);
-        p[4 * u] = p4.x; p[4 * u + 1] = p4.y; p[4 * u + 2] = p4.z; p[4 * u + 3] = p4.w;
-      }
-#pragma unroll
-      for (int g = 0; g < GM; ++g)
-        if (g < G) {
-          acc[g][0] = fmaf(p[g], vv.x, acc[g][0]);
-          acc[g][1] = fmaf(p[g], vv.y, acc[g][1]);
+        for (int r = 0; r < 4; ++r) {
+          acc[4 * u + r][0] *= cr[r];
+          acc[4 * u + r][1] *= cr[r];
         }
+      }
+    if (pv) {
+      const unsigned char* vd = vs + dp * ES;
+#pragma unroll 4
+      for (int i = 0; i < (TILE + SG - 1) / SG; ++i) {
+        const int j = sg + i * SG;
+        if (j < TILE) {
+          // a masked slot's p is 0 and its V is whatever the stage holds:
+          // 0 x 0 keeps it out of the sums
+          float2 vv = load2(vd + j * ROW, v);
+          if (j >= n_in || bt[j] == -INFINITY) vv = make_float2(0.f, 0.f);
+#pragma unroll
+          for (int u = 0; u < GM / 4; ++u)
+            if (4 * u < G) {
+              const float4 p4 = *reinterpret_cast<const float4*>(St + j * GM + 4 * u);
+              const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                acc[4 * u + r][0] = fmaf(pr[r], vv.x, acc[4 * u + r][0]);
+                acc[4 * u + r][1] = fmaf(pr[r], vv.y, acc[4 * u + r][1]);
+              }
+            }
+        }
+      }
     }
-    __syncthreads();                    // the stage and Ss are free
-    if (stages == 1 && t + 1 < ntiles) load(t + 1, 0);
+    __syncwarp();                       // the warp's reads of the stage are done
+    if (lane == 0) mbar_arrive(empty + st);
   }
 
   if (SG > 1) {
@@ -434,7 +611,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         red[(sg * G + g) * HD + dp] = acc[g][0];
         red[(sg * G + g) * HD + dp + 1] = acc[g][1];
       }
-    __syncthreads();
+    consumer_sync();
     if (sg == 0) {
 #pragma unroll
       for (int g = 0; g < GM; ++g)
@@ -493,9 +670,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the last of the live chunks to arrive folds their partials
   int* cnt = counters + (FUSED ? (size_t)bk : part);
   __threadfence();
-  __syncthreads();
+  consumer_sync();
   if (tid == 0) *last = atomicAdd(cnt, 1) == n_fold - 1;
-  __syncthreads();
+  consumer_sync();
   if (!*last) return;
   __threadfence();
   // The fold, 64 chunks at a time: each (chunk, row)'s m and l into shared
@@ -514,9 +691,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (tid < GM) m_s[tid] = -INFINITY;
   for (int cb = 0; cb < n_fold; cb += TILE) {
     const int nb = min(TILE, n_fold - cb);
-    __syncthreads();
+    consumer_sync();
     load_ml(cb, nb);
-    __syncthreads();
+    consumer_sync();
     if (tid < G)
       for (int i = 0; i < nb; ++i) m_s[tid] = fmaxf(m_s[tid], Ss[i * GM + tid]);
   }
@@ -526,10 +703,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float lt = 0.f;
   for (int cb = 0; cb < n_fold; cb += TILE) {
     const int nb = min(TILE, n_fold - cb);
-    __syncthreads();
+    consumer_sync();
     if (n_fold > TILE) {
       load_ml(cb, nb);
-      __syncthreads();
+      consumer_sync();
     }
     for (int e = tid; e < nb * G; e += THREADS) {
       const int i = e / G, g = e % G;
@@ -537,7 +714,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float mt = m_s[g];
       Ss[i * GM + g] = finite(m) ? expf(m - (finite(mt) ? mt : 0.f)) : 0.f;
     }
-    __syncthreads();
+    consumer_sync();
     if (tid < G)
       for (int i = 0; i < nb; ++i) lt += Ss[i * GM + tid] * lc[i * GM + tid];
 #pragma unroll 4
@@ -555,7 +732,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (FUSED) {                          // normalize: out = o / max(l, 1e-30)
     if (tid < G) l_s[tid] = lt;
-    __syncthreads();
+    consumer_sync();
 #pragma unroll
     for (int g = 0; g < GM; ++g)
       if (g < G && g % SG == sg)
@@ -574,15 +751,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (tid == 0) *cnt = 0;               // ready for the next launch
 }
 
-template <typename T, int HD, int GM>
-cudaError_t launch_split(const void* q, const void* k, const void* v,
-                         const void* bias, void* o, void* m, void* l,
-                         void* out, void* o_scr, void* m_scr, void* l_scr,
-                         void* counters, int B, int S, int Sp, int KVH, int G,
-                         int nsplit, int C, int chunk, cudaStream_t stream) {
-  auto kernel = decode_split_kernel<T, HD, GM, false>;
-  if (out) kernel = decode_split_kernel<T, HD, GM, true>;
-  const size_t smem = split_smem_bytes(HD, sizeof(T), G);
+// The kernel's shared memory for G rows, allowed (with the carveout that
+// lets two blocks share an SM), or an error where the card has too little.
+template <typename KernelFn>
+cudaError_t prepare(KernelFn kernel, size_t smem) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -594,15 +766,31 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename T, int HD, int GM>
+cudaError_t launch_split(const void* q, const void* k, const void* v,
+                         const void* bias, void* o, void* m, void* l,
+                         void* out, void* o_scr, void* m_scr, void* l_scr,
+                         void* counters, int B, int S, int Sp, int KVH, int G,
+                         int nsplit, int C, int chunk, cudaStream_t stream) {
+  auto kernel = decode_split_kernel<T, HD, GM, false>;
+  if (out) kernel = decode_split_kernel<T, HD, GM, true>;
+  const size_t smem = split_smem_bytes(HD, sizeof(T), G);
+  const cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid(C, nsplit, B * KVH);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, BLOCK, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<float*>(o), static_cast<float*>(m), static_cast<float*>(l),
       static_cast<T*>(out), static_cast<float*>(o_scr),
       static_cast<float*>(m_scr), static_cast<float*>(l_scr),
       static_cast<int*>(counters), S, Sp, KVH, G, chunk,
-      split_stages(HD, sizeof(T)), 1.0f / sqrtf((float)HD));
+      1.0f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
@@ -665,6 +853,31 @@ cudaError_t split_attrs_of(int hd, int G, cudaFuncAttributes* attr) {
                 : split_attrs_gm<T, 16, FUSED>(hd, attr);
 }
 
+// The ring of the fused instance that holds G rows: its stages, and the
+// blocks an SM holds by the card's occupancy calculator.
+template <typename T, int HD, int GM>
+cudaError_t ring_gm(int G, int* stages, int* blocks) {
+  auto kernel = decode_split_kernel<T, HD, GM, true>;
+  const size_t smem = split_smem_bytes(HD, sizeof(T), G);
+  const cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  *stages = ring_stages(HD, sizeof(T), GM);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, BLOCK,
+                                                       smem);
+}
+
+template <typename T>
+cudaError_t ring_of(int hd, int G, int* stages, int* blocks) {
+  const bool eight = group_rows(G) == 8;
+  switch (hd) {
+    case 64: return eight ? ring_gm<T, 64, 8>(G, stages, blocks) : ring_gm<T, 64, 16>(G, stages, blocks);
+    case 80: return eight ? ring_gm<T, 80, 8>(G, stages, blocks) : ring_gm<T, 80, 16>(G, stages, blocks);
+    case 128: return eight ? ring_gm<T, 128, 8>(G, stages, blocks) : ring_gm<T, 128, 16>(G, stages, blocks);
+    case 256: return eight ? ring_gm<T, 256, 8>(G, stages, blocks) : ring_gm<T, 256, 16>(G, stages, blocks);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -708,6 +921,15 @@ int decode_attrs(int mode, int dtype, int hd, int G, int* regs,
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   return 0;
+}
+
+// The K/V ring of the fused kernel at hd and G: its stages, and the blocks
+// an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor); dtype 0 =
+// fp32, 1 = bf16.
+int decode_ring(int dtype, int hd, int G, int* stages, int* blocks) {
+  if (G <= 0 || G > MAXG) return cudaErrorInvalidValue;
+  return dtype == 0 ? ring_of<float>(hd, G, stages, blocks)
+                    : ring_of<__nv_bfloat16>(hd, G, stages, blocks);
 }
 
 }  // extern "C"

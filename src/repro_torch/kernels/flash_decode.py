@@ -23,34 +23,43 @@ A CPU tensor takes the plain versions (``kernels.ref.decode_split`` and
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.launch.roofline import SMEM_PER_BLOCK
 
 COMBINE_STRATEGIES = ("torch", "kernel")
 
-#: Launches of the kernel: every launch counts in ``split_launches``, and
-#: those that carry the fused combine (``flash_decode(combine="kernel")``)
-#: also in ``combine_launches``. The plain versions count nothing. A call
-#: inside a CUDA graph capture counts here too; the capturer moves those
-#: counts to the graph, which adds them at each replay
-#: (``launch/serve.DecodeServer``).
+#: Launches of the kernel: every launch counts in ``split_launches``, those
+#: that carry the fused combine (``flash_decode(combine="kernel")``) also in
+#: ``combine_launches``, and those whose K/V ring holds at least two stages
+#: (tiles requested ahead of the one computed; all but fp32 at hd 256) in
+#: ``ring_launches``. The plain versions count nothing. A call inside a
+#: CUDA graph capture counts here too; the capturer moves those counts to
+#: the graph, which adds them at each replay (``launch/serve.DecodeServer``).
 split_launches = 0
 combine_launches = 0
+ring_launches = 0
 
 _SPLIT = {torch.float32: "decode_split_f32", torch.bfloat16: "decode_split_bf16"}
 
 #: Head dims the split kernel is built for, the most query rows per KV
 #: head it takes (a block holds all of a head group's rows: instances of 8
-#: and of 16 rows), its threads per block, the slots it stages per tile,
-#: and the blocks its grid aims for (one per SM of an H100).
+#: and of 16 rows), its consumer threads per block (a producer warp runs
+#: beside them), the slots it stages per tile, the blocks its grid aims for
+#: (one per SM of an H100), the most stages of its ring, and an H100 SM's
+#: shared memory and what the runtime keeps of it a block.
 HEAD_DIMS = (64, 80, 128, 256)
 MAX_GROUP = 16
 THREADS = 256
 TILE = 64
 FILL_BLOCKS = 132
+MAX_STAGES = 8
+SMEM_PER_SM = 233_472
+SMEM_RESERVED = 1024
 
 #: Arrival counters of the kernel, per (device, stream, fused): per split
 #: in partials mode, per head group in fused mode, two buffers so that
@@ -68,29 +77,81 @@ def group_rows(G: int) -> int:
 
 
 def row_bytes(hd: int, dtype_bytes: int) -> int:
-    """Bytes of one staged K or V row (``row_bytes`` in the source): whole
-    128-byte groups of 16-byte chunks, so the slot swizzle stays inside the
-    row (hd 80: 256 in bf16, 384 in fp32)."""
-    return -(-hd * dtype_bytes // 128) * 128
+    """Bytes between staged K or V rows (``row_bytes`` in the source): an
+    odd number of 16-byte chunks, so 16-byte reads of 8 consecutive rows
+    fall in distinct bank groups (hd 80: 176 in bf16, 336 in fp32)."""
+    return (hd * dtype_bytes // 16 | 1) * 16
 
 
-def decode_stages(hd: int, dtype_bytes: int) -> int:
-    """Stages of the split kernel's K/V ring (``split_stages`` in the
-    source): two where they take at most 128 KB, else one."""
-    return 2 if 4 * TILE * row_bytes(hd, dtype_bytes) <= 131072 else 1
+def _stage_bytes(hd: int, dtype_bytes: int) -> int:
+    # K and V tiles, the tile's bias, two slots of the producer's bias
+    # ring, two mbarriers
+    return 2 * TILE * row_bytes(hd, dtype_bytes) + 3 * TILE * 4 + 16
+
+
+def _state_bytes(G: int, hd: int) -> int:
+    # q in fp32, two score tiles, (m, l, corr), the slot groups' end
+    # reduction (which the fold reuses for TILE x rows), the fold's flag
+    gm = group_rows(G)
+    red = max((THREADS // (hd // 2)) * G * hd, TILE * gm)
+    return 4 * (G * hd + 2 * gm * TILE + 3 * gm + red) + 16
+
+
+def _stages_at(G: int, hd: int, dtype_bytes: int, blocks: int) -> int:
+    gm = group_rows(G)
+    budget = min(SMEM_PER_SM // blocks - SMEM_RESERVED, SMEM_PER_BLOCK)
+    d = (budget - _state_bytes(gm, hd)) // _stage_bytes(hd, dtype_bytes)
+    return max(1, min(MAX_STAGES, d))
+
+
+def decode_blocks_per_sm(G: int, hd: int, dtype_bytes: int) -> int:
+    """Blocks of the split kernel an SM holds (``ring_blocks`` in the
+    source): three of the 8-row instance where each keeps two ring stages
+    (bf16 at hd 64 and 80), else one."""
+    if group_rows(G) == 8 and _stages_at(G, hd, dtype_bytes, 3) >= 2:
+        return 3
+    return 1
+
+
+def decode_stages(G: int, hd: int, dtype_bytes: int) -> int:
+    """Stages of the split kernel's K/V ring (``ring_stages`` in the
+    source): as many as fit, at most ``MAX_STAGES``, beside the largest
+    state of the instance that holds ``G``, in the shared memory an SM
+    gives each of its ``decode_blocks_per_sm`` blocks."""
+    return _stages_at(G, hd, dtype_bytes,
+                      decode_blocks_per_sm(G, hd, dtype_bytes))
 
 
 def decode_smem_bytes(G: int, hd: int, dtype_bytes: int) -> int:
     """Shared memory of one split block (``split_smem_bytes`` in the
-    source): the K/V ring, q in fp32, the 64 x 8 or 64 x 16 score tile, the
-    per-row (m, l, corr), the slot groups' end reduction (which the fold
-    reuses for 64 x rows), the slots' valid flags."""
-    gm = group_rows(G)
-    ring = decode_stages(hd, dtype_bytes) * 2 * TILE * row_bytes(
-        hd, dtype_bytes)
-    red = max((THREADS // (hd // 2)) * G * hd, TILE * gm)
-    floats = G * hd + gm * TILE + 3 * gm + red
-    return ring + 4 * floats + 4 * (TILE + 4)
+    source): the ring's stages (K, V, the tile's bias, the producer's bias
+    ring, the mbarriers), q in fp32, two 64 x 8 or 64 x 16 score tiles, the
+    per-row (m, l, corr), the slot groups' end reduction."""
+    return (decode_stages(G, hd, dtype_bytes) * _stage_bytes(hd, dtype_bytes)
+            + _state_bytes(G, hd))
+
+
+def decode_bytes_ahead(B: int, KV: int, S: int, Sp: int, num_splits: int,
+                       G: int, hd: int, dtype_bytes: int) -> int:
+    """K and V bytes an SM keeps requested ahead of the tiles it computes,
+    with whole tiles of valid slots: its resident blocks (the plan's grid
+    over ``FILL_BLOCKS``, at most ``decode_blocks_per_sm``) times the
+    ring's stages but the one computed."""
+    C, _ = decode_plan(B, KV, S, Sp, num_splits)
+    resident = min(decode_blocks_per_sm(G, hd, dtype_bytes),
+                   -(-B * KV * num_splits * C // FILL_BLOCKS))
+    return (resident * (decode_stages(G, hd, dtype_bytes) - 1)
+            * 2 * TILE * hd * dtype_bytes)
+
+
+def ring_on_card(dtype: torch.dtype, hd: int, G: int) -> Tuple[int, int]:
+    """``(stages, blocks an SM holds)`` of the fused kernel as built, the
+    blocks by the card's occupancy calculator."""
+    stages, blocks = ctypes.c_int(), ctypes.c_int()
+    code = _build.lib().decode_ring(int(dtype == torch.bfloat16), hd, G,
+                                    ctypes.byref(stages), ctypes.byref(blocks))
+    _build.check(code, f"flash decode ring hd={hd} G={G} {dtype}")
+    return stages.value, blocks.value
 
 
 def decode_plan(B: int, KV: int, S: int, Sp: int, num_splits: int
@@ -167,7 +228,7 @@ def _check_operands(q, k_cache, v_cache, bias, block_kv, num_splits):
 def _launch(q, k_cache, v_cache, bias, block_kv, num_splits, fused):
     """One launch of the kernel on checked CUDA operands: the normalized
     output (B,H,hd) in q's dtype when ``fused``, else the partials."""
-    global split_launches, combine_launches
+    global split_launches, combine_launches, ring_launches
     _check_cuda(q, "flash decode")
     _build.refuse_grad("flash decode", q, k_cache, v_cache, bias)
     B, H, hd = q.shape
@@ -212,6 +273,7 @@ def _launch(q, k_cache, v_cache, bias, block_kv, num_splits, fused):
                        f"chunks {C} x {chunk}")
     split_launches += 1
     combine_launches += fused
+    ring_launches += decode_stages(G, hd, q.element_size()) > 1
     return out
 
 

@@ -164,9 +164,9 @@ def decode_valid(cfg: Dict, G: int = 1, hd: int = 128) -> bool:
     """Hopper resource model of one split block: a head dim the kernel is
     built for, at most 16 query heads per KV head (a block holds all the
     rows of its head group), and its shared memory (the K/V ring of 64-slot
-    tiles, q and the score tile) within 227 KB in fp32 and bf16: at most
-    181 KB, for every ``block_kv``, which sets the splits' length and not
-    the block's tile."""
+    tiles, as deep as fits, q and the score tiles) within 227 KB in fp32
+    and bf16: at most 226 KB, for every ``block_kv``, which sets the
+    splits' length and not the block's tile."""
     return (hd in _fd.HEAD_DIMS and 1 <= G <= _fd.MAX_GROUP
             and all(_fd.decode_smem_bytes(G, hd, b) <= SMEM_PER_BLOCK
                     for b in (2, 4)))

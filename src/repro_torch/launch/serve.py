@@ -87,17 +87,20 @@ from repro_torch.store import (DriftMonitor, HotConfigSource, OnlineServeLoop,
 
 def kernel_launches() -> Dict[str, int]:
     """Launch counts of the serve path's kernels: flash attention, and the
-    decode kernel's launches, all of them and those that carry the fused
-    combine. A graph replay counts the launches it holds."""
+    decode kernel's launches, all of them, those that carry the fused
+    combine and those that ran its K/V ring of two or more stages. A graph
+    replay counts the launches it holds."""
     return {"flash_attention": kfa.launches,
             "flash_decode_split": kfd.split_launches,
-            "flash_decode_combine": kfd.combine_launches}
+            "flash_decode_combine": kfd.combine_launches,
+            "flash_decode_ring": kfd.ring_launches}
 
 
 def _set_kernel_launches(n: Dict[str, int]) -> None:
     kfa.launches = n["flash_attention"]
     kfd.split_launches = n["flash_decode_split"]
     kfd.combine_launches = n["flash_decode_combine"]
+    kfd.ring_launches = n["flash_decode_ring"]
 
 
 def reset_kernel_launches() -> None:
@@ -829,8 +832,11 @@ def print_trace(server: DecodeServer, batch) -> Dict[str, float]:
     print("[serve] self ms (median): "
           + "; ".join(f"{k} {v:.3f}" for k, v in own.items()))
     steps = [s for s in rec.spans if s.name == "serve.decode_step"]
+    n = kernel_launches()
     print(f"[serve] counts: prefills {rec.batch}, decode steps {len(steps)}"
           f", replays {sum(s.device_ms is not None for s in steps)}; "
+          f"decode kernel launches {n['flash_decode_split']}, of them with "
+          f"its K/V ring {n['flash_decode_ring']}; "
           f"step functions {server.kernel_cache.stats()}; kernels' library "
           f"build {_build.build_seconds:.1f} s (0 where loaded or unused)")
     return got

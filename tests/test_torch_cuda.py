@@ -493,10 +493,11 @@ def test_decode_server_on_the_card_launches_the_kernels(card):
     launches = runs["kernels"][1]
     # 2 layers x (4 steps replayed + the capture's warm-up step)
     assert launches == {"flash_attention": 2, "flash_decode_split": 10,
-                        "flash_decode_combine": 10}
+                        "flash_decode_combine": 10, "flash_decode_ring": 10}
     assert runs["plain"][1] == {"flash_attention": 0,
                                 "flash_decode_split": 0,
-                                "flash_decode_combine": 0}
+                                "flash_decode_combine": 0,
+                                "flash_decode_ring": 0}
     for a, b in zip(runs["kernels"][0].kept, runs["plain"][0].kept):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
 
@@ -593,7 +594,8 @@ def test_graph_launch_counts_include_replays(card):
     # 5 replays and the capture's one warm-up step, each a launch a layer
     assert serve.kernel_launches() == {
         "flash_attention": 0, "flash_decode_split": 6 * n_layers,
-        "flash_decode_combine": 6 * n_layers}
+        "flash_decode_combine": 6 * n_layers,
+        "flash_decode_ring": 6 * n_layers}
 
 
 def test_graph_survives_a_second_prefill(card):
@@ -741,6 +743,101 @@ def test_decode_kernels_at_the_new_shapes_match_plain(card, dtype, B, S, H,
     _check(two, want, dtype)
 
 
+def _cell_problem(card, B, S, H, KV, hd, curs, bkv=512, ns=1, seed=7):
+    """bf16 q and caches drawn on the card (the cells' caches are too large
+    for the host's generator), and the bias of a cache filled to
+    ``curs[b]`` in row b (-1: no valid slot), at the served blocks."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(B, H, hd, generator=g, device=card).bfloat16()
+    k, v = (torch.randn(B, S, KV, hd, generator=g, device=card).bfloat16()
+            for _ in range(2))
+    pos = torch.arange(S, device=card)
+    cu = torch.tensor(curs, device=card)
+    cp = torch.where(pos[None] <= cu[:, None], pos[None], -1)
+    return q, k, v, ops.decode_bias(cp, cu, None, ns * bkv)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,curs", [
+    (24, 2176, 32, 32, 80, (2048, 2174) * 12),  # long_ctx: 2,049 and 2,175
+    (32, 768, 96, 8, 128, (766,) * 32),         # batch_decode: 767 valid
+])
+def test_decode_kernels_at_the_cells_shapes_match_plain(card, B, S, H, KV,
+                                                        hd, curs):
+    """The benchmark cells' decode in bf16 at their blocks (block_kv 512,
+    one split): stablelm-3b's long_ctx (G 1, hd 80, three blocks an SM) and
+    the mistral stage's batch_decode (G 12, hd 128), fused and in partials
+    mode, against the plain split + combine; every launch runs the K/V
+    ring."""
+    q, k, v, bias = _cell_problem(card, B, S, H, KV, hd, list(curs))
+    kfd.split_launches = kfd.ring_launches = 0
+    got = kfd.flash_decode(q, k, v, bias, block_kv=512, num_splits=1,
+                           combine="kernel")
+    o, m, l = ref.decode_split(q, k, v, bias, 1)
+    want = ref.combine_partials(o, m, l).reshape(B, H, hd).bfloat16()
+    parts = kfd.decode_split(q, k, v, bias, block_kv=512, num_splits=1)
+    torch.cuda.synchronize()
+    _check(got, want, torch.bfloat16)
+    torch.testing.assert_close(parts[1], m, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(parts[2], l, rtol=1e-3, atol=1e-4)
+    _check(ref.combine_partials(*parts).reshape(B, H, hd).bfloat16(), want,
+           torch.bfloat16)
+    assert kfd.split_launches == kfd.ring_launches == 2
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("B,S,H,KV,hd,curs", [
+    (4, 2176, 32, 32, 80, (2048, -1, 2174, 100)),   # G 1, three blocks an SM
+    (4, 768, 96, 8, 128, (766, -1, 300, 5)),        # G 12
+    (2, 2176, 16, 2, 128, (1000, -1)),              # G 8, chunks folded
+])
+def test_decode_masked_slots_never_enter_the_sums(card, fused, B, S, H, KV,
+                                                  hd, curs):
+    """Every masked slot of K and V (past each row's fill, and every slot
+    of a row with none) set to NaN and +inf, and the other way round: the
+    output is finite and equals, bit for bit, the output with those slots
+    zeroed; a head group with no valid slot gives exact zeros (fused) or
+    the empty partials (m -inf, l and o 0)."""
+    q, k, v, bias = _cell_problem(card, B, S, H, KV, hd, list(curs))
+    masked = (bias[:, :S] == -float("inf"))[:, :, None, None]
+
+    def run(fk, fv):
+        kk = torch.where(masked, torch.full_like(k, fk), k)
+        vv = torch.where(masked, torch.full_like(v, fv), v)
+        if fused:
+            return (kfd.flash_decode(q, kk, vv, bias, block_kv=512,
+                                     num_splits=1, combine="kernel"),)
+        return kfd.decode_split(q, kk, vv, bias, block_kv=512, num_splits=1)
+
+    zero = run(0.0, 0.0)
+    empty = [b for b, c in enumerate(curs) if c < 0]
+    for fk, fv in ((float("nan"), float("inf")), (float("inf"),
+                                                  float("nan"))):
+        got = run(fk, fv)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, zero))
+        if fused:
+            assert bool(torch.isfinite(got[0]).all())
+            assert torch.all(got[0][empty] == 0)
+        else:
+            o, m, l = got
+            assert bool(torch.isfinite(o).all() and torch.isfinite(l).all())
+            assert torch.all(m[empty] == -float("inf"))
+            assert torch.all(o[empty] == 0) and torch.all(l[empty] == 0)
+
+
+def test_decode_ring_on_the_card_is_the_resource_model(card):
+    """The stages each instance was built with, and the blocks an SM holds
+    by the card's occupancy calculator, are what kernels/flash_decode.py
+    models (three blocks of 2 stages at stablelm-3b's hd 80, bf16)."""
+    for dtype, db in ((torch.float32, 4), (torch.bfloat16, 2)):
+        for hd in kfd.HEAD_DIMS:
+            for G in (1, 8, 12, 16):
+                assert kfd.ring_on_card(dtype, hd, G) == (
+                    kfd.decode_stages(G, hd, db),
+                    kfd.decode_blocks_per_sm(G, hd, db))
+    assert kfd.ring_on_card(torch.bfloat16, 80, 1) == (2, 3)
+
+
 def test_moe_graph_replay_equals_eager_step(card):
     """qwen3-moe's smoke model (head dim 64, which the kernels take): the
     decode step, the MoE block's routing and dispatch in it, is captured as
@@ -759,7 +856,7 @@ def test_moe_graph_replay_equals_eager_step(card):
     # prefill, 8 eager steps, the capture's warm-up step and 8 replays
     assert serve.kernel_launches() == {
         "flash_attention": n, "flash_decode_split": 17 * n,
-        "flash_decode_combine": 17 * n}
+        "flash_decode_combine": 17 * n, "flash_decode_ring": 17 * n}
     for e, g in zip(eager, srv.kept[1:]):
         torch.testing.assert_close(g, e, rtol=0, atol=2.0 ** -7 * float(
             e.abs().max()))
@@ -792,7 +889,8 @@ def test_recurrent_graph_replay_equals_eager_step(card, arch):
     # capture's warm-up step and 8 replays
     assert serve.kernel_launches() == {
         "flash_attention": 0, "flash_decode_split": 17 * n_attn,
-        "flash_decode_combine": 17 * n_attn}
+        "flash_decode_combine": 17 * n_attn,
+        "flash_decode_ring": 17 * n_attn}
     for e, g in zip(eager, srv.kept[1:]):
         torch.testing.assert_close(g, e, rtol=0, atol=2.0 ** -7 * float(
             e.abs().max()))

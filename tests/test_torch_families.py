@@ -253,15 +253,18 @@ def test_resource_models_take_the_new_shapes():
             assert ops.decode_valid({"block_kv": 512}, G, hd)
     assert not ops.decode_valid({"block_kv": 512}, 17, 128)
     assert not ops.decode_valid({"block_kv": 512}, 12, 96)
-    # rows staged in whole 128-byte groups: hd 80 as 256 (bf16), 384 (fp32)
-    assert kfd.row_bytes(80, 2) == 256 and kfd.row_bytes(80, 4) == 384
-    assert kfd.row_bytes(256, 2) == 512
+    # rows staged an odd number of 16-byte chunks apart: hd 80 as 176
+    # (bf16), 336 (fp32)
+    assert kfd.row_bytes(80, 2) == 176 and kfd.row_bytes(80, 4) == 336
+    assert kfd.row_bytes(256, 2) == 528
     assert kfd.group_rows(8) == 8 and kfd.group_rows(12) == 16
-    # the 16-row instance's score tile and per-row state, at G 12
+    # the 16-row instance's two score tiles and per-row state, at G 12, and
+    # the stages of its ring (5 at hd 128 in bf16, as at G 8 on one block)
+    assert kfd.decode_stages(12, 128, 2) == kfd.decode_stages(8, 128, 2) == 5
     assert (kfd.decode_smem_bytes(12, 128, 2) - kfd.decode_smem_bytes(8, 128, 2)
-            == 4 * (4 * 128 + 8 * 64 + 3 * 8 + 4 * 4 * 128))
+            == 4 * (4 * 128 + 2 * 8 * 64 + 3 * 8 + 4 * 4 * 128))
     assert max(kfd.decode_smem_bytes(G, hd, b) for G in range(1, 17)
-               for hd in kfd.HEAD_DIMS for b in (2, 4)) == 184784
+               for hd in kfd.HEAD_DIMS for b in (2, 4)) == 230736
 
 
 def test_a_server_resolves_its_own_cells_before_the_best_over_cells(tmp_path):

@@ -218,7 +218,8 @@ def test_serve_main_smoke_on_cpu(tmp_path, capsys):
     assert "flash-attention kernel plain version (cpu)" in text
     assert len(out["step_s"]) == 4 and out["server"].pos == 132
     assert out["launches"] == {"flash_attention": 0, "flash_decode_split": 0,
-                               "flash_decode_combine": 0}
+                               "flash_decode_combine": 0,
+                               "flash_decode_ring": 0}
     plain = serve.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu",
                         "--batch", "2", "--prompt-len", "128",
                         "--decode-steps", "4"])

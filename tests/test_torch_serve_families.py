@@ -338,6 +338,7 @@ def test_smoke_servers_of_kernel_free_families_serve_on_cpu(
     text = capsys.readouterr().out
     assert len(out["step_s"]) == 3 and out["server"].pos == 19
     assert out["launches"] == {"flash_attention": 0, "flash_decode_split": 0,
-                               "flash_decode_combine": 0}
+                               "flash_decode_combine": 0,
+                               "flash_decode_ring": 0}
     assert f"dispatch: {prefill}\n" in text
     assert f"dispatch: {decode}\n" in text

@@ -269,10 +269,15 @@ def test_serving_config_checks_flash_blocks_in_the_model_dtype(monkeypatch):
 
 def test_decode_resource_model():
     # the block's tile is 64 slots whatever block_kv is: every block_kv of
-    # the grid fits at G <= 8, in both dtypes (fp32 at hd 256: one stage)
+    # the grid fits at G <= 8, in both dtypes; the ring is as deep as the
+    # shared memory left allows (fp32 at hd 256: one stage)
     for bkv in (128, 256, 512, 1024):
         assert ops.decode_valid({"block_kv": bkv}, 8, 256)
-    assert kfd.decode_stages(256, 2) == 2 and kfd.decode_stages(256, 4) == 1
+    assert kfd.decode_stages(8, 256, 2) == 2
+    assert kfd.decode_stages(8, 256, 4) == 1
+    assert kfd.decode_stages(8, 80, 2) == 2 and kfd.decode_stages(12, 128, 2) == 5
+    assert kfd.decode_blocks_per_sm(1, 80, 2) == 3       # stablelm-3b
+    assert kfd.decode_blocks_per_sm(12, 128, 2) == 1     # the 16-row instance
     assert kfd.decode_smem_bytes(8, 256, 2) <= SMEM_PER_BLOCK
     assert kfd.decode_smem_bytes(8, 256, 4) <= SMEM_PER_BLOCK
     assert kfd.decode_smem_bytes(8, 128, 4) > kfd.decode_smem_bytes(8, 128, 2)
@@ -283,6 +288,39 @@ def test_decode_resource_model():
     # (block_kv, splits) in 128 x {1,2,4,8}, 256 x {1,2,4}, 512 x {1,2},
     # 1024 x {1,2}, times two combines
     assert ops.decode_config_space(1088).size == 22
+
+
+@pytest.mark.parametrize("dtype_bytes", [2, 4])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("G", list(range(1, 17)))
+def test_decode_ring_fits_every_instance(G, hd, dtype_bytes):
+    """Every (G, hd, dtype) the card takes: the block's shared memory fits
+    227 KB, and the blocks an SM holds fit its 228 KB; the ring keeps
+    tiles requested ahead wherever two stages fit (all but fp32 at hd
+    256); the tuner's resource model accepts the instance."""
+    smem = kfd.decode_smem_bytes(G, hd, dtype_bytes)
+    blocks = kfd.decode_blocks_per_sm(G, hd, dtype_bytes)
+    stages = kfd.decode_stages(G, hd, dtype_bytes)
+    assert smem <= SMEM_PER_BLOCK
+    assert blocks * (smem + kfd.SMEM_RESERVED) <= kfd.SMEM_PER_SM
+    assert 1 <= stages <= kfd.MAX_STAGES
+    assert (stages >= 2) == (hd * dtype_bytes < 1024)
+    assert ops.decode_valid({"block_kv": 512}, G, hd)
+
+
+@pytest.mark.parametrize("valid", [2049, 2175])
+def test_decode_ring_keeps_the_stated_bytes_ahead_at_long_ctx(valid):
+    """stablelm-3b's decode at long_ctx's shape (B 24, capacity 2,176, KV
+    32, hd 80, bf16, G 1): one chunk a (row, KV head), three blocks an SM
+    of two stages each, and 60 KB of K and V requested ahead an SM, the
+    figure the source's header states (at least the ~48 KB that cover the
+    card's latency)."""
+    B, KV, S, G, hd = 24, 32, 2176, 1, 80
+    Sp = -(-S // 512) * 512
+    C, chunk = kfd.decode_plan(B, KV, S, Sp, 1)
+    assert C == 1 and chunk >= valid
+    ahead = kfd.decode_bytes_ahead(B, KV, S, Sp, 1, G, hd, 2)
+    assert ahead == 3 * 1 * 20 * 1024 >= 48 * 1024
 
 
 @pytest.mark.parametrize("B,KV,S,block_kv,num_splits", [

@@ -218,6 +218,7 @@ def test_serve_cli_prints_the_trace(capsys):
     # the counts by the spans, beside the port's own
     assert printed[trace + 2] == (
         f"[serve] counts: prefills 2, decode steps 6, replays 0; "
+        f"decode kernel launches 0, of them with its K/V ring 0; "
         f"step functions {srv.kernel_cache.stats()}; kernels' library "
         f"build 0.0 s (0 where loaded or unused)")
     assert srv.captures == 0
