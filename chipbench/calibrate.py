@@ -57,7 +57,7 @@ def main(argv=None) -> int:
             cell, seed, 0.0, device="cuda", t0=T0 if i == 0 else t,
             batches=batches, log=lambda *a: print(*a, file=sys.stderr))
         t_ref = time.perf_counter()
-        got = correct.compare(cell.config, weights, finished, n, seed,
+        got = correct.compare(cell, weights, finished, n, seed,
                               control=i < args.control)
         line = {"cell": cell.name, "seed": seed, **got,
                 "reference_s": time.perf_counter() - t_ref,

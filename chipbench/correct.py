@@ -2,7 +2,8 @@
 
 After the window has closed and the program's state is freed, a sample of
 the requests the window finished, drawn from the seed, goes through the
-reference (``reference/decoder.py``): each prompt with the tokens the
+reference (its family's ``reference``, such as ``reference/decoder.py``):
+each prompt with the tokens the
 program served for it, read whole. At each position that chose a served
 token, the gap is the reference's best logit less the reference's logit of
 that token: 0 where the program chose the reference's token, small where
@@ -19,7 +20,6 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from chipbench.reference.decoder import Decoder
 from chipbench.weights import seeds
 
 
@@ -53,24 +53,27 @@ def gaps(ref_logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return ref_logits.amax(-1) - chosen
 
 
-def compare(c: Dict, weights: Dict, finished: List[Tuple], n_sample: int,
+def compare(cell, weights: Dict, finished: List[Tuple], n_sample: int,
             seed: int, *, control: bool = False) -> Dict[str, float]:
     """The widest gap over the sample (``max_gap``) and the number of
-    served tokens it covers. ``finished`` holds (prompts (B, S), served
-    (B, n)) of each finished batch, in order. ``control``: also the widest
-    gap of the tokens that the fp8 reference puts first at the same
-    positions (``control_gap``)."""
+    served tokens it covers, under the reference of the cell's family over
+    its configuration (``cell`` a ``harness.Cell``). ``finished`` holds
+    (prompts (B, S), served (B, n)) of each finished batch, in order.
+    ``control``: also the widest gap of the tokens that the fp8 reference
+    puts first at the same positions (``control_gap``)."""
     batch = finished[0][0].shape[0] if finished else 0
     pick = sample_requests(len(finished), batch, n_sample, seed)
     if not pick:
         return {"max_gap": float("inf"), "tokens": 0}
     prompts = torch.stack([finished[b][0][r] for b, r in pick])
     served = torch.stack([finished[b][1][r] for b, r in pick])
-    ref = Decoder(c, weights).served_logits(prompts, served)
+    family, c = cell.family, cell.config
+    ref = family.reference(c, weights).served_logits(prompts, served)
     out = {"max_gap": float(gaps(ref, served).max()),
            "tokens": int(served.numel())}
     if control:
-        low = Decoder(c, weights, fp8=True).served_logits(prompts, served)
+        low = family.reference(c, weights, fp8=True).served_logits(prompts,
+                                                                   served)
         out["control_gap"] = float(gaps(ref, low.argmax(-1)).max())
         out["control_agree"] = float(
             (low.argmax(-1) == ref.argmax(-1)).float().mean())

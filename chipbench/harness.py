@@ -10,23 +10,31 @@ replay on the card), each serving one more token to every prompt. The
 window opens after set-up and closes at the end of the first batch that
 ends ``seconds`` or more after it opened, so it holds whole batches only
 and every request whose batch started in it finishes in it.
+
+What depends on the model's architecture (its sizes, weights, reference,
+work counts and the port's model of it) is its family's
+(``families/<family>.py``, the configuration file's ``"family"``), which
+:func:`family` imports. A ``--trace 1`` run also keeps what the program
+records of itself: its spans, and which of its batches were the window's.
 """
 from __future__ import annotations
 
 import contextlib
 import gc
+import importlib
 import importlib.util
 import json
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from chipbench import correct, work
 from chipbench.trace import TraceWindow, Tracer
-from chipbench.weights import DTYPES, Prompts, make_weights
+from chipbench.weights import DTYPES, Prompts
 
 ROOT = Path(__file__).resolve().parent
 #: the batch of the window that a traced run profiles (the first whole
@@ -36,12 +44,14 @@ TRACED_BATCH = 1
 
 @dataclass
 class Cell:
-    """A cell of ``BENCHMARK.json`` with the files its names lead to."""
+    """A cell of ``BENCHMARK.json`` with the files its names lead to and
+    its configuration's family module."""
 
     name: str
     config: Dict
     traffic: Dict
     check: Dict
+    family: ModuleType
     chips: int = 1
 
     @property
@@ -50,8 +60,9 @@ class Cell:
         return work.Batch(t["batch"], t["prompt"], t["output"])
 
     @property
-    def dims(self) -> work.Dims:
-        return work.Dims.of(self.config)
+    def dims(self):
+        """The family's sizes of the configuration."""
+        return self.family.sizes(self.config)
 
 
 def _json(path: Path) -> Dict:
@@ -66,9 +77,16 @@ def as_run(c: Dict) -> Dict:
     return {**c, **c.get("departures", {})}
 
 
+def family(name: str) -> ModuleType:
+    """The family module ``chipbench.families.<name>``, the file
+    ``families/<name>.py`` (its interface: ``families/__init__.py``)."""
+    return importlib.import_module(f"chipbench.families.{name}")
+
+
 def load_cell(bench: Dict, name: str) -> Cell:
     """The cell ``name`` of the benchmark file ``bench``, with its
-    configuration, traffic and check files."""
+    configuration, traffic and check files and its configuration's
+    family."""
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
         raise KeyError(f"no workload {name!r}; known: {sorted(cells)}")
@@ -78,6 +96,7 @@ def load_cell(bench: Dict, name: str) -> Cell:
     return Cell(name=name, config=config,
                 traffic=_json(ROOT / "traffic" / f"{w['traffic']}.json"),
                 check=_json(ROOT / "cells" / f"{name}.json"),
+                family=family(config.get("family", "dense")),
                 chips=w["chips"])
 
 
@@ -98,6 +117,11 @@ class Run:
     capture_s: List[float] = field(default_factory=list)
     peak_bytes: int = 0
     trace: Optional[TraceWindow] = None
+    #: ``--trace 1`` runs only: the program's spans as plain records
+    #: (``program.spans``), and each window batch's prefill serial (the
+    #: ``batch`` its spans carry) with whether it was the profiled one
+    spans: List[Dict] = field(default_factory=list)
+    window_batches: List[Tuple[int, bool]] = field(default_factory=list)
 
     @property
     def requests(self) -> int:
@@ -127,11 +151,10 @@ def serve(cell: Cell, seed: int, seconds: float, *, device, t0: float,
     device = torch.device(device)
     b, run = cell.batch, Run(cell)
     dtype = DTYPES[cell.config["torch_dtype"]]
-    weights = make_weights(cell.dims, dtype, seed, device)
+    weights = cell.family.make_weights(cell.dims, dtype, seed, device)
     from chipbench import program
-    server = program.build_server(cell.config, weights, batch=b.batch,
-                                  prompt=b.prompt, output=b.output,
-                                  device=device, log=log)
+    server = program.build_server(cell, weights, device=device, log=log,
+                                  trace=trace)
     # warm-up, on prompts of token 0: a prefill of the cell's shape, the
     # decode graph's capture (the first decode step), then a prefill and a
     # replay again: on the card the first prefill after the capture ran up
@@ -168,6 +191,8 @@ def serve(cell: Cell, seed: int, seconds: float, *, device, t0: float,
         run.ttft_s += [ttft] * b.batch
         run.tokens += b.batch * b.output
         run.batches += 1
+        if trace:
+            run.window_batches.append((program.batch_serial(server), traced))
         finished.append((toks, torch.stack(server.out, dim=1)))
         if batches is not None:
             if run.batches >= batches:
@@ -179,6 +204,8 @@ def serve(cell: Cell, seed: int, seconds: float, *, device, t0: float,
     run.trace = tracer.result
     if device.type == "cuda":
         run.peak_bytes = torch.cuda.max_memory_allocated(device)
+    if trace:
+        run.spans = program.spans(server)
     del server
     gc.collect()
     if device.type == "cuda":
@@ -219,7 +246,7 @@ def check(run: Run, finished: List[Tuple], weights: Dict, seed: int
     """Each number compared, with its limit (the widest gap over the
     sample, :mod:`chipbench.correct`), and the served tokens the sample
     holds."""
-    got = correct.compare(run.cell.config, weights, finished,
+    got = correct.compare(run.cell, weights, finished,
                           run.cell.check["requests"], seed)
     limits = run.cell.check["limits"]
     return ({name: {"value": got[name], "limit": limit}

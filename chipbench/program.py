@@ -1,60 +1,54 @@
 """The program under test, and the only module here that imports it: the
 port's ``DecodeServer`` (``src/repro_torch/launch/serve.py``) built at a
 cell's shapes with the port's built-in kernel blocks (no tuning store is
-read or written)."""
+read or written), and what the program records of itself: its spans
+(``launch/spans.py``)."""
 from __future__ import annotations
 
+import dataclasses
 import sys
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Optional
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 if str(SRC) not in sys.path:
     sys.path.insert(0, str(SRC))
 
-from repro_torch.configs.registry import get_arch  # noqa: E402
+# the port's registry, which each family's ``arch_config`` reads from here
+from repro_torch.configs.registry import get_arch  # noqa: E402,F401
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.parallel.sharding import ParallelConfig  # noqa: E402
 
 
-def arch_config(c: Dict):
-    """The port's ``ArchConfig`` of a configuration file: its registry entry
-    at the file's depth, checked field by field against the file, so that
-    a change of the port's registry stops the benchmark instead of
-    measuring another model."""
-    cfg = get_arch(c["registry_name"]).replace(
-        num_layers=c["num_hidden_layers"])
-    if c.get("smoke"):          # a test's cut of the widths, never a cell's
-        cfg = cfg.replace(**c["smoke"])
-    want = {"num_layers": c["num_hidden_layers"], "d_model": c["hidden_size"],
-            "num_heads": c["num_attention_heads"],
-            "num_kv_heads": c["num_key_value_heads"],
-            "resolved_head_dim": c["head_dim"],
-            "d_ff": c["intermediate_size"], "vocab_size": c["vocab_size"],
-            "rope_theta": c["rope_theta"], "norm_eps": c["norm_eps"],
-            "tie_embeddings": c["tie_word_embeddings"],
-            "dtype": c["torch_dtype"], "family": "dense",
-            "attention": "gqa", "mlp_act": "swiglu",
-            "block_pattern": ("attn",), "local_window": None, "moe": None,
-            "qk_norm": False, "scale_embeddings": False, "frontend": None,
-            "cross_attention": False}
-    got = {k: getattr(cfg, k) for k in want}
-    if got != want:
-        bad = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
-        raise ValueError(f"the port's {c['registry_name']} is not the "
-                         f"configuration file's: (port, file) {bad}")
-    return cfg
-
-
-def build_server(c: Dict, weights: Dict, *, batch: int, prompt: int,
-                 output: int, device, log):
-    """A ``DecodeServer`` over ``weights`` for batches of ``batch`` prompts
-    of ``prompt`` tokens and ``output`` tokens each."""
-    cfg = arch_config(c)
-    kc = serve.serving_kernel_config(cfg, device=device, prompt_len=prompt,
-                                     cache_cap=prompt + output, batch=batch,
-                                     store=None, log=log)
+def build_server(cell, weights: Dict, *, device, log, trace: bool = False):
+    """A ``DecodeServer`` over ``weights`` for the cell's batches: the
+    port's model of the cell's configuration (its family's
+    ``arch_config``), batches of ``batch`` prompts of ``prompt`` tokens and
+    ``output`` tokens each. ``trace``: the server records its spans."""
+    cfg = cell.family.arch_config(cell.config)
+    b = cell.batch
+    kc = serve.serving_kernel_config(cfg, device=device, prompt_len=b.prompt,
+                                     cache_cap=b.prompt + b.output,
+                                     batch=b.batch, store=None, log=log)
     return serve.DecodeServer(cfg, ParallelConfig().replace(kernel=kc),
-                              batch=batch, prompt_len=prompt,
-                              decode_steps=output, device=device,
-                              params=weights)
+                              batch=b.batch, prompt_len=b.prompt,
+                              decode_steps=b.output, device=device,
+                              params=weights, trace=trace)
+
+
+def batch_serial(server) -> Optional[int]:
+    """The prefill serial that the server's spans of its latest batch carry
+    (None where it records no spans)."""
+    return None if server.recorder is None else server.recorder.batch
+
+
+def spans(server) -> List[Dict]:
+    """The server's spans as plain records, in the order they opened:
+    ``name``, ``start_ns`` and ``end_ns`` (``time.perf_counter_ns``),
+    ``parent`` (the index of the span open around it, or None), ``batch``
+    (its prefill serial), ``step`` (inside a decode step, its index in the
+    batch) and ``device_ms`` (its CUDA-event interval, where it has one).
+    None are recorded unless the server was built with ``trace``."""
+    if server.recorder is None:
+        return []
+    return [dataclasses.asdict(s) for s in server.recorder.spans]

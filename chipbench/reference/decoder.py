@@ -1,4 +1,5 @@
-"""A plain dense decoder in fp32, TF32 off: the reference of every cell.
+"""A plain dense decoder in fp32, TF32 off: the reference of the ``dense``
+family's cells (``families/dense.py``).
 
 It follows the equations of the port's dense ``ArchConfig`` models, which
 the configuration files state (and where they depart from the published
@@ -28,8 +29,6 @@ from typing import Dict, Iterator
 
 import torch
 import torch.nn.functional as F
-
-from chipbench.work import Dims
 
 E4M3_MAX = 448.0
 MLP_ROWS = 8192
@@ -69,7 +68,8 @@ class Decoder:
         if c["partial_rotary_factor"] != 1.0 or c["norm_type"] != "rms":
             raise ValueError("the reference runs RMSNorm and full rotary "
                              "embeddings only")
-        self.m = Dims.of(c)
+        self.heads, self.head_dim = c["num_attention_heads"], c["head_dim"]
+        self.d_ff = c["intermediate_size"]
         self.eps = float(c["norm_eps"])
         self.theta = float(c["rope_theta"])
         self.w = weights
@@ -119,23 +119,22 @@ class Decoder:
 
     def _layer(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
         """One layer over x (R, T, d), fp32."""
-        m = self.m
         R, T, d = x.shape
         a = p["attn"]
         h = self._norm(x, p["ln1"]["scale"]).reshape(R * T, d)
         q, k, v = (self._mm(h, self._weight(a[n], d)).reshape(R, T, -1,
-                                                              m.head_dim)
+                                                              self.head_dim)
                    for n in ("wq", "wk", "wv"))
         att = torch.stack([self._attention(self._rope(q[r]),
                                            self._rope(k[r]), v[r])
                            for r in range(R)])
         del q, k, v
-        wo = self._weight(a["wo"], m.heads * m.head_dim)
+        wo = self._weight(a["wo"], self.heads * self.head_dim)
         x = x + self._mm(att.reshape(R * T, -1), wo).reshape(R, T, d)
         del att, wo
         h = self._norm(x, p["ln2"]["scale"]).reshape(R * T, d)
         wg, wu = (self._weight(p["mlp"][n], d) for n in ("wg", "wu"))
-        wd = self._weight(p["mlp"]["wd"], m.d_ff)
+        wd = self._weight(p["mlp"]["wd"], self.d_ff)
         y = torch.empty_like(h)
         for lo in range(0, R * T, MLP_ROWS):
             hc = h[lo:lo + MLP_ROWS]

@@ -23,7 +23,8 @@ def cell():
     with open(HERE / "testdata" / "smoke.json", encoding="utf-8") as f:
         c = json.load(f)
     return harness.Cell("smoke", c, {"batch": 4, "prompt": 64, "output": 16},
-                        {"requests": 8, "limits": {"max_gap": LIMIT}})
+                        {"requests": 8, "limits": {"max_gap": LIMIT}},
+                        family=harness.family("dense"))
 
 
 def run_cell(seed, **kw):
@@ -44,8 +45,7 @@ def test_sound_runs_are_correct_and_the_control_is_not(seed):
     run, finished, weights = run_cell(seed)
     assert run.batches == 2 and run.tokens == 2 * 4 * 16
     assert is_correct(run, finished, weights, seed)
-    got = correct.compare(cell().config, weights, finished, 8, seed,
-                          control=True)
+    got = correct.compare(cell(), weights, finished, 8, seed, control=True)
     assert got["control_gap"] > LIMIT
 
 

@@ -8,9 +8,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from chipbench import program, work
+from chipbench.families import dense
 from chipbench.reference.decoder import Decoder, fp8_round
-from chipbench.weights import Prompts, make_weights
+from chipbench.weights import Prompts
 
 HERE = Path(__file__).resolve().parent
 
@@ -28,9 +28,9 @@ def served(c, seed, batch=3, prompt=64, output=6):
     """The port's served tokens and the logits that chose them (B, n, V)."""
     from repro_torch.launch import serve
     from repro_torch.parallel.sharding import ParallelConfig
-    m = work.Dims.of(c)
-    w = make_weights(m, getattr(torch, c["torch_dtype"]), seed, "cpu")
-    cfg = program.arch_config(c)
+    m = dense.sizes(c)
+    w = dense.make_weights(m, getattr(torch, c["torch_dtype"]), seed, "cpu")
+    cfg = dense.arch_config(c)
     kc = serve.serving_kernel_config(cfg, device=torch.device("cpu"),
                                      prompt_len=prompt,
                                      cache_cap=prompt + output, batch=batch)

@@ -111,17 +111,18 @@ WIDTHS = re.compile(r"(_size|_dim|_rank|_factor|per_tok)\Z")
 def test_each_configuration_as_run_is_the_ports_model(name):
     """The file keeps the source's keys; ``departures`` lays the port's
     equations over them, and what the program and the reference then run
-    is the port's registry entry at the file's depth. ``reduced`` names
-    cuts of scale only, never a width, each with its published value."""
-    from chipbench import harness, program
-    from chipbench.reference.decoder import Decoder
+    is the port's registry entry at the file's depth, reached through the
+    file's family. ``reduced`` names cuts of scale only, never a width,
+    each with its published value."""
+    from chipbench import harness
     conf = read(ROOT / {c["name"]: c for c in bench()["configs"]}[name]
                 ["file"])
     assert not any(WIDTHS.search(k) for k in conf["reduced"])
     assert set(conf["reduced"]) <= set(conf.get("published", {}))
     run_as = harness.as_run(conf)
-    program.arch_config(run_as)
-    Decoder(run_as, {})
+    family = harness.family(run_as.get("family", "dense"))
+    family.arch_config(run_as)
+    family.reference(run_as, {})
 
 
 def test_the_per_layer_layers_are_named_in_perf_md():

@@ -1,5 +1,5 @@
-"""The yardstick's work counts against numbers worked by hand, and the
-seeded weights against the port's layout."""
+"""The yardstick's work counts (the dense family's) against numbers worked
+by hand, and the seeded weights against the port's layout."""
 import json
 from pathlib import Path
 
@@ -7,34 +7,35 @@ import pytest
 import torch
 
 from chipbench import work
-from chipbench.weights import Prompts, make_weights, seeds
+from chipbench.families import dense
+from chipbench.weights import Prompts, seeds
 
 HERE = Path(__file__).resolve().parent
 
 
-def dims(name: str) -> work.Dims:
+def dims(name: str) -> dense.Dims:
     with open(HERE / "configs" / f"{name}.json", encoding="utf-8") as f:
-        return work.Dims.of(json.load(f))
+        return dense.Dims.of(json.load(f))
 
 
 def test_stablelm_3b_counts():
     m = dims("stablelm-3b")
-    assert work.kv_bytes_per_token(m) == 327_680
+    assert dense.kv_bytes_per_token(m) == 327_680
     # embedding and head 50,304 x 2,560 each; a layer 4 x 2,560^2 of
     # attention, 3 x 2,560 x 6,912 of MLP and two norms; the final norm
-    assert work.param_count(m) == (2 * 128_778_240
+    assert dense.param_count(m) == (2 * 128_778_240
                                    + 32 * (26_214_400 + 53_084_160 + 5_120)
                                    + 2_560) == 2_795_276_800
 
 
 def test_mistral_stage_counts():
     m = dims("mistral-large-123b-pp8")
-    assert work.kv_bytes_per_token(m) == 45_056
+    assert dense.kv_bytes_per_token(m) == 45_056
     # 11 layers of q, o (12,288^2), k, v (12,288 x 1,024) and the MLP
     # (3 x 12,288 x 28,672), embedding and head 32,768 x 12,288
     layer = 2 * 150_994_944 + 2 * 12_582_912 + 1_056_964_608 + 24_576
-    assert work.param_count(m) == 11 * layer + 2 * 402_653_184 + 12_288
-    assert round(work.param_count(m) / 1e9, 2) == 16.03
+    assert dense.param_count(m) == 11 * layer + 2 * 402_653_184 + 12_288
+    assert round(dense.param_count(m) / 1e9, 2) == 16.03
 
 
 def test_product_bound_takes_the_longer_of_operations_and_bytes():
@@ -47,40 +48,39 @@ def test_product_bound_takes_the_longer_of_operations_and_bytes():
 
 
 def test_attention_work_by_hand():
-    m = work.Dims(layers=1, d=8, heads=2, kv_heads=1, head_dim=4, d_ff=8,
-                  vocab=16)
+    m = dense.Dims(layers=1, d=8, heads=2, kv_heads=1, head_dim=4, d_ff=8,
+                   vocab=16)
     # a prompt of 3: 6 causal pairs, 4 operations a pair a dim and head
-    flops, nbytes = work.flash_attention_work(m, work.Batch(1, 3, 2))
+    flops, nbytes = dense.flash_attention_work(m, work.Batch(1, 3, 2))
     assert flops == 4 * 1 * 2 * 4 * 6
     assert nbytes == 2 * 1 * 3 * 4 * (2 * 2 + 2 * 1)
     # decode over 5 valid slots: K and V of 5 slots, q and out of 2 heads
-    assert work.decode_attention_bytes(m, 1, 5) == 2 * (2 * 5 * 4 + 2 * 8)
+    assert dense.decode_attention_bytes(m, 1, 5) == 2 * (2 * 5 * 4 + 2 * 8)
     # a batch of 3 + 2 out has one decode step, over 4 slots
     assert list(work.Batch(1, 3, 2).decode_contexts()) == [4]
-    assert work.decode_attention_bound_s(m, work.Batch(1, 3, 2)) == (
-        work.decode_attention_bytes(m, 1, 4) / 3.35e12)
+    assert dense.decode_attention_bound_s(m, work.Batch(1, 3, 2)) == (
+        dense.decode_attention_bytes(m, 1, 4) / 3.35e12)
 
 
 def test_model_flops_counts_every_token_once():
-    m = work.Dims(layers=2, d=8, heads=2, kv_heads=1, head_dim=4, d_ff=8,
-                  vocab=16)
+    m = dense.Dims(layers=2, d=8, heads=2, kv_heads=1, head_dim=4, d_ff=8,
+                   vocab=16)
     b = work.Batch(batch=3, prompt=5, output=4)
     per_tok = 2 * 2 * (8 * 8 + 2 * 8 * 4 + 8 * 8 + 3 * 8 * 8)
     head = 2 * 8 * 16
     attn = 4 * 2 * 4 * 2
     want = 3 * (5 * per_tok + head + attn * 15)
     want += sum(3 * (per_tok + head + attn * c) for c in (6, 7, 8))
-    assert work.model_flops(m, b) == want
+    assert dense.model_flops(m, b) == want
 
 
 def test_weights_take_the_ports_layout():
-    from chipbench import program
     from repro_torch.models.params import leaves, model_specs
     with open(HERE / "testdata" / "smoke.json", encoding="utf-8") as f:
         c = json.load(f)
-    m = work.Dims.of(c)
-    w = make_weights(m, torch.bfloat16, 7, "cpu")
-    specs = dict(leaves(model_specs(program.arch_config(c))))
+    m = dense.Dims.of(c)
+    w = dense.make_weights(m, torch.bfloat16, 7, "cpu")
+    specs = dict(leaves(model_specs(dense.arch_config(c))))
     got = dict(leaves(w))
     assert sorted(got) == sorted(specs)
     for path, spec in specs.items():
@@ -93,10 +93,10 @@ def test_weights_take_the_ports_layout():
 
 @pytest.mark.parametrize("seed", [0, 2**31 + 7, 3 * 2**40])
 def test_a_seed_gives_the_same_inputs(seed):
-    m = work.Dims(layers=1, d=8, heads=2, kv_heads=1, head_dim=4, d_ff=8,
-                  vocab=16)
-    a = make_weights(m, torch.bfloat16, seed, "cpu")
-    b = make_weights(m, torch.bfloat16, seed, "cpu")
+    m = dense.Dims(layers=1, d=8, heads=2, kv_heads=1, head_dim=4, d_ff=8,
+                   vocab=16)
+    a = dense.make_weights(m, torch.bfloat16, seed, "cpu")
+    b = dense.make_weights(m, torch.bfloat16, seed, "cpu")
     assert torch.equal(a["lm_head"]["w"], b["lm_head"]["w"])
     p, q = (Prompts(seed, 16, 2, 4, "cpu") for _ in range(2))
     assert torch.equal(p.next(), q.next())

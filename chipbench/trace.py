@@ -5,8 +5,10 @@ the benchmark's own span that the host was in.
 
 The benchmark marks the calls it makes into the serve layer with spans of
 its own (``chipbench.prefill``, ``chipbench.decode_step``,
-``chipbench.prompts``) and the traced window with ``chipbench.window``;
-the program itself carries no spans yet.
+``chipbench.prompts``) and the traced window with ``chipbench.window``.
+The program's own spans (``serve.*``, ``launch/spans.py``) are not read
+from the profiler here: a traced run keeps them from the program's
+recorder (``harness.Run.spans``).
 """
 from __future__ import annotations
 

@@ -3,21 +3,19 @@ comparison draws.
 
 The weights are made on the device in a few large calls: every weight of
 one distribution is a view into one flat buffer filled by ``normal_`` in
-chunks of a gigaelement, in the dtype they are served in. The
-distributions are the port's (``repro_torch.models.params.init_params``):
-normal x 0.02, the two output projections of a layer at 0.02 / sqrt(2L),
-norm scales ones in fp32. The tree is laid out as the port's model takes
-it; the reference reads the same tensors.
+chunks of a gigaelement, in the dtype they are served in
+(:func:`tree_of`). Which weights there are, their shapes and their
+distributions are the family's (``families/<family>.py``
+``make_weights``), laid out as the port's model takes them; the reference
+reads the same tensors.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-
-from chipbench.work import Dims
 
 CHUNK = 1 << 30
 
@@ -30,26 +28,6 @@ def seeds(seed: int) -> Dict[str, int]:
     kids = np.random.SeedSequence(int(seed)).spawn(3)
     return {name: int(k.generate_state(1, np.uint64)[0] >> np.uint64(1))
             for name, k in zip(("weights", "prompts", "sample"), kids)}
-
-
-def _leaves(m: Dims) -> Tuple[List, List, List]:
-    """(path, shape) of each weight, in three groups: normal at 0.02, the
-    output projections, and the norm scales."""
-    wide, out, norms = [(("embed", "table"), (m.vocab, m.d))], [], []
-    for i in range(m.layers):
-        a = ("layers", i, "attn")
-        wide += [(a + ("wq",), (m.d, m.heads, m.head_dim)),
-                 (a + ("wk",), (m.d, m.kv_heads, m.head_dim)),
-                 (a + ("wv",), (m.d, m.kv_heads, m.head_dim)),
-                 (("layers", i, "mlp", "wg"), (m.d, m.d_ff)),
-                 (("layers", i, "mlp", "wu"), (m.d, m.d_ff))]
-        out += [(a + ("wo",), (m.heads, m.head_dim, m.d)),
-                (("layers", i, "mlp", "wd"), (m.d_ff, m.d))]
-        norms += [(("layers", i, "ln1", "scale"), (m.d,)),
-                  (("layers", i, "ln2", "scale"), (m.d,))]
-    wide.append((("lm_head", "w"), (m.d, m.vocab)))
-    norms.append((("final_norm", "scale"), (m.d,)))
-    return wide, out, norms
 
 
 def _put(tree: Dict, path: Tuple, value: torch.Tensor) -> None:
@@ -80,26 +58,23 @@ def _normal(n: int, std: float, dtype, gen: torch.Generator, device):
     return buf
 
 
-def make_weights(m: Dims, dtype: torch.dtype, seed: int, device
-                 ) -> Dict:
-    """The weights of seed ``seed`` as the port's tree: ``embed.table``
-    (V, d), ``layers[i]`` with ``ln1``/``ln2`` scales, ``attn`` wq, wk, wv
-    (d, heads, hd) and wo (H, hd, d), ``mlp`` wg, wu (d, d_ff) and wd
-    (d_ff, d); ``final_norm.scale``; ``lm_head.w`` (d, V)."""
+def tree_of(groups: Sequence[Tuple[Sequence, Optional[float], torch.dtype]],
+            seed: int, device) -> Dict:
+    """A weight tree from the seed's own stream. ``groups`` holds
+    (leaves, std, dtype), each leaf a (path, shape): a group's weights are
+    views into one flat buffer of ``dtype``, filled by ``normal_`` at
+    ``std`` in chunks of a gigaelement, or with ones where ``std`` is None.
+    The groups are filled in order, so a family that keeps its groups'
+    order keeps its weights."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seeds(seed)["weights"])
-    wide, out, norms = _leaves(m)
     tree: Dict = {}
-    groups = ((wide, 0.02, dtype), (out, 0.02 / math.sqrt(2 * m.layers),
-                                    dtype))
-    for leaves, std, dt in groups:
-        buf = _normal(sum(math.prod(s) for _, s in leaves), std, dt, gen,
-                      device)
+    for leaves, std, dtype in groups:
+        n = sum(math.prod(s) for _, s in leaves)
+        buf = (torch.ones(n, dtype=dtype, device=device) if std is None
+               else _normal(n, std, dtype, gen, device))
         for path, view in _views(buf, leaves):
             _put(tree, path, view)
-    ones = torch.ones(len(norms) * m.d, dtype=torch.float32, device=device)
-    for path, view in _views(ones, norms):
-        _put(tree, path, view)
     return tree
 
 
